@@ -1,0 +1,433 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit.
+2. Builds the port's CUDA kernels (K1 sdf_fwd, K2 render_fwd, K4 nerf_fwd)
+   from the sources in this checkout, one nvcc per source, in parallel.
+3. Kernel phase: holds each kernel against its plain PyTorch version on the
+   card at the full ``confs/womsk_white_tpu.conf`` widths, at the row counts
+   one 4096-ray chunk gives it plus a ragged tail (K2 in ``idr`` mode, K4 with
+   and without the dpt head), and times kernel and plain version with CUDA
+   events.
+4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere), the
+   conf with only its paths rewritten and a seeded full-width geometric-init
+   ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
+   port's CLI on ``cuda`` with the launch counts set to 0 just before and read
+   just after. Fails if a kernel of the path was not launched.
+5. Output check: the summaries are finite, every depth ``.npy`` was written at
+   full resolution, and a 512-ray render through the kernels agrees with the
+   same render through the plain versions on the CPU.
+6. Prints one ``{"kernels": [...]}`` line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure exits non-zero and prints no result. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published dense peaks at the 700 W limit (NVIDIA data sheet)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
+
+# rows per 4096-ray chunk at womsk_white_tpu: ladder 64 + 3 x 16 per ray
+# (the last round's SDF call is skipped at resample_uniform_frac = 1.0), the
+# 96-sample resampled core, 32 outside samples + 1 with skip_bg_inside
+CHUNK = 4096
+K1_ROWS = (CHUNK * 64, CHUNK * 16)
+K2_ROWS = CHUNK * 96
+K4_ROWS = CHUNK * 33
+RAGGED = 37
+
+# K1 is f32 throughout: the kernel and torch differ in summation order and in
+# the last ulp of exp/log1p/sin/cos. K2/K4 round every matmul operand to bf16
+# on both sides, so a last-ulp difference upstream can flip one rounding and
+# cascade: two bf16 ulps at the output's scale.
+K1_TOL = 1e-4
+
+
+def bf16_tol(ref) -> float:
+    return 2.0**-7 * max(1.0, float(ref.abs().max()))
+
+
+REPLACES = {
+    "sdf_fwd": "vdnerf_tpu/ops/pallas/sdf_fwd.py:114",
+    "render_fwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:272",
+    "nerf_fwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:518",
+}
+SOURCE = {
+    "sdf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/sdf_fwd.cu",
+    "render_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+    "nerf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+}
+
+SCENE_VIEWS, SCENE_H, SCENE_W = 8, 300, 400
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(rows: int, flops_row: int, io_bytes_row: int, weight_bytes: int, peak_ops: float):
+    """(bound_ms, bound_by): each input read once, each output written once."""
+    t_bytes = (rows * io_bytes_row + weight_bytes) / PEAK_BYTES_S
+    t_ops = rows * flops_row / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _weights(gen, dims, device, std_from_out=False):
+    """Random effective [in, out] weights and small biases."""
+    import torch
+
+    ws, bs = [], []
+    for k, n in dims:
+        std = math.sqrt(2.0 / n) if std_from_out else 1.0 / math.sqrt(k)
+        ws.append((torch.randn(k, n, generator=gen) * std).to(device))
+        bs.append((torch.randn(n, generator=gen) * 0.05).to(device))
+    return ws, bs
+
+
+def _compare(name, got, want, tol_fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    tol = max(tol_fn(w) for _, w in pairs)
+    finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+    scale = max(float(w.abs().max()) for _, w in pairs)
+    print(f"[kernel] {name}: rows={pairs[0][1].shape[0]} max_abs_err={err:.3e} "
+          f"tol={tol:.3e} max|plain|={scale:.3e} finite={finite}")
+    if not finite or not err <= tol:
+        raise SystemExit(f"{name}: the kernel disagrees with its plain version")
+    return err
+
+
+def kernel_phase(device) -> dict:
+    """Each kernel against its plain version at full width -> {name: record}."""
+    import torch
+
+    from vdnerf_tpu_torch.ops.kernels import fused_mlp, sdf_fwd
+
+    gen = torch.Generator().manual_seed(0)
+    rec = {}
+
+    # K1: SDF 8x256, skip at 4, multires 6 -> 39-ch embedding; sdf column only
+    sdf_dims = [(39, 256), (256, 256), (256, 256), (256, 217)] + [(256, 256)] * 4 + [(256, 1)]
+    ws, bs = _weights(gen, sdf_dims, device, std_from_out=True)
+    sdf_args = (ws, bs, (4,), 6, 1.0)
+    flops_row = 2 * sum(k * n for k, n in sdf_dims)
+    wbytes = sum(w.numel() + b.numel() for w, b in zip(ws, bs)) * 4
+    errs, shapes = [], []
+    for rows in K1_ROWS:
+        pts = (torch.rand(rows + RAGGED, 3, generator=gen) * 2 - 1).to(device)
+        errs.append(_compare("sdf_fwd", [sdf_fwd.sdf_value(pts, *sdf_args)],
+                             [sdf_fwd.sdf_value_plain(pts, *sdf_args)], lambda _: K1_TOL))
+        pts = pts[:rows].contiguous()
+        b_ms, b_by = bound(rows, flops_row, (3 + 1) * 4, wbytes, PEAK_F32_S)
+        shapes.append({
+            "rows": rows,
+            "ms": time_ms(lambda: sdf_fwd.sdf_value(pts, *sdf_args)),
+            "plain_ms": time_ms(lambda: sdf_fwd.sdf_value_plain(pts, *sdf_args)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rec["sdf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
+
+    # K2: IDR colour head, 4x256, multires_view 4 -> 3 + 27 + 3 + 256 = 289 inputs
+    r_dims = [(289, 256), (256, 256), (256, 256), (256, 256), (256, 3)]
+    ws, bs = _weights(gen, r_dims, device)
+    plan = ("idr", 4, True)
+
+    def r_inputs(rows):
+        t = [torch.randn(rows, 3, generator=gen) for _ in range(3)]
+        t[2] = t[2] / t[2].norm(dim=-1, keepdim=True)
+        feat = torch.randn(rows, 256, generator=gen) * 0.5
+        return [x.to(device) for x in (*t, feat)]
+
+    inp = r_inputs(K2_ROWS + RAGGED)
+    err = _compare("render_fwd", [fused_mlp.render_net(plan, *inp, ws, bs)],
+                   [fused_mlp.render_net_plain(plan, *inp, ws, bs)], bf16_tol)
+    inp = [x[:K2_ROWS].contiguous() for x in inp]
+    flops_row = 2 * sum(k * n for k, n in r_dims)
+    wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(ws, bs))
+    b_ms, b_by = bound(K2_ROWS, flops_row, (3 + 3 + 3 + 256 + 3) * 4, wbytes, PEAK_BF16_S)
+    rec["render_fwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
+        "rows": K2_ROWS,
+        "ms": time_ms(lambda: fused_mlp.render_net(plan, *inp, ws, bs)),
+        "plain_ms": time_ms(lambda: fused_mlp.render_net_plain(plan, *inp, ws, bs)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }]}
+
+    # K4: background NeRF 8x256, skip after 4, d_in 4 multires 10 (84 ch),
+    # views multires 4 (27 ch); heads alpha, feature, views0, rgb[, dpt 96]
+    t_dims = [(84, 256)] + [(256, 256)] * 4 + [(340, 256)] + [(256, 256)] * 2
+    tw, tb = _weights(gen, t_dims, device)
+    h_dims = [(256, 1), (256, 256), (283, 128), (128, 3), (128, 96)]
+    hw, hb = _weights(gen, h_dims, device)
+
+    def n_inputs(rows):
+        p = torch.randn(rows, 3, generator=gen)
+        p = p / p.norm(dim=-1, keepdim=True)
+        inv_r = torch.rand(rows, 1, generator=gen)
+        v = torch.randn(rows, 3, generator=gen)
+        v = v / v.norm(dim=-1, keepdim=True)
+        return torch.cat([p, inv_r], -1).to(device), v.to(device)
+
+    errs = []
+    for has_dpt in (False, True):
+        nplan = (10, 4, (4,), 8, has_dpt)
+        heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
+        pts4, views = n_inputs(K4_ROWS + RAGGED)
+        errs.append(_compare(
+            f"nerf_fwd(has_dpt={has_dpt})",
+            list(fused_mlp.nerf(nplan, pts4, views, tw, tb, *heads)),
+            list(fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, *heads)), bf16_tol))
+    nplan = (10, 4, (4,), 8, False)
+    pts4, views = (x[:K4_ROWS].contiguous() for x in n_inputs(K4_ROWS))
+    flops_row = 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
+    wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(tw + hw[:4], tb + hb[:4]))
+    b_ms, b_by = bound(K4_ROWS, flops_row, (4 + 3 + 1 + 3) * 4, wbytes, PEAK_BF16_S)
+    rec["nerf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": [{
+        "rows": K4_ROWS,
+        "ms": time_ms(lambda: fused_mlp.nerf(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
+        "plain_ms": time_ms(lambda: fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }]}
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# slice phase
+# ---------------------------------------------------------------------------
+
+
+def _look_at(eye):
+    import numpy as np
+
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, np.cross(fwd, right), fwd, eye
+    return c2w
+
+
+def write_scene(data_dir: str) -> None:
+    """8 RGBA views of a Lambertian sphere of radius 0.5 from a ring at
+    distance 3, with ``image/cameras_sphere.npz`` (world_mat_<stem> = K w2c,
+    scale_mat_<stem> = I)."""
+    import cv2 as cv
+    import numpy as np
+
+    img_dir = os.path.join(data_dir, "image")
+    os.makedirs(img_dir)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 350.0
+    K[0, 2], K[1, 2] = SCENE_W / 2, SCENE_H / 2
+    light = np.array([0.4, -0.3, 0.85]) / np.linalg.norm([0.4, -0.3, 0.85])
+    xs, ys = np.meshgrid(np.arange(SCENE_W), np.arange(SCENE_H))
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
+    cams = {}
+    for i in range(SCENE_VIEWS):
+        theta = 2 * np.pi * i / SCENE_VIEWS
+        c2w = _look_at(3.0 * np.array([np.cos(theta), np.sin(theta), 0.4 + 0.1 * (i % 3)]))
+        d = pix @ np.linalg.inv(K[:3, :3]).T
+        d = (d / np.linalg.norm(d, axis=-1, keepdims=True)) @ c2w[:3, :3].T
+        o = c2w[:3, 3]
+        b = d @ o
+        disc = b**2 - (o @ o - 0.25)
+        hit = disc > 0
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        n = (o + d * t[..., None]) / 0.5
+        shade = 0.15 + 0.85 * np.clip(n @ light, 0.0, 1.0)
+        rgb = np.stack([0.9 * shade, 0.6 * shade, 0.3 + 0.5 * shade], -1)
+        rgba = np.zeros((SCENE_H, SCENE_W, 4), np.uint8)
+        rgba[..., :3] = np.where(hit[..., None], rgb * 255, 255).astype(np.uint8)
+        rgba[..., 3] = hit * 255
+        stem = f"{i:03d}"
+        cv.imwrite(os.path.join(img_dir, f"{stem}.png"), rgba)
+        cams[f"world_mat_{stem}"] = (K @ np.linalg.inv(c2w)).astype(np.float32)
+        cams[f"scale_mat_{stem}"] = np.eye(4, dtype=np.float32)
+    np.savez(os.path.join(img_dir, "cameras_sphere.npz"), **cams)
+
+
+def write_conf(tmp: str) -> str:
+    """confs/womsk_white_tpu.conf with only its two paths rewritten."""
+    with open(os.path.join(ROOT, "confs", "womsk_white_tpu.conf")) as f:
+        text = f.read()
+    for old, new in (("./exp/CASE_NAME", f"{tmp}/exp/CASE_NAME"),
+                     ("./depth_data/CASE_NAME", f"{tmp}/depth_data/CASE_NAME")):
+        if text.count(old) != 1:
+            raise SystemExit(f"womsk_white_tpu.conf: expected one {old!r}")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, "womsk_white_tpu.conf")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def slice_phase(tmp: str) -> dict:
+    """valimg_0 and getfeats_0 through the port's CLI on the card."""
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.io.checkpoints import save_reference_checkpoint
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.train.builder import build_model, build_networks
+    from vdnerf_tpu_torch.utils.hocon import load_conf
+
+    case = "sphere"
+    data_dir = os.path.join(tmp, "depth_data", case)
+    write_scene(data_dir)
+    conf_path = write_conf(tmp)
+    conf = load_conf(conf_path, case)
+    model = build_model(conf, build_networks(conf), seed=0)
+    exp_dir = conf.get_string("general.base_exp_dir")
+    save_reference_checkpoint(os.path.join(exp_dir, "checkpoints", "ckpt_000000.pth"), model, 0)
+
+    base = ["--conf", conf_path, "--case", case]
+    res = {"launches": {}, "summary": {}, "rays_per_s": {}}
+    build.reset_launches()
+    for mode, level in (("valimg_0", 2), ("getfeats_0", 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = cli.main(base + ["--mode", mode])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rays = SCENE_VIEWS * (SCENE_H // level) * (SCENE_W // level)
+        res["summary"][mode] = summary
+        res["rays_per_s"][mode] = rays / wall
+        print(f"[slice] {mode}: {summary} rays={rays} wall_s={wall:.3f} rays/s={rays / wall:.1f}")
+        if not all(math.isfinite(v) for v in summary.values()):
+            raise SystemExit(f"{mode}: non-finite summary {summary}")
+    res["launches"] = dict(build.LAUNCHES)
+    print(f"[slice] launches on the main path: {res['launches']}")
+    missing = [k for k, v in res["launches"].items() if v == 0]
+    if missing:
+        raise SystemExit(f"the main path launched no {missing}")
+
+    depth_dir = os.path.join(data_dir, "image", "depth_from_sdf")
+    names = sorted(os.listdir(depth_dir))
+    if names != [f"sdf_{i:03d}.npy" for i in range(SCENE_VIEWS)]:
+        raise SystemExit(f"getfeats wrote {names}")
+    for name in names:
+        depth = np.load(os.path.join(depth_dir, name))
+        if depth.shape != (SCENE_H, SCENE_W, 1) or not np.isfinite(depth).all():
+            raise SystemExit(f"{name}: shape {depth.shape}, finite={np.isfinite(depth).all()}")
+    print(f"[slice] depth .npy written: {len(names)} x {(SCENE_H, SCENE_W, 1)}, finite")
+    res["conf"] = conf
+    return res
+
+
+def reference_check(conf, device) -> dict:
+    """512 rays of the full-width model: kernels on the card against the
+    plain versions on the CPU. color atol 5e-3 (bf16 operand rounding, as the
+    port's render tests); argmax-weight depth within 1e-3 on >= 99% of rays."""
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
+    from vdnerf_tpu_torch.ops.renderer import render
+    from vdnerf_tpu_torch.train.builder import build_model, build_networks
+
+    nets = build_networks(conf)
+    rng = np.random.default_rng(1)
+    o = rng.normal(size=(512, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.6, 0.6, size=(512, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    outs = {}
+    for key, dev in (("card", device), ("plain", torch.device("cpu"))):
+        model = build_model(conf, nets, seed=0).to(dev)
+        ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
+        with torch.no_grad():
+            out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd), perturb_overwrite=0,
+                         background_rgb=torch.ones(1, 3, device=dev), cos_anneal_ratio=1.0)
+        inside = out["inside_sphere"]
+        w = out["weights"][:, : inside.shape[1]] * inside
+        depth = torch.gather(out["z_vals"], -1, w.argmax(-1, keepdim=True))
+        outs[key] = (out["color_fine"].cpu(), depth.cpu())
+    color_err = float((outs["card"][0] - outs["plain"][0]).abs().max())
+    depth_agree = float(((outs["card"][1] - outs["plain"][1]).abs() <= 1e-3).float().mean())
+    print(f"[check] 512-ray render, kernels vs plain on the CPU: color max_abs_err="
+          f"{color_err:.3e} (tol 5e-3), depth agreement {depth_agree:.4f} (>= 0.99)")
+    if not color_err <= 5e-3 or depth_agree < 0.99:
+        raise SystemExit("the render through the kernels disagrees with the plain render")
+    return {"color_max_abs_err": color_err, "depth_agreement": depth_agree}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.utils.device import configure_numerics
+
+    device = torch.device("cuda:0")
+    configure_numerics()
+    print(card_line())
+
+    t0 = time.time()
+    build.build_all()
+    print(f"[build] kernels built in {time.time() - t0:.1f} s")
+
+    kern = kernel_phase(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = slice_phase(tmp)
+        reference_check(res["conf"], device)
+
+    kernels = []
+    for name, r in kern.items():
+        main_shape = r["shapes"][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": res["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"], "library_ms": None,
+            "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
+        })
+    print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"]}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

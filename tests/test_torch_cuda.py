@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU (``cuda`` marker) and skip without one: a CUDA
+kernel has no CPU interpret mode. The file imports neither JAX nor the JAX
+package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Inputs and weights are numpy-seeded, at small widths and odd row counts so
+the ragged last tile is exercised. Tolerances: K1 (f32 throughout) atol 1e-4,
+for summation order and last-ulp differences of exp/log1p/sin/cos; K2/K4
+(bf16 operands, f32 accumulation on both sides) two bf16 ulps at the output's
+scale, 2^-7 * max(1, max|plain|), because a last-ulp difference upstream can
+flip one bf16 rounding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from vdnerf_tpu_torch.ops.kernels import build, fused_mlp, sdf_fwd
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _weights(rng, dims, device):
+    ws = [torch.tensor(rng.normal(size=(k, n)) / np.sqrt(k), dtype=torch.float32, device=device)
+          for k, n in dims]
+    bs = [torch.tensor(rng.normal(size=n) * 0.05, dtype=torch.float32, device=device)
+          for _, n in dims]
+    return ws, bs
+
+
+def _bf16_close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 2.0**-7 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("hidden,n_lin,skip,multires,scale", [
+    (64, 5, (2,), 6, 1.0), (32, 3, (), 4, 1.0), (64, 5, (2,), 6, 2.0)])
+def test_sdf_kernel_matches_plain(card, hidden, n_lin, skip, multires, scale):
+    rng = np.random.default_rng(0)
+    d_emb = 3 * (1 + 2 * multires)
+    dims, width = [], d_emb
+    for l in range(n_lin):
+        k = width + (d_emb if l in skip else 0)
+        n = 1 if l == n_lin - 1 else (hidden - d_emb if l + 1 in skip else hidden)
+        dims.append((k, n))
+        width = n
+    ws, bs = _weights(rng, dims, card)
+    pts = torch.tensor(rng.uniform(-1, 1, size=(301, 3)), dtype=torch.float32, device=card)
+    before = build.LAUNCHES["sdf_fwd"]
+    got = sdf_fwd.sdf_value(pts, ws, bs, skip, multires, scale)
+    assert build.LAUNCHES["sdf_fwd"] == before + 1
+    want = sdf_fwd.sdf_value_plain(pts, ws, bs, skip, multires, scale)
+    assert got.shape == (301, 1)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode,multires_view,d_small,squeeze_out", [
+    ("idr", 4, 3 + 27 + 3, True), ("no_view_dir", 0, 3 + 3, True),
+    ("no_normal", 4, 3 + 27, False)])
+def test_render_kernel_matches_plain(card, mode, multires_view, d_small, squeeze_out):
+    rng = np.random.default_rng(2)
+    ws, bs = _weights(rng, [(d_small + 32, 48), (48, 48), (48, 3)], card)
+    pts, nrm, dirs = (torch.tensor(rng.normal(size=(77, 3)), dtype=torch.float32, device=card)
+                      for _ in range(3))
+    feat = torch.tensor(rng.normal(size=(77, 32)), dtype=torch.float32, device=card)
+    plan = (mode, multires_view, squeeze_out)
+    before = build.LAUNCHES["render_fwd"]
+    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs)
+    assert build.LAUNCHES["render_fwd"] == before + 1
+    _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs))
+
+
+@pytest.mark.parametrize("has_dpt", [False, True])
+def test_nerf_kernel_matches_plain(card, has_dpt):
+    rng = np.random.default_rng(3)
+    D, W, skips, multires, multires_view = 4, 32, (2,), 4, 2
+    e_pts, e_view = 4 * (1 + 2 * multires), 3 * (1 + 2 * multires_view)
+    tw, tb = _weights(rng, [(e_pts, W)] + [(W + e_pts if i - 1 in skips else W, W)
+                                         for i in range(1, D)], card)
+    hw, hb = _weights(rng, [(W, 1), (W, W), (W + e_view, W // 2), (W // 2, 3)]
+                      + ([(W // 2, 7)] if has_dpt else []), card)
+    p = rng.normal(size=(83, 3))
+    pts = np.concatenate([p / np.linalg.norm(p, axis=-1, keepdims=True),
+                          rng.uniform(0, 1, size=(83, 1))], -1)
+    pts = torch.tensor(pts, dtype=torch.float32, device=card)
+    views = torch.tensor(rng.normal(size=(83, 3)), dtype=torch.float32, device=card)
+    plan = (multires, multires_view, skips, D, has_dpt)
+    before = build.LAUNCHES["nerf_fwd"]
+    got = fused_mlp.nerf(plan, pts, views, tw, tb, hw, hb)
+    assert build.LAUNCHES["nerf_fwd"] == before + 1
+    want = fused_mlp.nerf_plain(plan, pts, views, tw, tb, hw, hb)
+    assert (got[2] is None) == (not has_dpt)
+    for g, w in zip(got, want):
+        if w is not None:
+            _bf16_close(g, w)
+
+
+def test_kernels_refuse_an_f32_policy(card, monkeypatch):
+    rng = np.random.default_rng(4)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + 8, 16), (16, 3)], card)
+    x = torch.zeros(5, 3, device=card)
+    monkeypatch.setattr(fused_mlp, "_MM_DTYPE", torch.float32)
+    with pytest.raises(RuntimeError, match="bf16 only"):
+        fused_mlp.render_net(("idr", 4, True), x, x, x, torch.zeros(5, 8, device=card), ws, bs)
