@@ -3,22 +3,30 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
-2. Builds the port's CUDA kernels (K1 sdf_fwd, K2 render_fwd, K4 nerf_fwd)
-   from the sources in this checkout, one nvcc per source, in parallel.
+2. Builds the port's CUDA kernels (K1 sdf_fwd; K2 render_fwd, K3 render_bwd,
+   K4 nerf_fwd, K5 nerf_bwd) from the sources in this checkout, one nvcc per
+   source, in parallel.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full ``confs/womsk_white_tpu.conf`` widths, at the row counts
-   one 4096-ray chunk gives it plus a ragged tail (K2 in ``idr`` mode, K4 with
-   and without the dpt head), and times kernel and plain version with CUDA
-   events.
+   one 4096-ray chunk (K1, K2, K4) or one 512-ray training step (K3, K5) gives
+   it plus a ragged tail, and times kernel and plain version with CUDA events.
 4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere), the
    conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
    port's CLI on ``cuda`` with the launch counts set to 0 just before and read
-   just after. Fails if a kernel of the path was not launched.
+   just after. Fails if a forward kernel was not launched.
 5. Output check: the summaries are finite, every depth ``.npy`` was written at
    full resolution, and a 512-ray render through the kernels agrees with the
    same render through the plain versions on the CPU.
-6. Prints one ``{"kernels": [...]}`` line, then the last line
+6. Training phase: ``--mode train`` through the CLI at full width, 40 steps
+   across ``resample_from`` (only the paths and five ``train`` keys
+   rewritten), launch counts set to 0 before and read after (fails unless all
+   five kernels ran); checks finite logged losses, the checkpoints, that every
+   network moved, and that ``valimg_40`` from the last checkpoint gives the
+   run's closing summary. Then times steps per core width.
+7. Gradient check: one full-width step on 128 rays through the kernels on the
+   card against the plain versions on the CPU.
+8. Prints one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero and prints no result. Imports nothing of JAX.
@@ -49,6 +57,12 @@ K1_ROWS = (CHUNK * 64, CHUNK * 16)
 K2_ROWS = CHUNK * 96
 K4_ROWS = CHUNK * 33
 RAGGED = 37
+# rows per training step (batch 512): the backward of the colour head over
+# the faithful 128-sample core (96 after resample_from), and of the
+# background NeRF over 32 outside samples + 1
+BATCH = 512
+K3_ROWS = BATCH * 128
+K5_ROWS = BATCH * 33
 
 # K1 is f32 throughout: the kernel and torch differ in summation order and in
 # the last ulp of exp/log1p/sin/cos. K2/K4 round every matmul operand to bf16
@@ -61,15 +75,30 @@ def bf16_tol(ref) -> float:
     return 2.0**-7 * max(1.0, float(ref.abs().max()))
 
 
+# K3/K5: each output (input cotangents, dW, db) within 2^-6 relative L2
+# error of its plain version. Both round every layer's delta to bf16, but in
+# another summation order; once a row takes one rounding (or a relu kink) the
+# other way its later values drift by ~1e-4 and round differently again, so
+# the two differ by about a bf16 ulp (2^-8) times the square root of the
+# depth (5 layers for K3, 11 for K5); the point embedding's VJP multiplies
+# K5's d(pts) by up to 2^9. The log prints the plain version's own distance
+# from its f32-operand twin beside it, the size of that rounding noise.
+BWD_L2_TOL = 2.0**-6
+
+
 REPLACES = {
     "sdf_fwd": "vdnerf_tpu/ops/pallas/sdf_fwd.py:114",
     "render_fwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:272",
     "nerf_fwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:518",
+    "render_bwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:314",
+    "nerf_bwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:575",
 }
 SOURCE = {
     "sdf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/sdf_fwd.cu",
     "render_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
     "nerf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+    "render_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+    "nerf_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
 }
 
 SCENE_VIEWS, SCENE_H, SCENE_W = 8, 300, 400
@@ -118,6 +147,8 @@ def _weights(gen, dims, device, std_from_out=False):
 
 
 def _compare(name, got, want, tol_fn) -> float:
+    """Each output against its plain version within tol_fn(plain) -> the
+    largest abs error."""
     import torch
 
     torch.cuda.synchronize()
@@ -131,6 +162,48 @@ def _compare(name, got, want, tol_fn) -> float:
     if not finite or not err <= tol:
         raise SystemExit(f"{name}: the kernel disagrees with its plain version")
     return err
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _compare_bwd(name, got, again, want, want32) -> float:
+    """A backward kernel's outputs against the plain version within
+    BWD_L2_TOL relative L2 error each, and two launches bit for bit equal ->
+    the largest abs error. ``want32``: the plain version with f32 operands."""
+    import torch
+
+    torch.cuda.synchronize()
+    errs, worst = [], (0.0, "")
+    for i, (g, a, w, w32) in enumerate(zip(got, again, want, want32)):
+        if not bool(torch.isfinite(g).all()) or not torch.equal(g, a):
+            raise SystemExit(f"{name} #{i}: not finite, or two launches differ")
+        errs.append(float((g - w).abs().max()))
+        rel, noise = _rel_l2(g, w), _rel_l2(w, w32)
+        worst = max(worst, (rel, f"#{i} {tuple(w.shape)} (plain vs f32 operands {noise:.3e})"))
+        if not rel <= BWD_L2_TOL:
+            raise SystemExit(f"{name} #{i}: relative L2 error {rel:.3e} > {BWD_L2_TOL:.3e}")
+    print(f"[kernel] {name}: rows={want[0].shape[0]} tensors={len(errs)} "
+          f"max_abs_err={max(errs):.3e} worst rel L2 error {worst[0]:.3e} at {worst[1]} "
+          f"(tol {BWD_L2_TOL:.3e}); two launches bit-identical")
+    return max(errs)
+
+
+def _bwd_runs(kernel, plain, args):
+    """(kernel, kernel again, plain, plain with f32 operands) on args."""
+    import torch
+
+    from vdnerf_tpu_torch.ops.kernels import fused_mlp
+
+    got, again, want = kernel(*args), kernel(*args), plain(*args)
+    dtype = fused_mlp._MM_DTYPE
+    fused_mlp._MM_DTYPE = torch.float32
+    try:
+        want32 = plain(*args)
+    finally:
+        fused_mlp._MM_DTYPE = dtype
+    return got, again, want, want32
 
 
 def kernel_phase(device) -> dict:
@@ -223,6 +296,50 @@ def kernel_phase(device) -> dict:
         "plain_ms": time_ms(lambda: fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
         "bound_ms": b_ms, "bound_by": b_by,
     }]}
+
+    # K3: the colour head's backward at one training step's core rows. A
+    # backward recomputes the forward, then runs dx and dW products: three
+    # times the forward's operations. Bytes: the inputs and g read once, the
+    # input cotangents written once, bf16 weights read, f32 dW/db written.
+    def flat(grads):
+        return [t for x in grads for t in (x if isinstance(x, list) else [x])]
+
+    inp = r_inputs(K3_ROWS + RAGGED)
+    g = torch.randn(K3_ROWS + RAGGED, 3, generator=gen).to(device)
+    err = _compare_bwd("render_bwd", *(flat(x) for x in _bwd_runs(
+        fused_mlp._render_bwd_launch, fused_mlp.render_net_bwd_plain,
+        (plan, *inp, ws, bs, g))))
+    inp, g = [x[:K3_ROWS].contiguous() for x in inp], g[:K3_ROWS].contiguous()
+    flops_row = 3 * 2 * sum(k * n for k, n in r_dims)
+    wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4 for w, b in zip(ws, bs))
+    b_ms, b_by = bound(K3_ROWS, flops_row, (3 + 3 + 3 + 256 + 3 + 3 + 3 + 3 + 256) * 4, wbytes,
+                       PEAK_BF16_S)
+    rec["render_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
+        "rows": K3_ROWS,
+        "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, ws, bs, g)),
+        "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, ws, bs, g)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }]}
+
+    # K5: the background NeRF's backward at one training step's outside rows
+    nplan = (10, 4, (4,), 8, False)
+    pts4, views = n_inputs(K5_ROWS + RAGGED)
+    gs = [torch.randn(K5_ROWS + RAGGED, k, generator=gen).to(device) for k in (1, 3)]
+    nargs = (nplan, pts4, views, tw, tb, hw[:4], hb[:4])
+    err = _compare_bwd("nerf_bwd", *(flat(x) for x in _bwd_runs(
+        fused_mlp._nerf_bwd_launch, fused_mlp.nerf_bwd_plain, (*nargs, *gs))))
+    pts4, views = (x[:K5_ROWS].contiguous() for x in (pts4, views))
+    gs = [x[:K5_ROWS].contiguous() for x in gs]
+    nargs = (nplan, pts4, views, tw, tb, hw[:4], hb[:4])
+    flops_row = 3 * 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
+    wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + hw[:4], tb + hb[:4]))
+    b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + 4 + 3) * 4, wbytes, PEAK_BF16_S)
+    rec["nerf_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
+        "rows": K5_ROWS,
+        "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
+        "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }]}
     return rec
 
 
@@ -281,16 +398,23 @@ def write_scene(data_dir: str) -> None:
     np.savez(os.path.join(img_dir, "cameras_sphere.npz"), **cams)
 
 
-def write_conf(tmp: str) -> str:
-    """confs/womsk_white_tpu.conf with only its two paths rewritten."""
+def write_conf(tmp: str, exp: str = "exp", train: dict | None = None) -> str:
+    """confs/womsk_white_tpu.conf with only its two paths (and the given
+    ``train`` keys) rewritten."""
     with open(os.path.join(ROOT, "confs", "womsk_white_tpu.conf")) as f:
         text = f.read()
-    for old, new in (("./exp/CASE_NAME", f"{tmp}/exp/CASE_NAME"),
-                     ("./depth_data/CASE_NAME", f"{tmp}/depth_data/CASE_NAME")):
+    subs = [("./exp/CASE_NAME", f"{tmp}/{exp}/CASE_NAME"),
+            ("./depth_data/CASE_NAME", f"{tmp}/depth_data/CASE_NAME")]
+    for key, value in (train or {}).items():
+        line = next((ln for ln in text.splitlines() if ln.strip().startswith(f"{key} =")), None)
+        if line is None:
+            raise SystemExit(f"womsk_white_tpu.conf: no train key {key!r}")
+        subs.append((line, f"    {key} = {value}"))
+    for old, new in subs:
         if text.count(old) != 1:
             raise SystemExit(f"womsk_white_tpu.conf: expected one {old!r}")
         text = text.replace(old, new)
-    path = os.path.join(tmp, "womsk_white_tpu.conf")
+    path = os.path.join(tmp, f"womsk_white_tpu_{exp}.conf")
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -302,7 +426,7 @@ def slice_phase(tmp: str) -> dict:
     import torch
 
     from vdnerf_tpu_torch import cli
-    from vdnerf_tpu_torch.io.checkpoints import save_reference_checkpoint
+    from vdnerf_tpu_torch.io.checkpoints import save_training_checkpoint
     from vdnerf_tpu_torch.ops.kernels import build
     from vdnerf_tpu_torch.train.builder import build_model, build_networks
     from vdnerf_tpu_torch.utils.hocon import load_conf
@@ -314,7 +438,7 @@ def slice_phase(tmp: str) -> dict:
     conf = load_conf(conf_path, case)
     model = build_model(conf, build_networks(conf), seed=0)
     exp_dir = conf.get_string("general.base_exp_dir")
-    save_reference_checkpoint(os.path.join(exp_dir, "checkpoints", "ckpt_000000.pth"), model, 0)
+    save_training_checkpoint(os.path.join(exp_dir, "checkpoints", "ckpt_000000.pth"), model, 0)
 
     base = ["--conf", conf_path, "--case", case]
     res = {"launches": {}, "summary": {}, "rays_per_s": {}}
@@ -332,10 +456,10 @@ def slice_phase(tmp: str) -> dict:
         if not all(math.isfinite(v) for v in summary.values()):
             raise SystemExit(f"{mode}: non-finite summary {summary}")
     res["launches"] = dict(build.LAUNCHES)
-    print(f"[slice] launches on the main path: {res['launches']}")
-    missing = [k for k, v in res["launches"].items() if v == 0]
+    print(f"[slice] launches on the serving path: {res['launches']}")
+    missing = [k for k in ("sdf_fwd", "render_fwd", "nerf_fwd") if res["launches"][k] == 0]
     if missing:
-        raise SystemExit(f"the main path launched no {missing}")
+        raise SystemExit(f"the serving path launched no {missing}")
 
     depth_dir = os.path.join(data_dir, "image", "depth_from_sdf")
     names = sorted(os.listdir(depth_dir))
@@ -387,6 +511,158 @@ def reference_check(conf, device) -> dict:
     return {"color_max_abs_err": color_err, "depth_agreement": depth_agree}
 
 
+# the training phase: 40 steps across the resample_from switch, both
+# checkpoints and validations inside the run, no mesh validation
+TRAIN_KEYS = {"end_iter": 40, "resample_from": 20, "save_freq": 20, "val_freq": 20,
+              "val_mesh_freq": 1000000}
+TIMED_STEPS = 5
+
+
+def train_phase(tmp: str) -> dict:
+    """--mode train through the port's CLI on the card, then valimg_40 from
+    its last checkpoint."""
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.train.builder import build_model, build_networks
+    from vdnerf_tpu_torch.utils.hocon import load_conf
+
+    case = "sphere"
+    conf_path = write_conf(tmp, "exp_train", TRAIN_KEYS)
+    conf = load_conf(conf_path, case)
+    exp_dir = conf.get_string("general.base_exp_dir")
+    base = ["--conf", conf_path, "--case", case]
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = cli.main(base + ["--mode", "train"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    print(f"[train] {TRAIN_KEYS['end_iter']} steps + validations: {summary} wall_s={wall:.3f}")
+    print(f"[train] launches on the training path: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise SystemExit(f"the training path launched no {missing}")
+
+    with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = {r["step"]: r["loss"] for r in recs}
+    print(f"[train] logged loss by step: {losses}")
+    if sorted(losses) != [1, 10, 20, 30, 40] or not all(map(math.isfinite, losses.values())):
+        raise SystemExit(f"logged losses: {losses}")
+    ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
+    if ckpts != ["ckpt_000020.pth", "ckpt_000040.pth"]:
+        raise SystemExit(f"checkpoints written: {ckpts}")
+    trained = torch.load(os.path.join(exp_dir, "checkpoints", "ckpt_000040.pth"),
+                         map_location="cpu", weights_only=True)
+    fresh = build_model(conf, build_networks(conf), seed=0)
+    moved = {name: max(float((trained[name][k] - v).abs().max())
+                       for k, v in getattr(fresh, name).state_dict().items())
+             for name in ("nerf", "sdf_network_fine", "variance_network_fine",
+                          "color_network_fine")}
+    print(f"[train] largest parameter change per network after 40 steps: {moved}")
+    if not all(v > 0 for v in moved.values()):
+        raise SystemExit("training left a network unchanged")
+    if not all(os.listdir(os.path.join(exp_dir, sub)) for sub in ("validations_fine", "normals")):
+        raise SystemExit("no validation images were written")
+
+    served = cli.main(base + ["--mode", "valimg_40"])
+    diff = max(abs(served[k] - summary[k]) for k in summary)
+    print(f"[train] valimg_40 from ckpt_000040.pth: {served}; max difference to the run's "
+          f"closing val_all_imgs {diff:.3e} (tol 1e-6: same weights, deterministic kernels)")
+    if set(served) != set(summary) or not diff <= 1e-6:
+        raise SystemExit("valimg_40 disagrees with the training run's closing validation")
+    return {"launches": launches, "summary": summary, "wall_s": wall, "losses": losses,
+            "conf": conf, "conf_path": conf_path}
+
+
+def time_train_steps(conf_path: str) -> dict:
+    """Steady-state ms/step and rays/s per core width: TIMED_STEPS steps
+    between torch.cuda.synchronize() calls after 2 warm-up steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch.runner import Runner
+
+    runner = Runner(conf_path, case="sphere", mode="train")
+    faithful = dataclasses.replace(
+        runner.nets, renderer=dataclasses.replace(runner.nets.renderer, n_render_samples=0))
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, nets in (("core_128", faithful), ("core_96", runner.nets)):
+        step = 0
+
+        def run(n):
+            nonlocal step
+            for _ in range(n):
+                batch = runner.store.sample_pixels(step % runner.scene_data.n_images,
+                                                   runner.tcfg.batch_size, rng)
+                runner.trainer.step(nets, batch, step)
+                step += 1
+
+        run(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(TIMED_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        out[name] = {"ms_per_step": ms, "rays_per_s": runner.tcfg.batch_size * 1e3 / ms}
+        print(f"[train] {name}: {ms:.2f} ms/step, {out[name]['rays_per_s']:.1f} rays/s "
+              f"(batch {runner.tcfg.batch_size}, {TIMED_STEPS} steps after 2 warm-up)")
+    return out
+
+
+def gradient_check(conf, device) -> dict:
+    """One step's loss and gradients at full width on 128 rays (perturb 0):
+    the kernels on the card against the plain versions on the CPU. Loss within
+    1e-3 relative; each parameter's gradient within 2^-6 relative L2 error.
+    Both sides round the fused MLPs' operands to bf16, but in another
+    summation order, and a relu kink or a bf16 rounding boundary taken the
+    other way moves single rows by a few percent (see the kernel phase); the
+    f32 SDF block sums in another order on the card than on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch.data.dataset import SceneData
+    from vdnerf_tpu_torch.data.rays import RayStore
+    from vdnerf_tpu_torch.train.builder import build_model, build_networks
+    from vdnerf_tpu_torch.train.config import TrainConfig
+    from vdnerf_tpu_torch.train.step import Trainer
+
+    nets = build_networks(conf)
+    nets = dataclasses.replace(nets, renderer=dataclasses.replace(nets.renderer, perturb=0.0))
+    tcfg = TrainConfig.from_conf(conf)
+    scene = SceneData(conf["dataset"])
+    batch = RayStore(scene.images_lis, scene.masks_lis).sample_pixels(
+        2, 128, np.random.default_rng(5))
+    res = {}
+    for key, dev in (("card", device), ("plain", torch.device("cpu"))):
+        model = build_model(conf, nets, seed=0).to(dev)
+        cams = {"pose_all": torch.as_tensor(scene.pose_all, device=dev),
+                "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=dev)}
+        metrics = Trainer(tcfg, model, cams, None).gradients(nets, batch, 1000)
+        res[key] = (float(metrics["loss"]),
+                    {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    loss_err = abs(res["card"][0] - res["plain"][0]) / abs(res["plain"][0])
+    rel = {n: float((g - res["plain"][1][n]).norm() / res["plain"][1][n].norm().clamp_min(1e-30))
+           for n, g in res["card"][1].items()}
+    worst = max(rel, key=rel.get)
+    print(f"[grad] 128-ray full-width step, card vs plain on the CPU: loss {res['card'][0]:.6f} "
+          f"vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol 1e-3); worst gradient rel L2 "
+          f"error {rel[worst]:.3e} ({worst}, tol {2.0**-6:.3e}) over {len(rel)} tensors")
+    if not loss_err <= 1e-3 or not rel[worst] <= 2.0**-6:
+        raise SystemExit("the training step through the kernels disagrees with the plain step")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -409,19 +685,26 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         res = slice_phase(tmp)
         reference_check(res["conf"], device)
+        train = train_phase(tmp)
+        steps = time_train_steps(train["conf_path"])
+        gradient_check(train["conf"], device)
 
     kernels = []
     for name, r in kern.items():
         main_shape = r["shapes"][0]
+        by_path = {"serve": res["launches"][name], "train": train["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": res["launches"][name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": None,
+            "launches_by_path": by_path,
             "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
         })
-    print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"]}))
+    print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"],
+                      "train": {"steps": steps, "summary": train["summary"],
+                                "wall_s": train["wall_s"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -98,4 +98,4 @@ def test_unported_mode_exits_with_message():
     from vdnerf_tpu_torch.cli import main as port_main
 
     with pytest.raises(SystemExit, match="not yet ported"):
-        port_main(["--mode", "train"], device="cpu")
+        port_main(["--mode", "validate_mesh_0"], device="cpu")

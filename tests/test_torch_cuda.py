@@ -11,7 +11,15 @@ the ragged last tile is exercised. Tolerances: K1 (f32 throughout) atol 1e-4,
 for summation order and last-ulp differences of exp/log1p/sin/cos; K2/K4
 (bf16 operands, f32 accumulation on both sides) two bf16 ulps at the output's
 scale, 2^-7 * max(1, max|plain|), because a last-ulp difference upstream can
-flip one bf16 rounding.
+flip one bf16 rounding. K3/K5 (the backward kernels): each dW/db within 2^-7
+of its largest entry (the kernel sums rows in another order than the plain
+version, so a delta near a bf16 rounding boundary can round the other way);
+the input cotangents with at least 99.9% of their elements at the K2/K4
+tolerance and a relative L2 error within 2^-7, because a row whose
+pre-activation lies within f32 summation noise of a relu kink, or whose
+sigmoid output is so near 1 that 1 - y keeps few bits, differs by a few
+percent on its own; and two launches on the same inputs agree bit for bit
+(the cross-CTA reduction is in a fixed order).
 """
 
 from __future__ import annotations
@@ -44,6 +52,34 @@ def _weights(rng, dims, device):
 def _bf16_close(got, want):
     err = float((got - want).abs().max())
     assert err <= 2.0**-7 * max(1.0, float(want.abs().max())), err
+
+
+def _rel_close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 2.0**-7 * float(want.abs().max()), err
+
+
+def _cotangent_close(got, want):
+    d = (got - want).abs()
+    within = float((d <= 2.0**-7 * max(1.0, float(want.abs().max()))).float().mean())
+    assert within >= 0.999, within
+    assert float(d.norm()) <= 2.0**-7 * float(want.norm()), float(d.norm() / want.norm())
+
+
+def _nerf_inputs(rng, n, has_dpt, device):
+    D, W, skips, multires, multires_view = 4, 32, (2,), 4, 2
+    e_pts, e_view = 4 * (1 + 2 * multires), 3 * (1 + 2 * multires_view)
+    tw, tb = _weights(rng, [(e_pts, W)] + [(W + e_pts if i - 1 in skips else W, W)
+                                         for i in range(1, D)], device)
+    hw, hb = _weights(rng, [(W, 1), (W, W), (W + e_view, W // 2), (W // 2, 3)]
+                      + ([(W // 2, 7)] if has_dpt else []), device)
+    p = rng.normal(size=(n, 3))
+    pts = np.concatenate([p / np.linalg.norm(p, axis=-1, keepdims=True),
+                          rng.uniform(0, 1, size=(n, 1))], -1)
+    pts = torch.tensor(pts, dtype=torch.float32, device=device)
+    views = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=device)
+    plan = (multires, multires_view, skips, D, has_dpt)
+    return plan, pts, views, (tw, tb, hw, hb)
 
 
 @pytest.mark.parametrize("hidden,n_lin,skip,multires,scale", [
@@ -85,19 +121,7 @@ def test_render_kernel_matches_plain(card, mode, multires_view, d_small, squeeze
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_kernel_matches_plain(card, has_dpt):
-    rng = np.random.default_rng(3)
-    D, W, skips, multires, multires_view = 4, 32, (2,), 4, 2
-    e_pts, e_view = 4 * (1 + 2 * multires), 3 * (1 + 2 * multires_view)
-    tw, tb = _weights(rng, [(e_pts, W)] + [(W + e_pts if i - 1 in skips else W, W)
-                                         for i in range(1, D)], card)
-    hw, hb = _weights(rng, [(W, 1), (W, W), (W + e_view, W // 2), (W // 2, 3)]
-                      + ([(W // 2, 7)] if has_dpt else []), card)
-    p = rng.normal(size=(83, 3))
-    pts = np.concatenate([p / np.linalg.norm(p, axis=-1, keepdims=True),
-                          rng.uniform(0, 1, size=(83, 1))], -1)
-    pts = torch.tensor(pts, dtype=torch.float32, device=card)
-    views = torch.tensor(rng.normal(size=(83, 3)), dtype=torch.float32, device=card)
-    plan = (multires, multires_view, skips, D, has_dpt)
+    plan, pts, views, (tw, tb, hw, hb) = _nerf_inputs(np.random.default_rng(3), 83, has_dpt, card)
     before = build.LAUNCHES["nerf_fwd"]
     got = fused_mlp.nerf(plan, pts, views, tw, tb, hw, hb)
     assert build.LAUNCHES["nerf_fwd"] == before + 1
@@ -106,6 +130,72 @@ def test_nerf_kernel_matches_plain(card, has_dpt):
     for g, w in zip(got, want):
         if w is not None:
             _bf16_close(g, w)
+
+
+def _check_grads(got, want, n_inputs):
+    flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
+    got, want = flat(got), flat(want)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        (_cotangent_close if i < n_inputs else _rel_close)(g, w)
+
+
+@pytest.mark.parametrize("mode,multires_view,d_small,squeeze_out", [
+    ("idr", 4, 3 + 27 + 3, True), ("idr", 4, 3 + 27 + 3, False),
+    ("no_view_dir", 0, 3 + 3, True), ("no_normal", 4, 3 + 27, True)])
+def test_render_bwd_kernel_matches_plain(card, mode, multires_view, d_small, squeeze_out):
+    rng = np.random.default_rng(12)
+    ws, bs = _weights(rng, [(d_small + 32, 48), (48, 48), (48, 3)], card)
+    pts, nrm, dirs = (torch.tensor(rng.normal(size=(141, 3)), dtype=torch.float32, device=card)
+                      for _ in range(3))
+    feat = torch.tensor(rng.normal(size=(141, 32)), dtype=torch.float32, device=card)
+    g = torch.tensor(rng.normal(size=(141, 3)), dtype=torch.float32, device=card)
+    plan = (mode, multires_view, squeeze_out)
+    args = (plan, pts, nrm, dirs, feat, ws, bs, g)
+    before = build.LAUNCHES["render_bwd"]
+    got = fused_mlp._render_bwd_launch(*args)
+    again = fused_mlp._render_bwd_launch(*args)
+    assert build.LAUNCHES["render_bwd"] == before + 2
+    _check_grads(got, fused_mlp.render_net_bwd_plain(*args), 4)
+    for a, b in zip(got[:4] + tuple(got[4]) + tuple(got[5]),
+                    again[:4] + tuple(again[4]) + tuple(again[5])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("has_dpt", [False, True])
+def test_nerf_bwd_kernel_matches_plain(card, has_dpt):
+    rng = np.random.default_rng(13)
+    plan, pts, views, weights = _nerf_inputs(rng, 141, has_dpt, card)
+    gs = [torch.tensor(rng.normal(size=(141, k)), dtype=torch.float32, device=card)
+          for k in ([1, 3, 7] if has_dpt else [1, 3])]
+    before = build.LAUNCHES["nerf_bwd"]
+    got = fused_mlp._nerf_bwd_launch(plan, pts, views, *weights, *gs)
+    again = fused_mlp._nerf_bwd_launch(plan, pts, views, *weights, *gs)
+    assert build.LAUNCHES["nerf_bwd"] == before + 2
+    _check_grads(got, fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs), 2)
+    for a, b in zip(got[:2] + tuple(t for l in got[2:] for t in l),
+                    again[:2] + tuple(t for l in again[2:] for t in l)):
+        assert torch.equal(a, b)
+
+
+def test_autograd_through_the_kernels(card):
+    """torch.autograd.grad through the Functions launches K2/K3 and K4/K5."""
+    rng = np.random.default_rng(14)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + 32, 48), (48, 48), (48, 3)], card)
+    leaves = [w.requires_grad_(True) for w in ws + bs]
+    x = [torch.tensor(rng.normal(size=(99, k)), dtype=torch.float32, device=card)
+         for k in (3, 3, 3, 32)]
+    before = dict(build.LAUNCHES)
+    out = fused_mlp.render_net(("idr", 4, True), *x, ws, bs)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    plan, pts, views, weights = _nerf_inputs(rng, 99, False, card)
+    nleaves = [t.requires_grad_(True) for group in weights for t in group]
+    alpha, rgb, _ = fused_mlp.nerf(plan, pts, views, *weights)
+    grads += torch.autograd.grad(alpha.sum() + rgb.square().sum(), nleaves)
+    for k in ("render_fwd", "render_bwd", "nerf_fwd", "nerf_bwd"):
+        assert build.LAUNCHES[k] == before[k] + 1, k
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_kernels_refuse_an_f32_policy(card, monkeypatch):

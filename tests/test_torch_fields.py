@@ -116,7 +116,7 @@ def test_weight_norm_round_trip_through_reference_pth(setup, tmp_path):
 
     nets, params, model = setup
     path = str(tmp_path / "ckpt_000007.pth")
-    tck.save_reference_checkpoint(path, model, 7)
+    tck.save_training_checkpoint(path, model, 7)
     back, step = import_torch_checkpoint(path, nets, extract_depth=False)
     assert step == 7
     want = jax.tree_util.tree_leaves_with_path(to_numpy(params))
@@ -136,7 +136,7 @@ def test_npz_and_pth_load_to_identical_parameters(setup, tmp_path):
     save_state(npz, {"params": params, "step": jnp.asarray(11, jnp.int32),
                      "key": jax.random.PRNGKey(0)})
     pth = str(tmp_path / "ckpt_000011.pth")
-    tck.save_reference_checkpoint(pth, model, 11)
+    tck.save_training_checkpoint(pth, model, 11)
 
     a = port_model(nets, jax_params(nets, seed=9))
     b = port_model(nets, jax_params(nets, seed=9))

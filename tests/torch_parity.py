@@ -65,6 +65,17 @@ def rays(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     return o.astype(np.float32), d.astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch in this module: the suite runs several
+    test processes side by side, and torch's default of one thread per core
+    in each oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def f32_matmuls(monkeypatch):
     """Both sides' fused-MLP matmul operands in f32 instead of bf16."""

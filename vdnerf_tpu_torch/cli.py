@@ -2,11 +2,12 @@
 
 Usage:
     python -m vdnerf_tpu_torch.cli --conf confs/womsk_white_tpu.conf \
-        --case <case> --mode valimg_<iter>      # or getfeats_<iter>
+        --case <case> --mode train [-c]         # or valimg_<iter>, getfeats_<iter>
 
-Ported modes: ``valimg_<iter>`` and ``getfeats_<iter>``. Every other mode
-exits with a message. ``--gpu`` picks the CUDA device; the CLI runs on the
-card unless a caller of :func:`main` passes ``device="cpu"``.
+Ported modes: ``train`` (``-c`` resumes from the latest checkpoint),
+``valimg_<iter>`` and ``getfeats_<iter>``. Every other mode exits with a
+message. ``--gpu`` picks the CUDA device; the CLI runs on the card unless a
+caller of :func:`main` passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-PORTED_MODES = ("valimg", "getfeats")
+PORTED_MODES = ("valimg", "getfeats")  # with an _<iter> suffix, beside train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,18 +32,19 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None, device=None) -> dict:
-    """Run one mode; returns the validation summary."""
+def main(argv=None, device=None) -> dict | None:
+    """Run one mode; returns the validation summary (None after a training
+    run stopped by SIGTERM)."""
     logging.basicConfig(
         level=logging.INFO,
         format="[%(filename)s:%(lineno)s - %(funcName)20s() ] %(message)s",
     )
     args = build_parser().parse_args(argv)
     name, _, suffix = args.mode.partition("_")
-    if name not in PORTED_MODES or not suffix.isdigit():
+    if args.mode != "train" and (name not in PORTED_MODES or not suffix.isdigit()):
         raise SystemExit(
             f"mode {args.mode!r} is not yet ported to vdnerf_tpu_torch "
-            "(ported: valimg_<iter>, getfeats_<iter>)"
+            "(ported: train, valimg_<iter>, getfeats_<iter>)"
         )
 
     from vdnerf_tpu_torch.runner import Runner
@@ -50,7 +52,10 @@ def main(argv=None, device=None) -> dict:
     runner = Runner(
         args.conf, args.case, img_dir=args.img_dir,
         npz_postfix=args.npz_postfix, seed=args.seed, device=device, gpu=args.gpu,
+        mode=name, is_continue=args.is_continue,
     )
+    if args.mode == "train":
+        return runner.train()
     runner.load_checkpoint_iter(int(suffix))
     if name == "getfeats":
         return runner.val_all_imgs(

@@ -5,9 +5,11 @@ Counterpart of the image part of ``vdnerf_tpu/data/rays.py``:
 - RGBA inputs: white composite rgb*a + (1-a); mask = alpha.
 - RGB inputs + mask files: composite img*mask + (1-mask).
 - Images stay in BGR order (cv.imread / cv.imwrite without conversion).
+- :meth:`RayStore.sample_pixels` draws a pixel batch from a numpy
+  ``Generator`` exactly as the JAX package does, so one seed gives the same
+  batches in both packages.
 
-The depth-feature pipeline and pixel batch sampling belong to training and
-are not ported yet.
+The depth-feature pipeline (wdepth confs) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,23 @@ class RayStore:
             masks = np.stack([cv.imread(p) for p in masks_lis]) / 255.0
             self.masks_np = masks
             self.images_np = imgs * masks + (1.0 - masks)
+        self.images = self.images_np.astype(np.float32)
+        self.masks = self.masks_np.astype(np.float32)
         self.H, self.W = self.images_np.shape[1], self.images_np.shape[2]
+
+    def sample_pixels(self, img_idx: int, batch_size: int,
+                      rng: np.random.Generator) -> dict[str, np.ndarray]:
+        """Uniform random pixels of one image -> host numpy batch:
+        img_idx, pixels_x/y int32 [B], color [B, 3], mask [B, 1]."""
+        px = rng.integers(0, self.W, size=batch_size).astype(np.int32)
+        py = rng.integers(0, self.H, size=batch_size).astype(np.int32)
+        return {
+            "img_idx": np.int32(img_idx),
+            "pixels_x": px,
+            "pixels_y": py,
+            "color": self.images[img_idx, py, px],
+            "mask": self.masks[img_idx, py, px, :1],
+        }
 
     def image_at(self, idx: int, resolution_level: int = 1) -> np.ndarray:
         img = self.images_np[idx]

@@ -1,15 +1,24 @@
 from vdnerf_tpu_torch.io.checkpoints import (
+    checkpoint_path,
     from_jax_params,
+    latest_checkpoint,
     load_jax_checkpoint,
     load_reference_checkpoint,
     read_jax_checkpoint,
-    save_reference_checkpoint,
+    save_training_checkpoint,
 )
+from vdnerf_tpu_torch.io.logging import MetricsWriter, Throughput
+from vdnerf_tpu_torch.io.recording import record_run
 
 __all__ = [
+    "checkpoint_path",
     "from_jax_params",
+    "latest_checkpoint",
     "load_jax_checkpoint",
     "load_reference_checkpoint",
     "read_jax_checkpoint",
-    "save_reference_checkpoint",
+    "save_training_checkpoint",
+    "MetricsWriter",
+    "Throughput",
+    "record_run",
 ]

@@ -7,7 +7,12 @@ Reads two formats into a :class:`NeuSModel`:
   numpy alone);
 - a reference ``ckpt_<iter:06d>.pth``: one ``state_dict`` per network under
   ``nerf`` / ``sdf_network_fine`` / ``variance_network_fine`` /
-  ``color_network_fine``, plus ``iter_step``.
+  ``color_network_fine``, plus ``iter_step`` and, from training, ``optimizer``
+  (the torch Adam ``state_dict``, parameters in that network order).
+
+Training writes the second format (:func:`save_training_checkpoint`); the JAX
+package's ``import_torch_checkpoint(..., with_optimizer=True)`` reads its
+parameters and Adam moments.
 
 :func:`from_jax_params` carries a JAX parameter tree over: ``[in, out]``
 weights become ``[out, in]``, ``g`` becomes ``weight_g`` of shape ``[out, 1]``.
@@ -96,18 +101,39 @@ def load_jax_checkpoint(path: str, model: torch.nn.Module) -> int:
     return step
 
 
-def load_reference_checkpoint(path: str, model: torch.nn.Module) -> int:
+def load_reference_checkpoint(path: str, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer | None = None) -> int:
+    """Load the networks (and, when given, the optimizer) -> iter_step."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for name in NETS:
         getattr(model, name).load_state_dict(ckpt[name])
+    if optimizer is not None:
+        optimizer.load_state_dict(ckpt["optimizer"])
     return int(ckpt.get("iter_step", 0))
 
 
-def save_reference_checkpoint(path: str, model: torch.nn.Module, iter_step: int) -> None:
-    """Write the four networks in the reference ``ckpt_*.pth`` layout."""
+def save_training_checkpoint(path: str, model: torch.nn.Module, iter_step: int,
+                             optimizer: torch.optim.Optimizer | None = None) -> None:
+    """Write the four networks in the reference ``ckpt_*.pth`` layout, plus
+    the optimizer when given, atomically (``.tmp`` then ``os.replace``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ckpt = {name: getattr(model, name).state_dict() for name in NETS}
+    if optimizer is not None:
+        ckpt["optimizer"] = optimizer.state_dict()
     ckpt["iter_step"] = iter_step
     tmp = path + ".tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)
+
+
+def checkpoint_path(base_exp_dir: str, iter_step: int) -> str:
+    return os.path.join(base_exp_dir, "checkpoints", f"ckpt_{iter_step:06d}.pth")
+
+
+def latest_checkpoint(base_exp_dir: str) -> str | None:
+    """The lexicographically latest ``checkpoints/ckpt_*.pth``, or None."""
+    d = os.path.join(base_exp_dir, "checkpoints")
+    if not os.path.isdir(d):
+        return None
+    names = sorted(n for n in os.listdir(d) if n.startswith("ckpt") and n.endswith(".pth"))
+    return os.path.join(d, names[-1]) if names else None

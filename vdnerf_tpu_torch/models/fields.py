@@ -8,9 +8,10 @@ parameter names are the reference's ``state_dict`` names (``lin{l}.*``,
 The forward paths that the TPU package ran through Pallas go through the
 port's kernels: :meth:`SDFNetwork.sdf_value` through K1,
 :meth:`RenderingNetwork.forward` through K2 and :meth:`NeRF.forward` through
-K4. Each wrapper runs the kernel for CUDA tensors and its plain version for
-CPU tensors. :meth:`SDFNetwork.sdf_value_grad_feat` is a plain f32 forward
-with ``torch.autograd.grad`` (the TPU package had no kernel there either).
+K4, and their gradients through K3 and K5. Each wrapper runs the kernel for
+CUDA tensors and its plain version for CPU tensors.
+:meth:`SDFNetwork.sdf_value_grad_feat` is a plain f32 forward with
+``torch.autograd.grad`` (the TPU package had no kernel there either).
 """
 
 from __future__ import annotations
@@ -173,9 +174,22 @@ class SDFNetwork(nn.Module):
     def sdf_value_grad_feat(
         self, pts: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(sdf [N,1], grad [N,3], feature [N,256]), detached: one forward,
-        one ``autograd.grad``. Grad mode is switched on locally, so this works
-        under an outer ``torch.no_grad()`` (not under ``inference_mode``)."""
+        """(sdf [N,1], grad [N,3], feature [N,256]): one forward, one
+        ``autograd.grad``.
+
+        While grad mode is on and the parameters require grad (training), the
+        result is differentiable: the gradient is taken with
+        ``create_graph=True`` and nothing is detached, so the eikonal term and
+        the colour head's dependence on the normals reach the SDF parameters
+        through the second-order path (the JAX VJP under the outer grad).
+        Otherwise (serving) it is detached, with grad mode switched on locally
+        for the spatial gradient, so it works under an outer
+        ``torch.no_grad()`` (not under ``inference_mode``)."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
+            sdf, feat = self.forward_split(x)
+            (grad,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf), create_graph=True)
+            return sdf, grad, feat
         with torch.enable_grad():
             x = pts.detach().requires_grad_(True)
             sdf, feat = self.forward_split(x)

@@ -1,13 +1,16 @@
 """NeuS volume renderer: hierarchical sampling + logistic-CDF compositing.
 
-Counterpart of ``vdnerf_tpu/ops/renderer.py`` (forward only): the
-SDF-guided up-sample ladder (K1 for its value-only SDF queries), the
-optional importance-resampled core, the background NeRF over the outside
-block (K4), and the render core (SDF value + gradient + feature by autograd,
-colour head through K2, logistic-CDF alpha, transmittance composite).
+Counterpart of ``vdnerf_tpu/ops/renderer.py``: the SDF-guided up-sample
+ladder (K1 for its value-only SDF queries), the optional importance-resampled
+core, the background NeRF over the outside block (K4, backward K5), and the
+render core (SDF value + gradient + feature by autograd, colour head through
+K2, backward K3, logistic-CDF alpha, transmittance composite).
 
-Run it under ``torch.no_grad()``; the render core switches grad mode on
-locally for the SDF gradient.
+Serving runs it under ``torch.no_grad()`` (the render core switches grad mode
+on locally for the SDF gradient). Training runs it with grad mode on: the
+ladder, the resampled ``z_vals`` and the inside-sphere masks carry no
+gradient, as the ``stop_gradient``s of the JAX renderer say; everything in the
+render core does.
 """
 
 from __future__ import annotations
@@ -120,7 +123,7 @@ def render_core(
     background_alpha: torch.Tensor | None = None,
     background_sampled_color: torch.Tensor | None = None,
     background_rgb: torch.Tensor | None = None,
-    cos_anneal_ratio: float = 0.0,
+    cos_anneal_ratio: float | torch.Tensor = 0.0,
     est_dist_cap: float | None = None,
 ) -> dict[str, torch.Tensor]:
     """SDF-based alpha compositing core. ``est_dist_cap`` bounds the
@@ -197,6 +200,52 @@ def render_core(
     }
 
 
+def _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator):
+    """The SDF-guided up-sample ladder (K1 for its SDF queries) and, with
+    ``resample``, the importance-resampled core positions -> sorted z."""
+    sdf_net = model.sdf_network_fine
+    batch_size = rays_o.shape[0]
+    dev = rays_o.device
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
+    sdf = sdf_net.sdf_value(pts.reshape(-1, 3)).reshape(batch_size, rcfg.n_samples)
+    per_round = rcfg.n_importance // rcfg.up_sample_steps
+    for i in range(rcfg.up_sample_steps):
+        new_z_vals = up_sample(rays_o, rays_d, z_vals, sdf, per_round, 64 * 2**i)
+        # the last round's SDF values are read only by a weight estimate
+        # of the resampled core with frac < 1
+        needs_weight_est = resample and rcfg.resample_uniform_frac < 1.0
+        last = i + 1 == rcfg.up_sample_steps and not needs_weight_est
+        new_sdf = None
+        if not last:
+            new_pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
+            new_sdf = sdf_net.sdf_value(new_pts.reshape(-1, 3)).reshape(batch_size, per_round)
+        z_vals, sdf = merge_z_vals(z_vals, new_z_vals, None if last else sdf, new_sdf)
+    n_samples = rcfg.n_samples + rcfg.n_importance
+
+    if resample:
+        if rcfg.n_render_samples < 2:
+            raise ValueError("n_render_samples must be >= 2 (endpoint pinning)")
+        frac = rcfg.resample_uniform_frac
+        if frac >= 1.0:
+            w_mix = torch.full(
+                (batch_size, n_samples - 1), 1.0 / (n_samples - 1), device=dev
+            )
+        else:
+            inv_s_est = torch.clamp(model.variance_network_fine(), 1e-6, 1e6)
+            w = section_weights(rays_o, rays_d, z_vals, sdf, inv_s_est)
+            w_norm = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-6)
+            w_mix = (1.0 - frac) * w_norm + frac / (n_samples - 1)
+        if perturb > 0:
+            z_core = sample_pdf(z_vals, w_mix, rcfg.n_render_samples,
+                                stratified=True, generator=generator)
+        else:
+            z_core = sample_pdf(z_vals, w_mix, rcfg.n_render_samples, det=True)
+        # pin the endpoints to the ladder's first/last z
+        z_vals = torch.cat([z_vals[..., :1], z_core[..., 1:-1], z_vals[..., -1:]], dim=-1)
+
+    return z_vals
+
+
 def render(
     nets: NeuSNetworks,
     model: NeuSModel,
@@ -207,10 +256,11 @@ def render(
     generator: torch.Generator | None = None,
     perturb_overwrite: int = -1,
     background_rgb: torch.Tensor | None = None,
-    cos_anneal_ratio: float = 0.0,
+    cos_anneal_ratio: float | torch.Tensor = 0.0,
 ) -> dict[str, torch.Tensor]:
     """Full NeuS render of a ray batch. rays_o/rays_d: [N, 3]; near/far:
-    [N, 1]. ``generator`` drives the jitter when perturb > 0."""
+    [N, 1]. ``generator`` drives the jitter and the stratified resample when
+    perturb > 0."""
     rcfg = nets.renderer
     dev = rays_o.device
     batch_size = rays_o.shape[0]
@@ -243,49 +293,14 @@ def render(
     if rcfg.n_outside > 0:
         z_vals_outside = far / torch.flip(z_vals_outside, dims=[-1]) + 1.0 / rcfg.n_samples
 
-    sdf_net = model.sdf_network_fine
     resample = (
         0 < rcfg.n_render_samples < rcfg.n_samples + rcfg.n_importance
         and rcfg.n_importance > 0
     )
     if rcfg.n_importance > 0:
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., :, None]
-        sdf = sdf_net.sdf_value(pts.reshape(-1, 3)).reshape(batch_size, rcfg.n_samples)
-        per_round = rcfg.n_importance // rcfg.up_sample_steps
-        for i in range(rcfg.up_sample_steps):
-            new_z_vals = up_sample(rays_o, rays_d, z_vals, sdf, per_round, 64 * 2**i)
-            # the last round's SDF values are read only by a weight estimate
-            # of the resampled core with frac < 1
-            needs_weight_est = resample and rcfg.resample_uniform_frac < 1.0
-            last = i + 1 == rcfg.up_sample_steps and not needs_weight_est
-            new_sdf = None
-            if not last:
-                new_pts = rays_o[:, None, :] + rays_d[:, None, :] * new_z_vals[..., :, None]
-                new_sdf = sdf_net.sdf_value(new_pts.reshape(-1, 3)).reshape(batch_size, per_round)
-            z_vals, sdf = merge_z_vals(z_vals, new_z_vals, None if last else sdf, new_sdf)
-        n_samples = rcfg.n_samples + rcfg.n_importance
-
-        if resample:
-            if rcfg.n_render_samples < 2:
-                raise ValueError("n_render_samples must be >= 2 (endpoint pinning)")
-            frac = rcfg.resample_uniform_frac
-            if frac >= 1.0:
-                w_mix = torch.full(
-                    (batch_size, n_samples - 1), 1.0 / (n_samples - 1), device=dev
-                )
-            else:
-                inv_s_est = torch.clamp(model.variance_network_fine(), 1e-6, 1e6)
-                w = section_weights(rays_o, rays_d, z_vals, sdf, inv_s_est)
-                w_norm = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-6)
-                w_mix = (1.0 - frac) * w_norm + frac / (n_samples - 1)
-            if perturb > 0:
-                z_core = sample_pdf(z_vals, w_mix, rcfg.n_render_samples,
-                                    stratified=True, generator=generator)
-            else:
-                z_core = sample_pdf(z_vals, w_mix, rcfg.n_render_samples, det=True)
-            # pin the endpoints to the ladder's first/last z
-            z_vals = torch.cat([z_vals[..., :1], z_core[..., 1:-1], z_vals[..., -1:]], dim=-1)
-            n_samples = rcfg.n_render_samples
+        # gradient-free, as the JAX renderer's stop_gradients
+        with torch.no_grad():
+            z_vals = _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator)
 
     background_alpha = background_sampled_color = background_zvals = None
     if rcfg.n_outside > 0:

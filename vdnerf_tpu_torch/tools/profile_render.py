@@ -1,21 +1,28 @@
-"""Where the time of one serving chunk goes, on the card.
+"""Where the time of one serving chunk, or of one training step, goes on the
+card.
 
     python -m vdnerf_tpu_torch.tools.profile_render [--conf confs/womsk_white_tpu.conf]
-        [--rays 4096] [--iters 5] [--trace trace.json]
+        [--rays 4096] [--iters 5] [--trace trace.json] [--train]
 
 Builds the conf's networks at full width from a seed (geometric-init SDF,
-random colour head and background NeRF), renders one chunk of rays aimed at
-the unit sphere the way ``valimg``/``getfeats`` do (``perturb_overwrite=0``,
-white background), and reports:
+random colour head and background NeRF). Without ``--train`` it renders one
+chunk of rays aimed at the unit sphere the way ``valimg``/``getfeats`` do
+(``perturb_overwrite=0``, white background). With ``--train`` it runs the
+training step of ``train/step.py`` (render with the conf's perturbation,
+loss, backward, Adam) on a batch of ``train.batch_size`` pixels of a camera
+3 units from the sphere, once on the faithful 128-sample core and once on the
+conf's resampled core. For each it reports:
 
-- the steady-state time of one chunk (CUDA events over ``--iters`` chunks);
+- the steady-state time of one chunk or step (CUDA events over ``--iters``);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
-  three CUDA kernels, cuBLAS/cutlass matrix products (the plain f32 autograd
-  SDF value+gradient+feature block), and the rest (elementwise, reductions,
-  sort, copies);
+  CUDA kernels (a backward is its tile kernel plus the shared ``dw_kernel``,
+  ``reduce_dw_kernel`` and ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
+  autograd SDF value+gradient+feature block and its backward), and the rest
+  (elementwise, reductions, sort, copies);
 - the device's busy and idle share of the profiled window.
 
-Prints one JSON line, with the card's name and power limit. Needs a CUDA device; with none it exits non-zero.
+Prints one JSON line, with the card's name and power limit. Needs a CUDA
+device; with none it exits non-zero.
 """
 
 from __future__ import annotations
@@ -26,26 +33,103 @@ import subprocess
 import sys
 import time
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import render
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
+from vdnerf_tpu_torch.train.config import TrainConfig
+from vdnerf_tpu_torch.train.step import Trainer
 from vdnerf_tpu_torch.utils.device import configure_numerics
 from vdnerf_tpu_torch.utils.hocon import load_conf
 
-OURS = ("sdf_fwd_kernel", "render_fwd_kernel", "nerf_fwd_kernel")
+OURS = ("sdf_fwd_kernel", "render_fwd_kernel", "nerf_fwd_kernel", "render_bwd_kernel",
+        "nerf_bwd_kernel", "dw_kernel", "reduce_dw_kernel", "reduce_db_kernel")
 
 
 def _group(name: str) -> str:
     for k in OURS:
-        if k in name:
+        if f"::{k}(" in name:
             return k
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "sm90_xmma", "cublas", "ampere_sgemm", "sgemm")):
         return "matmul"
     return "other"
+
+
+def _profile(fn, iters: int, trace: str) -> dict:
+    """Steady-state ms of fn by CUDA events, then one profiled call."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / iters
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    if trace:
+        prof.export_chrome_trace(trace)
+
+    groups: dict[str, float] = {}
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        # a user annotation (Optimizer.step#...) spans kernels counted anyway
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        us = ev.time_range.elapsed_us()
+        kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+        groups[_group(ev.name)] = groups.get(_group(ev.name), 0.0) + us / 1e3
+    busy_ms = sum(groups.values())
+    return {
+        "ms": ms,
+        "profiled_window_ms": window_ms,
+        "device_busy_ms": busy_ms if kernels else None,
+        "device_idle_share": 1.0 - busy_ms / window_ms if kernels else None,
+        "device_ms_by_group": groups,
+        "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:15],
+    }
+
+
+def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
+    """One training step per core width on a synthetic camera's pixels."""
+    tcfg = TrainConfig.from_conf(conf)
+    W, H, focal = 400, 300, 300.0
+    intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    pose = torch.eye(4)
+    pose[2, 3] = -3.0  # on the -z axis, looking along +z at the sphere
+    cams = {"pose_all": pose[None].to(dev), "intrin_inv_all": torch.linalg.inv(intrin)[None].to(dev)}
+    rng = np.random.default_rng(0)
+    batch = {
+        "img_idx": np.int32(0),
+        "pixels_x": rng.integers(0, W, size=tcfg.batch_size).astype(np.int32),
+        "pixels_y": rng.integers(0, H, size=tcfg.batch_size).astype(np.int32),
+        "color": rng.uniform(0, 1, size=(tcfg.batch_size, 3)).astype(np.float32),
+        "mask": np.ones((tcfg.batch_size, 1), np.float32),
+    }
+    faithful = dataclasses.replace(
+        nets, renderer=dataclasses.replace(nets.renderer, n_render_samples=0))
+    out = {}
+    for name, core in (("core_128", faithful), ("core_96", nets)):
+        model = build_model(conf, nets, seed=0).to(dev)
+        trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
+        step = iter(range(10**9))
+        rec = _profile(lambda: trainer.step(core, batch, next(step)), iters,
+                       trace.replace(".json", f"_{name}.json") if trace else "")
+        rec["rays_per_s"] = tcfg.batch_size / rec["ms"] * 1e3
+        out[name] = rec
+    return out
 
 
 def main(argv=None) -> int:
@@ -54,6 +138,8 @@ def main(argv=None) -> int:
     parser.add_argument("--rays", type=int, default=4096)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--trace", default="")
+    parser.add_argument("--train", action="store_true",
+                        help="profile a training step instead of a serving chunk")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_render: CUDA is not available", file=sys.stderr)
@@ -62,8 +148,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     conf = load_conf(args.conf, "profile")
     nets = build_networks(conf)
-    model = build_model(conf, nets, seed=0).to(dev).eval()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    head = {"device": torch.cuda.get_device_name(0), "card": card}
+    if args.train:
+        print(json.dumps({**head, "train": _train_steps(conf, nets, dev, args.iters, args.trace)}))
+        return 0
 
+    model = build_model(conf, nets, seed=0).to(dev).eval()
     rng = np.random.default_rng(0)
     o = rng.normal(size=(args.rays, 3))
     o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
@@ -77,51 +171,10 @@ def main(argv=None) -> int:
             return render(nets, model, ro, rd, *near_far_from_sphere(ro, rd),
                           perturb_overwrite=0, background_rgb=bg, cos_anneal_ratio=1.0)
 
-    chunk()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.iters):
-        chunk()
-    stop.record()
-    torch.cuda.synchronize()
-    chunk_ms = start.elapsed_time(stop) / args.iters
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chunk()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
-
-    groups: dict[str, float] = {}
-    kernels: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
-        groups[_group(ev.name)] = groups.get(_group(ev.name), 0.0) + us / 1e3
-    busy_ms = sum(groups.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            check=True, capture_output=True, text=True, timeout=60,
-        ).stdout.strip().splitlines()[0],
-        "rays": args.rays,
-        "chunk_ms": chunk_ms,
-        "rays_per_s": args.rays / chunk_ms * 1e3,
-        "profiled_window_ms": window_ms,
-        "device_busy_ms": busy_ms if kernels else None,
-        "device_idle_share": 1.0 - busy_ms / window_ms if kernels else None,
-        "device_ms_by_group": groups,
-        "top_kernels_ms": top,
-    }))
+    rec = _profile(chunk, args.iters, args.trace)
+    rec["chunk_ms"] = rec.pop("ms")
+    print(json.dumps({**head, "rays": args.rays, "rays_per_s": args.rays / rec["chunk_ms"] * 1e3,
+                      **rec}))
     return 0
 
 
