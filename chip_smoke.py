@@ -8,8 +8,17 @@
    source, in parallel.
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full ``confs/womsk_white_tpu.conf`` widths, at the row counts
-   one 4096-ray chunk (K1, K2, K4) or one 512-ray training step (K3, K5) gives
-   it plus a ragged tail, and times kernel and plain version with CUDA events.
+   one 4096-ray chunk (K1, K2, K4) or one 512-ray training step (K1's ladder,
+   K3, K5) gives it plus a ragged tail, and times kernel and plain version
+   with CUDA events. ``ms`` is the wrapper's call, as the main path makes it
+   (packing the weights and allocating each call); K1, K3 and K5 also give
+   ``kernel_ms``, their launches alone on weights packed once. K1 also holds
+   the plain version's division by 100 on the card against the kernel's
+   multiply by 0.01f. Then the dW contraction that K3 and K5 share, alone on
+   the scratch their launches left: held against f32 matmuls of the same bf16
+   operands, two launches bit-identical, timed beside its plain version and a
+   bf16 ``torch.matmul`` per layer (the library yardstick, never called by
+   the port).
 4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere), the
    conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
@@ -26,7 +35,8 @@
    run's closing summary. Then times steps per core width.
 7. Gradient check: one full-width step on 128 rays through the kernels on the
    card against the plain versions on the CPU.
-8. Prints one ``{"kernels": [...]}`` line, then the last line
+8. Prints one ``{"kernels": [...]}`` line (the five kernels and the
+   contraction), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero and prints no result. Imports nothing of JAX.
@@ -48,19 +58,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12
 
 # rows per 4096-ray chunk at womsk_white_tpu: ladder 64 + 3 x 16 per ray
 # (the last round's SDF call is skipped at resample_uniform_frac = 1.0), the
-# 96-sample resampled core, 32 outside samples + 1 with skip_bg_inside
+# 96-sample resampled core, 32 outside samples + 1 with skip_bg_inside; K1
+# also at the ladder's rows of one 512-ray training step
 CHUNK = 4096
-K1_ROWS = (CHUNK * 64, CHUNK * 16)
+BATCH = 512
+K1_ROWS = (CHUNK * 64, CHUNK * 16, BATCH * 64, BATCH * 16)
 K2_ROWS = CHUNK * 96
 K4_ROWS = CHUNK * 33
 RAGGED = 37
 # rows per training step (batch 512): the backward of the colour head over
 # the faithful 128-sample core (96 after resample_from), and of the
 # background NeRF over 32 outside samples + 1
-BATCH = 512
 K3_ROWS = BATCH * 128
 K5_ROWS = BATCH * 33
 
@@ -92,6 +104,8 @@ REPLACES = {
     "nerf_fwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:518",
     "render_bwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:314",
     "nerf_bwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:575",
+    # the dW half of K3 and K5 (_mm_dw inside _render_kernel_bwd/_nerf_kernel_bwd)
+    "dw_contract": "vdnerf_tpu/ops/pallas/fused_mlp.py:112",
 }
 SOURCE = {
     "sdf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/sdf_fwd.cu",
@@ -99,6 +113,7 @@ SOURCE = {
     "nerf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
     "render_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
     "nerf_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+    "dw_contract": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
 }
 
 SCENE_VIEWS, SCENE_H, SCENE_W = 8, 300, 400
@@ -227,14 +242,32 @@ def kernel_phase(device) -> dict:
         errs.append(_compare("sdf_fwd", [sdf_fwd.sdf_value(pts, *sdf_args)],
                              [sdf_fwd.sdf_value_plain(pts, *sdf_args)], lambda _: K1_TOL))
         pts = pts[:rows].contiguous()
-        b_ms, b_by = bound(rows, flops_row, (3 + 1) * 4, wbytes, PEAK_F32_S)
+        # the launch alone, on weights packed once
+        W, B, meta = sdf_fwd._sdf_kernel_args(pts, *sdf_args[:4])
+        out = torch.empty(rows, 1, device=device)
+        # the kernel runs 3xTF32: three tensor-core products per f32 product
+        b_ms, b_by = bound(rows, 3 * flops_row, (3 + 1) * 4, wbytes, PEAK_TF32_S)
+        f32_ms, _ = bound(rows, flops_row, (3 + 1) * 4, wbytes, PEAK_F32_S)
         shapes.append({
             "rows": rows,
             "ms": time_ms(lambda: sdf_fwd.sdf_value(pts, *sdf_args)),
+            "kernel_ms": time_ms(lambda: sdf_fwd._sdf_launch(pts, out, W, B, meta, 1.0)),
             "plain_ms": time_ms(lambda: sdf_fwd.sdf_value_plain(pts, *sdf_args)),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_simt_ms": f32_ms,
         })
-    rec["sdf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
+    # The kernel's softplus ends with a multiply by 0.01f where the plain
+    # version divides by the Python float 100.0: on a CUDA tensor torch runs
+    # that division as a multiply by the f32 reciprocal. Held bit for bit
+    # here, beside how often a true IEEE division would differ.
+    v = (torch.randn(1 << 20, generator=gen) * torch.exp(torch.rand(1 << 20, generator=gen) * -95
+                                                          + 5)).to(device)
+    as_plain = v / 100.0
+    same = torch.equal(as_plain, v * torch.tensor(0.01, device=device))
+    n_div = int((as_plain != torch.div(v, torch.full_like(v, 100.0))).sum())
+    print(f"[kernel] sdf_fwd softplus scaling: torch's x / 100.0 on the card equals x * 0.01f "
+          f"bit for bit: {same}; a true division differs at {n_div} of {v.numel()}")
+    rec["sdf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes,
+                      "plain_div_is_mul_by_0.01f": same}
 
     # K2: IDR colour head, 4x256, multires_view 4 -> 3 + 27 + 3 + 256 = 289 inputs
     r_dims = [(289, 256), (256, 256), (256, 256), (256, 256), (256, 3)]
@@ -314,9 +347,20 @@ def kernel_phase(device) -> dict:
     wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4 for w, b in zip(ws, bs))
     b_ms, b_by = bound(K3_ROWS, flops_row, (3 + 3 + 3 + 256 + 3 + 3 + 3 + 3 + 256) * 4, wbytes,
                        PEAK_BF16_S)
+    # the launches alone (tile kernel, then the contraction), on weights packed
+    # and scratch allocated once
+    W, B, meta = fused_mlp._render_meta(plan, inp[3], ws, bs, device)
+    sc3 = fused_mlp._BwdScratch(K3_ROWS, meta, device)
+    outs = [torch.empty_like(x) for x in inp]
+
+    def k3_launches():
+        fused_mlp._render_bwd_tile((*inp, g), outs, W, B, meta, sc3)
+        sc3.contract()
+
     rec["render_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
         "rows": K3_ROWS,
         "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, ws, bs, g)),
+        "kernel_ms": time_ms(k3_launches),
         "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, ws, bs, g)),
         "bound_ms": b_ms, "bound_by": b_by,
     }]}
@@ -334,13 +378,92 @@ def kernel_phase(device) -> dict:
     flops_row = 3 * 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
     wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + hw[:4], tb + hb[:4]))
     b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + 4 + 3) * 4, wbytes, PEAK_BF16_S)
+    W, B, meta = fused_mlp._nerf_meta(nplan, 4, tw, tb, hw[:4], hb[:4], device)
+    sc5 = fused_mlp._BwdScratch(K5_ROWS, meta, device)
+    outs = [torch.empty_like(pts4), torch.empty_like(views)]
+
+    def k5_launches():
+        # without the dpt head the kernel never reads the g_dpt slot
+        fused_mlp._nerf_bwd_tile((pts4, views, *gs, gs[1]), outs, W, B, meta, sc5)
+        sc5.contract()
+
     rec["nerf_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
         "rows": K5_ROWS,
         "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
+        "kernel_ms": time_ms(k5_launches),
         "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
         "bound_ms": b_ms, "bound_by": b_by,
     }]}
+
+    # the dW contraction alone (dw_kernel + the two fixed-order reductions), on
+    # the scratch the timed K3 and K5 launches left
+    errs, shapes = [], []
+    for rows, sc in ((K3_ROWS, sc3), (K5_ROWS, sc5)):
+        errs.append(_check_contraction(sc, rows))
+        shapes.append(_time_contraction(sc, rows))
+    rec["dw_contract"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
+                          "shapes": shapes}
     return rec
+
+
+def _contraction_operands(sc):
+    """Per layer (acts_l [rows, Kp], dels_l [rows, Np]) views of a backward's
+    scratch, and where the layer's dW sits in the packed result."""
+    out, aoff, doff = [], 0, 0
+    for _, _, Kp, Np, woff, _ in sc.layers:
+        out.append((sc.acts[:, aoff:aoff + Kp], sc.dels[:, doff:doff + Np], woff))
+        aoff, doff = aoff + Kp, doff + Np
+    return out
+
+
+def _contraction_plain(sc):
+    """The contraction's plain version: f32 products of the same bf16
+    operands, one matmul per layer."""
+    return [a.float().t() @ d.float() for a, d, _ in _contraction_operands(sc)]
+
+
+def _check_contraction(sc, rows) -> float:
+    """dW of every layer within 2^-12 relative L2 of the plain version (f32
+    sums of the same bf16 products in another order), and two launches of
+    the contraction bit-identical -> the largest abs error."""
+    import torch
+
+    sc.contract()
+    first = sc.dW.clone()
+    sc.contract()
+    torch.cuda.synchronize()
+    if not torch.equal(first, sc.dW):
+        raise SystemExit("dw_contract: two launches differ")
+    errs, worst = [], 0.0
+    for (a, d, woff), want in zip(_contraction_operands(sc), _contraction_plain(sc)):
+        got = sc.dW[woff:woff + want.numel()].view_as(want)
+        errs.append(float((got - want).abs().max()))
+        worst = max(worst, _rel_l2(got, want))
+    print(f"[kernel] dw_contract: rows={rows} layers={len(errs)} max_abs_err={max(errs):.3e} "
+          f"worst rel L2 error {worst:.3e} (tol {2.0**-12:.3e}); two launches bit-identical")
+    if not worst <= 2.0**-12:
+        raise SystemExit("dw_contract: the contraction disagrees with its plain version")
+    return max(errs)
+
+
+def _time_contraction(sc, rows) -> dict:
+    """CUDA-event times of the contraction alone, its plain version and the
+    library yardstick (one bf16 torch.matmul per layer), and its bound: the
+    acts/dels read once and dW written once over the memory rate, against
+    the bf16 products over the bf16 peak."""
+    import torch
+
+    ops = _contraction_operands(sc)
+    macs = sum(a.shape[1] * d.shape[1] for a, d, _ in ops)
+    io = rows * (sc.acts.shape[1] + sc.dels.shape[1]) * 2 + sc.dW.numel() * 4
+    b_ms, b_by = bound(rows, 2 * macs, 0, io, PEAK_BF16_S)
+    return {
+        "rows": rows, "flops_row": 2 * macs,
+        "ms": time_ms(sc.contract),
+        "plain_ms": time_ms(lambda: _contraction_plain(sc)),
+        "library_ms": time_ms(lambda: [torch.matmul(a.t(), d) for a, d, _ in ops]),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -698,8 +821,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
-            "bound_by": main_shape["bound_by"], "library_ms": None,
-            "launches_by_path": by_path,
+            "bound_by": main_shape["bound_by"], "library_ms": main_shape.get("library_ms"),
+            "kernel_ms": main_shape.get("kernel_ms"), "launches_by_path": by_path,
             "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
         })
     print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"],

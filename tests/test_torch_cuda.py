@@ -205,3 +205,83 @@ def test_kernels_refuse_an_f32_policy(card, monkeypatch):
     monkeypatch.setattr(fused_mlp, "_MM_DTYPE", torch.float32)
     with pytest.raises(RuntimeError, match="bf16 only"):
         fused_mlp.render_net(("idr", 4, True), x, x, x, torch.zeros(5, 8, device=card), ws, bs)
+
+
+def _sdf_full_width(rng, device):
+    dims = [(39, 256), (256, 256), (256, 256), (256, 217)] + [(256, 256)] * 4 + [(256, 1)]
+    ws = [torch.tensor(rng.normal(size=(k, n)) * np.sqrt(2.0 / n), dtype=torch.float32,
+                       device=device) for k, n in dims]
+    bs = [torch.tensor(rng.normal(size=n) * 0.05, dtype=torch.float32, device=device)
+          for _, n in dims]
+    return ws, bs
+
+
+@pytest.mark.parametrize("n", [1, 63, 8192, 20001])
+def test_sdf_kernel_full_width_row_counts(card, n):
+    """Both tile heights (32 rows below two 64-row CTAs per SM, 64 above),
+    a tile with one row, a ragged tail; two launches bit-identical."""
+    rng = np.random.default_rng(21)
+    ws, bs = _sdf_full_width(rng, card)
+    pts = torch.tensor(rng.uniform(-1, 1, size=(n, 3)), dtype=torch.float32, device=card)
+    got = sdf_fwd.sdf_value(pts, ws, bs, (4,), 6, 1.0)
+    assert torch.equal(got, sdf_fwd.sdf_value(pts, ws, bs, (4,), 6, 1.0))
+    torch.testing.assert_close(got, sdf_fwd.sdf_value_plain(pts, ws, bs, (4,), 6, 1.0),
+                               atol=1e-4, rtol=0)
+
+
+def _rel_l2_close(got, want, tol=2.0**-6):
+    err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("n,width", [(1, 64), (63, 64), (8192, 64), (8192, 256), (1001, 256)])
+def test_render_bwd_kernel_row_counts(card, n, width):
+    """K3 at few rows, ragged, and the training ladder's 8,192 rows, at a one-
+    chunk width (64) and at full width (256, the 5-chunk first-layer dx);
+    each output within 2^-6 relative L2 (the full-width noise of PERF.md)
+    and two launches bit-identical."""
+    rng = np.random.default_rng(22)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + width, width)] + [(width, width)] * 3 + [(width, 3)],
+                      card)
+    pts, nrm, dirs = (torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=card)
+                      for _ in range(3))
+    feat = torch.tensor(rng.normal(size=(n, width)) * 0.5, dtype=torch.float32, device=card)
+    g = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=card)
+    args = (("idr", 4, True), pts, nrm, dirs, feat, ws, bs, g)
+    flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
+    got, again = flat(fused_mlp._render_bwd_launch(*args)), flat(fused_mlp._render_bwd_launch(*args))
+    want = flat(fused_mlp.render_net_bwd_plain(*args))
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _rel_l2_close(a, w)
+
+
+@pytest.mark.parametrize("n", [63, 8192, 16896])
+def test_dw_contraction_matches_matmul(card, n):
+    """The contraction alone, on the scratch one K3 launch left: every layer's
+    dW equals acts_l^T dels_l in f32 (same bf16 products, another summation
+    order), db the column sums of the tile partials, and a second launch of
+    the contraction gives the same bits."""
+    rng = np.random.default_rng(23)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + 256, 256)] + [(256, 256)] * 3 + [(256, 3)], card)
+    x = [torch.tensor(rng.normal(size=(n, k)), dtype=torch.float32, device=card)
+         for k in (3, 3, 3, 256)]
+    g = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=card)
+    W, B, meta = fused_mlp._render_meta(("idr", 4, True), x[3], ws, bs, card)
+    sc = fused_mlp._BwdScratch(n, meta, card)
+    fused_mlp._render_bwd_tile((*x, g), [torch.empty_like(t) for t in x], W, B, meta, sc)
+    before = build.LAUNCHES["dw_contract"]
+    sc.contract()
+    dW, dB = sc.dW.clone(), sc.dB.clone()
+    sc.contract()
+    assert build.LAUNCHES["dw_contract"] == before + 2
+    assert torch.equal(dW, sc.dW) and torch.equal(dB, sc.dB)
+    aoff = doff = 0
+    for K, N, Kp, Np, woff, boff in sc.layers:
+        want = sc.acts[:, aoff:aoff + Kp].float().t() @ sc.dels[:, doff:doff + Np].float()
+        got = dW[woff:woff + Kp * Np].view(Kp, Np)
+        torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()) + 1e-6, rtol=1e-4)
+        torch.testing.assert_close(dB[boff:boff + Np], sc.dbpart[:, boff:boff + Np].sum(0),
+                                   atol=1e-5 * float(dB.abs().max()) + 1e-6, rtol=1e-4)
+        aoff += Kp
+        doff += Np

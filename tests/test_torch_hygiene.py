@@ -95,5 +95,6 @@ def test_cpu_render_runs_plain_versions_and_counts_no_launch():
         out = render(port_nets(nets), model, o, d, *near_far_from_sphere(o, d),
                      perturb_overwrite=0, background_rgb=torch.ones(1, 3))
     assert torch.isfinite(out["color_fine"]).all()
-    assert set(build.LAUNCHES) == {"sdf_fwd", "render_fwd", "nerf_fwd", "render_bwd", "nerf_bwd"}
+    assert set(build.LAUNCHES) == {"sdf_fwd", "render_fwd", "nerf_fwd", "render_bwd", "nerf_bwd",
+                                   "dw_contract"}
     assert not any(build.LAUNCHES.values())

@@ -34,7 +34,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {"sdf_fwd": 0, "render_fwd": 0, "nerf_fwd": 0, "render_bwd": 0, "nerf_bwd": 0}
+LAUNCHES = {"sdf_fwd": 0, "render_fwd": 0, "nerf_fwd": 0, "render_bwd": 0, "nerf_bwd": 0,
+            "dw_contract": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,8 +46,9 @@ _SIGNATURES = {
     "sdf_fwd_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_float, _P],
     "render_fwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "nerf_fwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7 + [_I] + [_P] * 3,
-    "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 7 + [_I] + [_P] * 3,
+    "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7,
+    "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 7,
+    "dw_finish_launch": [_P, _I] + [_P] * 4 + [_I, _I] + [_P] * 3,
 }
 
 

@@ -333,6 +333,22 @@ def _layers_of(meta):
     return [tuple(meta[11 + 6 * l: 17 + 6 * l]) for l in range(meta[0])]
 
 
+def dw_plan(n: int, layers, sms: int) -> tuple[int, int]:
+    """Row splits of the dW contraction -> (splits, rows_per_split).
+
+    The contraction runs one CTA per 128x128 output tile of every layer's dW
+    and per split; the splits divide the padded rows (a multiple of 64) into
+    ranges of ``rows_per_split`` rows, a multiple of 64, so that tiles x
+    splits is about two CTAs per SM (``sms``; two fit at once) and no split
+    is empty. Split i covers rows
+    [i * rows_per_split, min((i + 1) * rows_per_split, n_pad))."""
+    n_tiles = -(-n // 64)
+    out_tiles = sum(-(-Kp // 128) * -(-Np // 128) for _, _, Kp, Np, _, _ in layers)
+    splits = max(1, min(n_tiles, 2 * sms // out_tiles))
+    rows_per_split = -(-n_tiles // splits) * 64
+    return -(-n_tiles * 64 // rows_per_split), rows_per_split
+
+
 class _BwdScratch:
     """What a backward launch needs besides its inputs: the scratch of the
     tile kernel and of the split-K dW contraction (sizes in the design note of
@@ -344,10 +360,8 @@ class _BwdScratch:
         act_w = sum(L[2] for L in layers)
         del_w = sum(L[3] for L in layers)
         total_w = sum(L[2] * L[3] for L in layers)
-        out_tiles = sum(-(-L[2] // 64) * -(-L[3] // 64) for L in layers)
-        # row splits of the dW contraction: about two CTAs per SM in all
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        self.splits = max(1, min(n_tiles, -(-2 * sms // out_tiles)))
+        self.splits, self.rows_per_split = dw_plan(n, layers, sms)
         bf16, f32 = torch.bfloat16, torch.float32
         self.acts = torch.empty(n_tiles * 64, act_w, device=device, dtype=bf16)
         self.dels = torch.empty(n_tiles * 64, del_w, device=device, dtype=bf16)
@@ -355,16 +369,37 @@ class _BwdScratch:
         self.part = torch.empty(self.splits, total_w, device=device, dtype=f32)
         self.dW = torch.empty(total_w, device=device, dtype=f32)
         self.dB = torch.empty(del_w, device=device, dtype=f32)
-        self.layers = layers
+        self.n, self.meta, self.layers = n, meta, layers
 
-    def args(self):
-        return [self.acts.data_ptr(), self.dels.data_ptr(), self.dbpart.data_ptr(),
-                self.part.data_ptr(), self.splits, self.dW.data_ptr(), self.dB.data_ptr()]
+    def tile_args(self):
+        return [self.acts.data_ptr(), self.dels.data_ptr(), self.dbpart.data_ptr()]
+
+    def contract(self) -> None:
+        """The dW contraction and the dW/db reductions over what the tile
+        kernel left in the scratch."""
+        err = build.library("fused_mlp").dw_finish_launch(
+            build.int64_array(self.meta), self.n, self.acts.data_ptr(), self.dels.data_ptr(),
+            self.dbpart.data_ptr(), self.part.data_ptr(), self.splits, self.rows_per_split,
+            self.dW.data_ptr(), self.dB.data_ptr(), build.stream_ptr(self.dW.device))
+        build.LAUNCHES["dw_contract"] += 1
+        build.check(err, "dw_contract")
 
     def grads(self):
         """-> per-layer (dW [K, N], db [N])."""
         return [(self.dW[woff:woff + Kp * Np].view(Kp, Np)[:K, :N], self.dB[boff:boff + N])
                 for K, N, Kp, Np, woff, boff in self.layers]
+
+
+def _render_bwd_tile(ins, outs, W, B, meta, scratch: _BwdScratch) -> None:
+    """K3's tile kernel: ins = contiguous (pts, normals, dirs, feat, g), outs =
+    (d_pts, d_normals, d_dirs, d_feat), weights packed by _render_meta; leaves
+    the deltas and activations in ``scratch`` for its contraction."""
+    err = build.library("fused_mlp").render_bwd_launch(
+        *(t.data_ptr() for t in (*ins, *outs)), ins[0].shape[0], W.data_ptr(), B.data_ptr(),
+        build.int64_array(meta), *scratch.tile_args(), build.stream_ptr(ins[0].device),
+    )
+    build.LAUNCHES["render_bwd"] += 1
+    build.check(err, "render_bwd")
 
 
 def _render_bwd_launch(plan, pts, normals, dirs, feat, ws, bs, g):
@@ -375,24 +410,28 @@ def _render_bwd_launch(plan, pts, normals, dirs, feat, ws, bs, g):
                   (g, ws[-1].shape[1]))
     dev = pts.device
     W, B, meta = _render_meta(plan, feat, ws, bs, dev)
-    pts, normals, dirs, feat, g = (t.contiguous() for t in (pts, normals, dirs, feat, g))
-    d_pts, d_nrm, d_dirs = (torch.empty(n, 3, device=dev) for _ in range(3))
-    d_feat = torch.empty(n, feat.shape[1], device=dev)
+    ins = tuple(t.contiguous() for t in (pts, normals, dirs, feat, g))
+    outs = (*(torch.empty(n, 3, device=dev) for _ in range(3)),
+            torch.empty(n, feat.shape[1], device=dev))
     if n == 0:
-        return d_pts, d_nrm, d_dirs, d_feat, [torch.zeros_like(w) for w in ws], [
-            torch.zeros_like(b) for b in bs]
+        return (*outs, [torch.zeros_like(w) for w in ws], [torch.zeros_like(b) for b in bs])
     scratch = _BwdScratch(n, meta, dev)
-    lib = build.library("fused_mlp")
-    err = lib.render_bwd_launch(
-        pts.data_ptr(), normals.data_ptr(), dirs.data_ptr(), feat.data_ptr(),
-        g.data_ptr(), d_pts.data_ptr(), d_nrm.data_ptr(), d_dirs.data_ptr(),
-        d_feat.data_ptr(), n, W.data_ptr(), B.data_ptr(), build.int64_array(meta),
-        *scratch.args(), build.stream_ptr(dev),
-    )
-    build.LAUNCHES["render_bwd"] += 1
-    build.check(err, "render_bwd")
+    _render_bwd_tile(ins, outs, W, B, meta, scratch)
+    scratch.contract()
     grads = scratch.grads()
-    return d_pts, d_nrm, d_dirs, d_feat, [dw for dw, _ in grads], [db for _, db in grads]
+    return (*outs, [dw for dw, _ in grads], [db for _, db in grads])
+
+
+def _nerf_bwd_tile(ins, outs, W, B, meta, scratch: _BwdScratch) -> None:
+    """K5's tile kernel: ins = contiguous (pts, views, g_alpha, g_rgb, g_dpt),
+    outs = (d_pts, d_views), weights packed by _nerf_meta; leaves the deltas
+    and activations in ``scratch`` for its contraction."""
+    err = build.library("fused_mlp").nerf_bwd_launch(
+        *(t.data_ptr() for t in (*ins, *outs)), ins[0].shape[0], W.data_ptr(), B.data_ptr(),
+        build.int64_array(meta), *scratch.tile_args(), build.stream_ptr(ins[0].device),
+    )
+    build.LAUNCHES["nerf_bwd"] += 1
+    build.check(err, "nerf_bwd")
 
 
 def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
@@ -409,8 +448,7 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
     g_dpt = g_dpt if has_dpt else g_rgb  # never read without the dpt head
     _check_shapes("nerf_bwd", n, (views, 3), (g_alpha, 1), (g_rgb, d_rgb),
                   (g_dpt, d_dpt if has_dpt else d_rgb))
-    pts, views, g_alpha, g_rgb, g_dpt = (
-        t.contiguous() for t in (pts, views, g_alpha, g_rgb, g_dpt))
+    ins = tuple(t.contiguous() for t in (pts, views, g_alpha, g_rgb, g_dpt))
     d_pts = torch.empty(n, d_a, device=dev)
     d_views = torch.empty(n, 3, device=dev)
     if n == 0:
@@ -418,14 +456,8 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
         return (d_pts, d_views, [z(w) for w in trunk_w], [z(b) for b in trunk_b],
                 [z(w) for w in head_w], [z(b) for b in head_b])
     scratch = _BwdScratch(n, meta, dev)
-    lib = build.library("fused_mlp")
-    err = lib.nerf_bwd_launch(
-        pts.data_ptr(), views.data_ptr(), g_alpha.data_ptr(), g_rgb.data_ptr(),
-        g_dpt.data_ptr(), d_pts.data_ptr(), d_views.data_ptr(), n, W.data_ptr(),
-        B.data_ptr(), build.int64_array(meta), *scratch.args(), build.stream_ptr(dev),
-    )
-    build.LAUNCHES["nerf_bwd"] += 1
-    build.check(err, "nerf_bwd")
+    _nerf_bwd_tile(ins, (d_pts, d_views), W, B, meta, scratch)
+    scratch.contract()
     grads = scratch.grads()
     (dw_af, db_af), (dw_v0, db_v0), (dw_rd, db_rd) = grads[D:]
     dhw = [dw_af[:, :1], dw_af[:, 1:], dw_v0, dw_rd[:, :d_rgb]]

@@ -15,8 +15,9 @@ conf's resampled core. For each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
-  CUDA kernels (a backward is its tile kernel plus the shared ``dw_kernel``,
-  ``reduce_dw_kernel`` and ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
+  CUDA kernels (a backward is its tile kernel plus the dW contraction that
+  K3 and K5 share: ``dw_kernel``, ``reduce_dw_kernel`` and
+  ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
   autograd SDF value+gradient+feature block and its backward), and the rest
   (elementwise, reductions, sort, copies);
 - the device's busy and idle share of the profiled window.
@@ -52,7 +53,8 @@ OURS = ("sdf_fwd_kernel", "render_fwd_kernel", "nerf_fwd_kernel", "render_bwd_ke
 
 def _group(name: str) -> str:
     for k in OURS:
-        if f"::{k}(" in name:
+        # K1's kernel is a template (sdf_fwd_kernel<64>, <32>)
+        if f"::{k}(" in name or f"::{k}<" in name:
             return k
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "sm90_xmma", "cublas", "ampere_sgemm", "sgemm")):
