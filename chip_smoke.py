@@ -9,10 +9,11 @@
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full ``confs/womsk_white_tpu.conf`` widths, at the row counts
    one 4096-ray chunk (K1, K2, K4) or one 512-ray training step (K1's ladder,
-   K3, K5) gives it plus a ragged tail, and times kernel and plain version
+   K3, K4, K5) gives it plus a ragged tail, and times kernel and plain version
    with CUDA events. ``ms`` is the wrapper's call, as the main path makes it
-   (packing the weights and allocating each call); K1, K3 and K5 also give
-   ``kernel_ms``, their launches alone on weights packed once. K1 also holds
+   (packing the weights and allocating each call); every kernel but K2 also
+   gives ``kernel_ms``, its launches alone on weights packed once. K4 is
+   held and timed at a chunk's rows and at a training step's. K1 also holds
    the plain version's division by 100 on the card against the kernel's
    multiply by 0.01f. Then the dW contraction that K3 and K5 share, alone on
    the scratch their launches left: held against f32 matmuls of the same bf16
@@ -309,26 +310,35 @@ def kernel_phase(device) -> dict:
         v = v / v.norm(dim=-1, keepdim=True)
         return torch.cat([p, inv_r], -1).to(device), v.to(device)
 
-    errs = []
-    for has_dpt in (False, True):
-        nplan = (10, 4, (4,), 8, has_dpt)
-        heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
-        pts4, views = n_inputs(K4_ROWS + RAGGED)
-        errs.append(_compare(
-            f"nerf_fwd(has_dpt={has_dpt})",
-            list(fused_mlp.nerf(nplan, pts4, views, tw, tb, *heads)),
-            list(fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, *heads)), bf16_tol))
+    # K4 at a serving chunk's rows and at a training step's outside rows: held
+    # with and without the dpt head at those rows plus a ragged tail, timed
+    # without it on the first rows of the same inputs
     nplan = (10, 4, (4,), 8, False)
-    pts4, views = (x[:K4_ROWS].contiguous() for x in n_inputs(K4_ROWS))
     flops_row = 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
     wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(tw + hw[:4], tb + hb[:4]))
-    b_ms, b_by = bound(K4_ROWS, flops_row, (4 + 3 + 1 + 3) * 4, wbytes, PEAK_BF16_S)
-    rec["nerf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": [{
-        "rows": K4_ROWS,
-        "ms": time_ms(lambda: fused_mlp.nerf(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
-        "plain_ms": time_ms(lambda: fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }]}
+    packed = fused_mlp._nerf_pack(nplan, 4, tw, tb, hw[:4], hb[:4], device)
+    errs, shapes = [], []
+    for rows in (K4_ROWS, K5_ROWS):
+        pts4, views = n_inputs(rows + RAGGED)
+        for has_dpt in (False, True):
+            dplan = (10, 4, (4,), 8, has_dpt)
+            heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
+            errs.append(_compare(
+                f"nerf_fwd(rows={rows + RAGGED}, has_dpt={has_dpt})",
+                list(fused_mlp.nerf(dplan, pts4, views, tw, tb, *heads)),
+                list(fused_mlp.nerf_plain(dplan, pts4, views, tw, tb, *heads)), bf16_tol))
+        pts4, views = (x[:rows].contiguous() for x in (pts4, views))
+        b_ms, b_by = bound(rows, flops_row, (4 + 3 + 1 + 3) * 4, wbytes, PEAK_BF16_S)
+        shapes.append({
+            "rows": rows,
+            "ms": time_ms(lambda: fused_mlp.nerf(nplan, pts4, views, tw, tb, hw[:4], hb[:4])),
+            # the launch alone, on weights packed once
+            "kernel_ms": time_ms(lambda: fused_mlp._nerf_fwd_run(pts4, views, packed, False)),
+            "plain_ms": time_ms(lambda: fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, hw[:4],
+                                                             hb[:4])),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rec["nerf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
 
     # K3: the colour head's backward at one training step's core rows. A
     # backward recomputes the forward, then runs dx and dW products: three
@@ -378,13 +388,12 @@ def kernel_phase(device) -> dict:
     flops_row = 3 * 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
     wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + hw[:4], tb + hb[:4]))
     b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + 4 + 3) * 4, wbytes, PEAK_BF16_S)
-    W, B, meta = fused_mlp._nerf_meta(nplan, 4, tw, tb, hw[:4], hb[:4], device)
-    sc5 = fused_mlp._BwdScratch(K5_ROWS, meta, device)
+    sc5 = fused_mlp._BwdScratch(K5_ROWS, packed[2], device)
     outs = [torch.empty_like(pts4), torch.empty_like(views)]
 
     def k5_launches():
         # without the dpt head the kernel never reads the g_dpt slot
-        fused_mlp._nerf_bwd_tile((pts4, views, *gs, gs[1]), outs, W, B, meta, sc5)
+        fused_mlp._nerf_bwd_tile((pts4, views, *gs, gs[1]), outs, packed, sc5)
         sc5.contract()
 
     rec["nerf_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{

@@ -285,3 +285,57 @@ def test_dw_contraction_matches_matmul(card, n):
                                    atol=1e-5 * float(dB.abs().max()) + 1e-6, rtol=1e-4)
         aoff += Kp
         doff += Np
+
+
+def _nerf_full_width(rng, n, has_dpt, device):
+    """The background NeRF of womsk_white_tpu: 8x256, skip after 4, 84-ch
+    point and 27-ch view embeddings, heads alpha, feature, views0, rgb[, dpt
+    96]; points on the unit sphere with an inverse radius."""
+    t_dims = [(84, 256)] + [(256, 256)] * 4 + [(340, 256)] + [(256, 256)] * 2
+    h_dims = [(256, 1), (256, 256), (283, 128), (128, 3)] + ([(128, 96)] if has_dpt else [])
+    tw, tb = _weights(rng, t_dims, device)
+    hw, hb = _weights(rng, h_dims, device)
+    p = rng.normal(size=(n, 3))
+    pts = np.concatenate([p / np.linalg.norm(p, axis=-1, keepdims=True),
+                          rng.uniform(0, 1, size=(n, 1))], -1)
+    v = rng.normal(size=(n, 3))
+    views = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return (10, 4, (4,), 8, has_dpt), t(pts), t(views), (tw, tb, hw, hb)
+
+
+NERF_ROWS = [1, 63, 64, 127, 128, 129, 16896 + 37]
+
+
+@pytest.mark.parametrize("has_dpt", [False, True])
+@pytest.mark.parametrize("n", NERF_ROWS)
+def test_nerf_kernel_full_width_row_counts(card, n, has_dpt):
+    """K4 at full width around its 128-row tiles and at a training step's
+    outside rows with a ragged tail, against the plain version."""
+    plan, pts, views, weights = _nerf_full_width(np.random.default_rng(24), n, has_dpt, card)
+    got = fused_mlp.nerf(plan, pts, views, *weights)
+    want = fused_mlp.nerf_plain(plan, pts, views, *weights)
+    assert (got[2] is None) == (not has_dpt)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.shape == w.shape
+            _bf16_close(g, w)
+
+
+@pytest.mark.parametrize("has_dpt", [False, True])
+@pytest.mark.parametrize("n", NERF_ROWS)
+def test_nerf_bwd_kernel_full_width_row_counts(card, n, has_dpt):
+    """K5 at full width: each output within 2^-6 relative L2 of the plain
+    version (the full-width noise of PERF.md) and two launches bit-identical."""
+    rng = np.random.default_rng(25)
+    plan, pts, views, weights = _nerf_full_width(rng, n, has_dpt, card)
+    gs = [torch.tensor(rng.normal(size=(n, k)), dtype=torch.float32, device=card)
+          for k in ([1, 3, 96] if has_dpt else [1, 3])]
+    flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
+    args = (plan, pts, views, *weights, *gs)
+    got, again = flat(fused_mlp._nerf_bwd_launch(*args)), flat(fused_mlp._nerf_bwd_launch(*args))
+    want = flat(fused_mlp.nerf_bwd_plain(*args))
+    assert len(got) == len(want)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape and torch.equal(a, b)
+        _rel_l2_close(a, w)

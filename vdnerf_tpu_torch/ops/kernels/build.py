@@ -14,6 +14,7 @@ one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,9 +46,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sdf_fwd_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_float, _P],
     "render_fwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "nerf_fwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "nerf_fwd_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I, _P],
     "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7,
-    "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 7,
+    "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 4 + [_I] + [_P] * 4,
     "dw_finish_launch": [_P, _I] + [_P] * 4 + [_I, _I] + [_P] * 3,
 }
 
@@ -123,8 +124,14 @@ def check(err: int, what: str) -> None:
 
 
 def int64_array(values) -> ctypes.Array:
-    """A host int64 array for a launcher's ``meta`` argument."""
-    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+    """A host int64 array for a launcher's ``meta`` argument, made once per
+    distinct list (the launchers only read it)."""
+    return _int64_array(tuple(int(v) for v in values))
+
+
+@functools.lru_cache(maxsize=64)
+def _int64_array(values: tuple) -> ctypes.Array:
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def stream_ptr(device) -> int:

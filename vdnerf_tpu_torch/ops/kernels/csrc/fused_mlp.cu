@@ -13,15 +13,22 @@
 // which is exact with respect to that policy; the backward's relu masks read
 // those stored bf16 activations, as the Pallas backward does.
 //
-// Bound: operations (a row is ~0.5-1 MFLOP of bf16 matmul forward, ~3x that
-// backward, against ~1 KB of I/O). Forward design, simple first: one CTA of
-// 8 warps per 64-row tile; the activation tile (bf16) and one f32 staging
-// tile for the accumulators live in shared memory; each warp owns a set of
-// 16-column output fragments and runs nvcuda::wmma 16x16x16 bf16 products
-// over the 4 row fragments, reading the (zero-padded, [in, out] row-major,
-// bf16) weights straight from global memory, where they stay in L2. The
-// epilogue adds the bias, applies the activation and writes the next layer's
-// bf16 input back into the tile.
+// Bound: operations. A row of the background NeRF is 1.208 MFLOP of bf16
+// matmul forward (K4) and 3x that backward (K5), against ~50 bytes of I/O; a
+// row of the colour head 0.54 MFLOP. K2 keeps the simple design: one CTA of
+// 8 warps per 64-row tile, nvcuda::wmma 16x16x16 products reading the
+// (zero-padded, [in, out] row-major, bf16) weights straight from L2, an f32
+// staging tile in shared memory, a scalar epilogue.
+//
+// K3, K4 and K5 share one tile design (below, "wgmma tile machinery"): every
+// product is a wgmma on shared-memory operands with its accumulators in
+// registers, the weights stream through one ring of shared-memory stages
+// that both warpgroups read, and the epilogues (bias, relu, bf16 rounding into the next
+// layer's input tile, relu-mask bits, db column sums) work on the registers.
+// K4 runs 128-row tiles (each warpgroup owns 64 rows and a full pass of up to
+// 256 columns), so each weight slab is read from L2 once per 128 rows; K3 and
+// K5 run 64-row tiles (the warpgroups split a pass's columns), because K5's
+// backward state (masks, point-embedding cotangent) does not fit twice.
 //
 // Backward design. The Pallas backward sums dW/db across row tiles in one
 // VMEM block that the TPU's sequential grid revisits; CTAs run concurrently,
@@ -33,12 +40,9 @@
 //     scratch `acts` [n_pad, sum Kp], walks the layers in reverse computing
 //     the f32 delta, its per-tile column sum (db partial, scratch
 //     [n_tiles, sum Np]), its bf16 rounding (scratch `dels` [n_pad, sum Np])
-//     and dx = delta @ W^T, applies the relu masks, unstitches the concats
-//     and writes the input cotangents through the embedding VJP. K3's tile
-//     kernel (render_bwd_kernel, redesigned) runs wgmma on operands staged in
-//     shared memory (its note below); K5's (nerf_bwd_kernel) keeps the simple
-//     wmma-from-L2 design of the forwards and reads its relu masks back from
-//     `acts`;
+//     and dx = delta @ W^T, applies the relu masks (kept as bits from the
+//     forward), unstitches the concats and writes the input cotangents
+//     through the embedding VJP (render_bwd_kernel, nerf_bwd_kernel);
 //  2. dW_l = acts_l^T @ dels_l, a split-K tiled GEMM over the rows (dw_kernel,
 //     its note below), partials to scratch [splits, sum Kp*Np];
 //  3. reductions over splits (dW) and over row tiles (db, one warp per
@@ -67,6 +71,7 @@ constexpr int kRows = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 16;
+constexpr int kMaxProds = 32;  // wgmma product passes of one tile
 
 struct LayerDesc {
   int K, N, Kp, Np;
@@ -91,6 +96,13 @@ struct Plan {
   int act_w, del_w; // backward: widths of `acts` (sum Kp) and `dels` (sum Np)
   int total_b;      // sum Np: packed bias length
   long long total_w;  // sum Kp * Np: packed weight length
+  int wf;           // K4/K5: feature width ([feature | alpha] is wf + 1 wide)
+  // K3/K4/K5: the tile's product passes in the order the kernel runs them:
+  // layer, forward (0) or dx (1), first output column, output width
+  int n_prod;
+  unsigned char q_layer[kMaxProds], q_dx[kMaxProds];
+  short q_n0[kMaxProds], q_w[kMaxProds];
+  int q_off[kMaxProds];  // K4/K5: the pass's first slab in the ring image (elements)
 };
 
 __host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
@@ -146,34 +158,6 @@ __device__ void mm_tile(const bf16* A, int lda, int Kp,
   }
 }
 
-// S[0:64, 0:Kp] = D[0:64, 0:Np] @ W[0:Kp, 0:Np]^T (the dx product); W^T is
-// read as a column-major B operand, no transpose is materialised.
-__device__ void mm_tile_t(const bf16* D, int ldd, int Np,
-                          const bf16* __restrict__ W, int Kp, float* S,
-                          int lds) {
-  const int warp = threadIdx.x / 32;
-  const int nfrags = Kp / 16;
-  for (int nf = warp; nf < nfrags; nf += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRows / 16];
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    for (int k = 0; k < Np; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, W + (size_t)nf * 16 * Np + k, Np);
-#pragma unroll
-      for (int m = 0; m < kRows / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, D + m * 16 * ldd + k, ldd);
-        wmma::mma_sync(acc[m], a, b, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m)
-      wmma::store_matrix_sync(S + m * 16 * lds + nf * 16, acc[m], lds,
-                              wmma::mem_row_major);
-  }
-}
-
 // A[:, col0:col0+N] = bf16(act(S[:, s0:s0+N] + bias)); act: 1 relu, 0 none
 __device__ void epilogue(const float* S, int lds, int s0, int N,
                          const float* __restrict__ bias, int relu,
@@ -192,66 +176,6 @@ __device__ void zero_cols(bf16* A, int lda, int c_begin, int c_end) {
   if (w <= 0) return;
   for (int idx = threadIdx.x; idx < kRows * w; idx += kThreads)
     A[(idx / w) * lda + c_begin + idx % w] = __float2bfloat16(0.0f);
-}
-
-// backward: the tile's bf16 layer input A[:, 0:width] -> acts[row0 + r, col]
-__device__ void store_act(const bf16* A, int lda, int width, bf16* acts,
-                          int act_w, int row0) {
-  const int half = width / 2;
-  for (int idx = threadIdx.x; idx < kRows * half; idx += kThreads) {
-    const int r = idx / half;
-    const int c = 2 * (idx % half);
-    *reinterpret_cast<__nv_bfloat162*>(acts + (size_t)(row0 + r) * act_w + c) =
-        *reinterpret_cast<const __nv_bfloat162*>(A + r * lda + c);
-  }
-}
-
-// backward: S[:, s0:s0+width] *= (acts[row0 + r, a0 + c] > 0), the relu mask
-// of the layer whose output is that stored activation
-__device__ void relu_mask(float* S, int lds, int s0, int width,
-                          const bf16* acts, int act_w, int a0, int row0) {
-  for (int idx = threadIdx.x; idx < kRows * width; idx += kThreads) {
-    const int r = idx / width;
-    const int c = idx % width;
-    const float a = __bfloat162float(acts[(size_t)(row0 + r) * act_w + a0 + c]);
-    if (!(a > 0.0f)) S[r * lds + s0 + c] = 0.0f;
-  }
-}
-
-// The f32 delta of one layer: S[:, s0 + c] for c < N, zero beyond. With
-// `galpha` set (K5's [alpha | feature] layer), column 0 is the alpha
-// cotangent and column c >= 1 is S[:, s0 + c - 1].
-struct Delta {
-  const float* S;
-  int lds, s0, N;
-  const float* galpha;
-  int row0, n;
-  __device__ __forceinline__ float at(int r, int c) const {
-    if (c >= N) return 0.0f;
-    if (galpha == nullptr) return S[r * lds + s0 + c];
-    if (c > 0) return S[r * lds + s0 + c - 1];
-    return row0 + r < n ? galpha[row0 + r] : 0.0f;
-  }
-};
-
-// backward, one layer: db partial (f32 column sums over the tile, rows in
-// order), the bf16 delta into D (shared, the dx product's operand) and into
-// the global `dels` (the dW contraction's right operand)
-__device__ void emit_delta(const Delta& d, const LayerDesc& L, const Plan& p,
-                           bf16* D, int ldd, float* dbpart, bf16* dels) {
-  const int row0 = d.row0;
-  for (int c = threadIdx.x; c < L.Np; c += kThreads) {
-    float s = 0.0f;
-    for (int r = 0; r < kRows; ++r) s += d.at(r, c);
-    dbpart[(size_t)blockIdx.x * p.total_b + L.boff + c] = s;
-  }
-  for (int idx = threadIdx.x; idx < kRows * L.Np; idx += kThreads) {
-    const int r = idx / L.Np;
-    const int c = idx % L.Np;
-    const bf16 v = __float2bfloat16(d.at(r, c));
-    D[r * ldd + c] = v;
-    dels[(size_t)(row0 + r) * p.del_w + L.doff + c] = v;
-  }
 }
 
 // K2/K3 input tile: the mode's concat [pts | emb_view | normals | feat],
@@ -322,14 +246,12 @@ __device__ void render_input(const Plan& p, const float* __restrict__ pts,
   }
 }
 
-// K2/K3 forward over the tile; leaves the last layer's pre-activation
-// (without bias) in S. With `acts` set, stores every layer's input there.
+// K2 forward over the tile; leaves the last layer's pre-activation (without
+// bias) in S.
 __device__ void render_forward(const Plan& p, const bf16* __restrict__ W,
-                               const float* __restrict__ B, float* S, bf16* A,
-                               bf16* acts, int row0) {
+                               const float* __restrict__ B, float* S, bf16* A) {
   for (int l = 0; l < p.n_layers; ++l) {
     const LayerDesc& d = p.L[l];
-    if (acts) store_act(A, p.lda, d.Kp, acts + d.aoff, p.act_w, row0);
     mm_tile(A, p.lda, d.Kp, W + d.woff, d.Np, S, p.lds);
     __syncthreads();
     if (l + 1 < p.n_layers) {
@@ -354,7 +276,7 @@ render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   render_input(p, pts, nrm, dirs, feat, n, row0, A,
                [&](int r, int c) { return r * p.lda + c; });
   __syncthreads();
-  render_forward(p, W, B, S, A, nullptr, row0);
+  render_forward(p, W, B, S, A);
   const LayerDesc& d = p.L[p.n_layers - 1];
   for (int idx = threadIdx.x; idx < kRows * d.N; idx += kThreads) {
     const int r = idx / d.N;
@@ -369,59 +291,98 @@ render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
 }
 
 // ---------------------------------------------------------------------------
-// K3 tile kernel: wgmma products on operands staged in shared memory
+// wgmma tile machinery (K3, K4, K5): products on operands in shared memory
 // ---------------------------------------------------------------------------
 //
-// Each product of the tile is [64, Kin] x [Kin, Wout] -> [64, Wout] f32:
-// the forward layer l (A = the layer's bf16 input, B = W_l), then dx of layer
-// l (A = the bf16 delta, B = W_l^T). A lives in shared memory (`Atile`), in
-// wgmma's no-swizzle K-major layout: 8x8 core matrices of 128 contiguous
-// bytes, the two core matrices of a k16 step 128 bytes apart (LBO), 8-row
-// groups lda*16 bytes apart (SBO). B is the packed W_l ([Kp, Np], row-major)
-// for both: the forward reads it MN-major (wgmma's transpose-B bit; a core
-// matrix row is 8 output columns of one reduction row), dx K-major (a core
-// matrix row is 8 reduction columns of one output row). Either way the core
-// matrices of a slab sit at the same offsets, K-adjacent ones 128 bytes apart
-// (LBO) and N-adjacent ones kKS*16 bytes apart (SBO), so one descriptor
-// serves both. B streams through a
-// 3-stage cp.async ring of kKS-row reduction slabs with 16-byte copies
-// straight into the same core-matrix layout; the ring runs through all 2L
-// products of the tile, so each product's first slabs load while the previous
-// product finishes. Output columns are cut into 64-wide chunks, one
-// m64n64k16 wgmma each; chunk c belongs to warpgroup c % 2 and stays in its
-// registers until the epilogue. Two chunks per warpgroup (64 accumulator
-// registers per thread, within the 128 that two CTAs per SM allow), so a
-// product pass is at most 256 columns wide: layer 0's dx (the 304-wide
-// input concat) runs as two passes. The wgmma issue between fence and wait
-// is straight-line code per (chunks, k16 steps) variant, chosen by values the
+// Each product pass of a tile is [rows, Kin] x [Kin, Wout] -> [rows, Wout]
+// f32: a forward layer l (A = the layer's bf16 input, B = W_l), or dx of a
+// layer l (A = the bf16 delta, B = W_l^T). The passes are listed per kernel by
+// the host (Plan::q_*), in the order the kernel runs them. A lives in shared
+// memory (`Atile`), in wgmma's no-swizzle K-major layout: 8x8 core matrices
+// of 128 contiguous bytes, the two core matrices of a k16 step 128 bytes
+// apart (LBO), 8-row groups lda*16 bytes apart (SBO). B is the packed W_l
+// ([Kp, Np], row-major) for both: the forward reads it MN-major (wgmma's
+// transpose-B bit; a core matrix row is 8 output columns of one reduction
+// row), dx K-major (a core matrix row is 8 reduction columns of one output
+// row). Either way the core matrices of a slab sit at the same offsets,
+// K-adjacent ones 128 bytes apart (LBO) and N-adjacent ones kKS*16 bytes
+// apart (SBO), so one descriptor serves both. B streams through a 3-stage
+// cp.async ring of kKS-row reduction slabs with 16-byte copies straight into
+// the same core-matrix layout; the ring runs through all product passes of
+// the tile, so each pass's first slabs load while the previous one finishes.
+// Output columns are cut into 64-wide chunks, one m64n64k16 wgmma each,
+// which stay in registers until the epilogue; a pass is at most 256 columns
+// wide (wider products, such as the concat inputs' dx, run as several
+// passes). How the two warpgroups share a pass is set by the chunks a
+// warpgroup holds (TileMap): two (64 accumulator registers) in a 64-row tile,
+// chunk c in warpgroup c % 2; four (128 registers) in a 128-row tile, where
+// each warpgroup owns 64 rows. The wgmma issue between fence and wait is
+// straight-line code per (chunks, k16 steps) variant, chosen by values the
 // compiler sees as warpgroup-uniform; otherwise it serialises the wgmmas.
 //
-// A forward output column and a dx output column of the same width are owned
-// by the same thread at the same register: the relu mask of every hidden
-// layer is kept as one bit per accumulator register (maskw), with no reread of
-// the stored activations. acts/dels go out with 16-byte stores from Atile;
-// db column sums come from the registers (a fixed shuffle tree over the rows
-// of a warp, then the four warps of the owning warpgroup in order).
+// A forward output column and the first pass of a dx output of the same
+// width are owned by the same thread at the same register: the relu mask of
+// every hidden layer is kept as one bit per accumulator register (maskw),
+// with no reread of the stored activations. acts/dels go out with 16-byte
+// stores from Atile; db column sums come from the registers (a fixed shuffle
+// tree over the rows of a warp, then the four warps of the owning warpgroup
+// in order).
 //
-// Not done here: wgmma's 128-byte-swizzled layouts with the weights fed by
-// TMA into an mbarrier ring. This kernel keeps both operands in the
-// no-swizzle core layout, whose 16-byte rows cp.async writes directly at
-// their offsets; in that layout a TMA box covers only one 16-byte-wide
-// column of core matrices, which is why the ring uses cp.async. A 128-byte
-// swizzle (one box per slab, with cluster multicast halving the weights' L2
-// traffic) needs Atile's epilogue writes and acts/dels stores rewritten for
-// the swizzled addressing as well. Two CTAs
-// share an SM (the launch bounds cap registers at 128; each CTA holds
-// ~106 KB of shared memory), so one CTA's epilogues, stores and barriers
-// overlap the other's products.
+// The ring's copies (Ring): K3's threads copy each slab from the packed W
+// with 16-byte cp.async; K4 and K5 fill a stage with one bulk copy
+// (cp.async.bulk, the TMA engine without a tensor map) from a ring image the
+// wrapper lays out stage by stage, completing on the stage's mbarrier: one
+// instruction per 16 KB slab instead of 1,024. Not done here: wgmma's
+// 128-byte-swizzled layouts, and TMA multicast of a slab to the CTAs of a
+// cluster (which would halve the weights' L2 traffic again).
 
 constexpr int kKS = 32;          // reduction rows per weight slab
-constexpr int kRbStages = 3;
 constexpr int kChunk = 64;       // output columns per wgmma
-constexpr int kMaxChunks = 2;    // per warpgroup
-constexpr int kMaxOut = 2 * kMaxChunks * kChunk;  // widest product pass: 256
+constexpr int kMaxOut = 4 * kChunk;  // widest product pass: 256
 constexpr int kSlab = kKS * kMaxOut;  // bf16 elements per ring stage
 static_assert(kKS == 32, "rb_product issues one or two k16 steps per slab");
+
+// The weight ring: ST stages of one slab each. Synchronous (K3): a slab's
+// wgmma completes before the next barrier, and loads run ST - 1 slabs ahead
+// into the stage just read. Asynchronous (K4, K5): a slab's wgmma stays in
+// flight through the next slab's wait, barrier and load issue, so loads run
+// ST - 2 slabs ahead into the stage read two slabs back, which every
+// warpgroup has finished when it passes the barrier.
+// The copies: 16-byte cp.async by every thread from the packed W (K3), or
+// (BULK, K4 and K5) one bulk asynchronous copy per slab, issued by one thread
+// from a ring image that the wrapper lays out as the stages hold it
+// (fused_mlp._nerf_ring_index), completing on the stage's mbarrier.
+template <int ST, bool ASYNC, bool BULK>
+struct Ring {
+  static_assert(ST >= (ASYNC ? 3 : 2), "too few stages");
+  static constexpr int kStages = ST;
+  static constexpr bool kAsync = ASYNC;
+  static constexpr bool kBulk = BULK;
+  static constexpr int kLead = ASYNC ? ST - 2 : ST - 1;  // slabs loaded ahead
+};
+// one CTA per SM for K4 and K5, six stages each (fused_mlp.nerf_launch_plan);
+// K4's 128 accumulator registers a thread leave ptxas too few to keep a
+// slab's wgmma in flight (it serialises them), so K4's ring is synchronous
+using K3Ring = Ring<3, false, false>;  // two CTAs per SM
+using K4Ring = Ring<6, false, true>;
+using K5Ring = Ring<6, true, true>;
+static_assert(K4Ring::kStages == K5Ring::kStages, "nerf_launch_plan sizes one ring for both");
+
+// How the two warpgroups of a CTA share a product pass, by the number NCH of
+// 64-column chunks each holds in registers
+template <int NCH>
+struct TileMap {
+  static_assert(NCH == 2 || NCH == 4, "a column split (2) or a row split (4)");
+  static constexpr int kRows = NCH == 2 ? 64 : 128;
+  // chunk index of the warpgroup's ci-th chunk
+  __device__ static __forceinline__ int chunk(int wg, int ci) { return NCH == 2 ? wg + 2 * ci : ci; }
+  // first tile row of the warpgroup
+  __device__ static __forceinline__ int row0(int wg) { return NCH == 2 ? 0 : 64 * wg; }
+  // the warpgroup's chunks among the first nch
+  __device__ static __forceinline__ int mine(int nch, int wg) {
+    return NCH == 2 ? (nch - wg + 1) / 2 : nch;
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -456,8 +417,45 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred P;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, P;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// wait for the phase of `bar` with this parity to complete; a stage that
+// never lands is a fault (the kernel traps), not a hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (long long i = 0; !mbar_try_wait(bar, parity); ++i)
+    if (i == (1LL << 26)) __trap();
+}
+// one thread: `bytes` from global src to shared dst, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d[64 x 64] += A[64 x 16] * B[16 x 64], bf16 in, f32 accumulate; A K-major,
@@ -485,29 +483,18 @@ __device__ __forceinline__ int core_at(int m, int k, int ld) {
 }
 
 struct RbProd {
-  const bf16* B;  // mn: Kin rows of Wout contiguous bf16; else Wout rows of Kin
-  int Kin, Wout;
+  const bf16* B;  // mn: Kin rows of ld bf16; else Wout rows of ld (= Kin)
+  int Kin, Wout, ld;
   bool mn;
 };
 
-// product pass q of the tile: forward layers 0..L-1 (W_l read MN-major), dx
-// of layers L-1..1 (all at most kMaxOut wide, checked by the launcher), then
-// dx of layer 0 in passes of kMaxOut output columns (its width Kp_0 is the
-// input concat's); dx reads W_l K-major
+// product pass q of the tile (Plan::q_*): the forward reads W_l MN-major from
+// column n0, dx reads W_l K-major from row n0
 __device__ __forceinline__ RbProd rb_prod(const Plan& p, const bf16* W, int q) {
-  const int L = p.n_layers;
-  if (q < L) return {W + p.L[q].woff, p.L[q].Kp, p.L[q].Np, true};
-  if (q < 2 * L - 1) {
-    const LayerDesc& d = p.L[2 * L - 1 - q];
-    return {W + d.woff, d.Np, d.Kp, false};
-  }
-  const int n0 = (q - (2 * L - 1)) * kMaxOut;
-  const LayerDesc& d = p.L[0];
-  return {W + d.woff + (size_t)n0 * d.Np, d.Np, min(kMaxOut, d.Kp - n0), false};
-}
-
-__device__ __forceinline__ int rb_passes0(const Plan& p) {
-  return (p.L[0].Kp + kMaxOut - 1) / kMaxOut;
+  const LayerDesc& d = p.L[p.q_layer[q]];
+  const int n0 = p.q_n0[q];
+  if (!p.q_dx[q]) return {W + d.woff + n0, d.Kp, p.q_w[q], d.Np, true};
+  return {W + d.woff + (size_t)n0 * d.Np, d.Np, p.q_w[q], d.Np, false};
 }
 
 __device__ __forceinline__ int rb_slabs(const RbProd& pr) { return (pr.Kin + kKS - 1) / kKS; }
@@ -528,14 +515,14 @@ __device__ void rb_load(const RbProd& pr, int k0, bf16* dst) {
       const int k = k0 + kr;
       const bool ok = n < pr.Wout && k < pr.Kin;
       cp_async16_zfill(dst + (n >> 3) * (kc_n * 64) + kr * 8,
-                       ok ? pr.B + (size_t)k * pr.Wout + n : pr.B, ok ? 16 : 0);
+                       ok ? pr.B + (size_t)k * pr.ld + n : pr.B, ok ? 16 : 0);
     } else {
       const int n = idx / kc_n;
       const int kc = idx % kc_n;
       const int k = k0 + kc * 8;
       const bool ok = n < pr.Wout && k < pr.Kin;
       cp_async16_zfill(dst + (n >> 3) * (kc_n * 64) + kc * 64 + (n & 7) * 8,
-                       ok ? pr.B + (size_t)n * pr.Kin + k : pr.B, ok ? 16 : 0);
+                       ok ? pr.B + (size_t)n * pr.ld + k : pr.B, ok ? 16 : 0);
     }
   }
 }
@@ -544,132 +531,194 @@ __device__ void rb_load(const RbProd& pr, int k0, bf16* dst) {
 // i of it), advanced one slab per load
 struct RbCursor {
   int q, i, n_prod;
-  __device__ void load_next(const Plan& p, const bf16* W, bf16* dst) {
+  uint64_t* bars;  // BULK: the stages' mbarriers
+  // the next slab into ring stage `stage` (BULK: one thread calls this)
+  template <class RG>
+  __device__ void load(const Plan& p, const bf16* W, bf16* ring, int stage) {
     if (q >= n_prod) return;
     const RbProd pr = rb_prod(p, W, q);
-    rb_load(pr, i * kKS, dst);
+    if constexpr (RG::kBulk) {
+      const int rows = (pr.Wout + kChunk - 1) / kChunk * kChunk;
+      bulk_load(ring + stage * kSlab, W + p.q_off[q] + (size_t)i * rows * kKS,
+                rows * kKS * (int)sizeof(bf16), bars + stage);
+    } else {
+      rb_load(pr, i * kKS, ring + stage * kSlab);
+    }
     if (++i == rb_slabs(pr)) {
       ++q;
       i = 0;
     }
   }
+  // BULK: the stages' mbarriers, before a barrier and the prologue
+  template <class RG>
+  __device__ void init() {
+    if constexpr (RG::kBulk) {
+      if (threadIdx.x == 0) {
+        for (int j = 0; j < RG::kStages; ++j) mbar_init(bars + j, 1);
+        mbar_init_fence();
+      }
+    }
+  }
+  // the ring's first slabs
+  template <class RG>
+  __device__ void prologue(const Plan& p, const bf16* W, bf16* ring) {
+    for (int j = 0; j < RG::kLead; ++j) {
+      if constexpr (RG::kBulk) {
+        if (threadIdx.x == 0) load<RG>(p, W, ring, j);
+      } else {
+        load<RG>(p, W, ring, j);
+        cp_async_commit();
+      }
+    }
+  }
 };
 
-// NK k16 steps of a slab into the calling warpgroup's NC chunks: straight-line
-// code between the fence and the wait, so that the compiler keeps the
-// wgmma instructions asynchronous
-template <int NC, int NK, int TB>
-__device__ __forceinline__ void rb_mma(float (&acc)[kMaxChunks][32], const bf16* Atile, int lda,
-                                       int k0, const bf16* Bs, int wg) {
+// NK k16 steps of a slab into the calling warpgroup's first NC chunks:
+// straight-line code between the fence and the commit (and the wait, unless
+// the ring is asynchronous), so that the compiler keeps the wgmma
+// instructions asynchronous
+template <bool ASYNC, int NCH, int NC, int NK, int TB>
+__device__ __forceinline__ void rb_mma(float (&acc)[NCH][32], const bf16* Atile, int lda, int k0,
+                                       const bf16* Bs, int wg) {
+  const bf16* A = Atile + TileMap<NCH>::row0(wg) * lda;  // 8-row groups lda * 8 apart
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk) {
-    const uint64_t da = wg_desc(Atile + (((k0 + kk * 16) >> 3) << 6), 128, lda * 16);
+    const uint64_t da = wg_desc(A + (((k0 + kk * 16) >> 3) << 6), 128, lda * 16);
 #pragma unroll
     for (int ci = 0; ci < NC; ++ci) {
-      const uint64_t db =
-          wg_desc(Bs + (wg + 2 * ci) * 8 * (kKS / 8) * 64 + kk * 2 * 64, 128, kKS * 16);
+      const uint64_t db = wg_desc(
+          Bs + TileMap<NCH>::chunk(wg, ci) * 8 * (kKS / 8) * 64 + kk * 2 * 64, 128, kKS * 16);
       wgmma_64x64<TB>(acc[ci], da, db);
     }
   }
   wg_commit();
-  wg_wait_all();
+  if constexpr (!ASYNC) wg_wait<0>();
 }
 
 // the rb_mma variant for `mine` chunks of the calling warpgroup and a full
 // (two k16 steps) or half slab
-template <int TB>
-__device__ __forceinline__ void rb_mma_pick(int mine, bool full, float (&acc)[kMaxChunks][32],
+template <bool ASYNC, int NCH, int TB>
+__device__ __forceinline__ void rb_mma_pick(int mine, bool full, float (&acc)[NCH][32],
                                             const bf16* Atile, int lda, int k0, const bf16* Bs,
                                             int wg) {
-  if (mine == 1) {
-    if (full) rb_mma<1, 2, TB>(acc, Atile, lda, k0, Bs, wg);
-    else rb_mma<1, 1, TB>(acc, Atile, lda, k0, Bs, wg);
-  } else if (mine == 2) {
-    if (full) rb_mma<2, 2, TB>(acc, Atile, lda, k0, Bs, wg);
-    else rb_mma<2, 1, TB>(acc, Atile, lda, k0, Bs, wg);
+#define RB_CASE(M)                                                   \
+  if (mine == M) {                                                   \
+    if (full) rb_mma<ASYNC, NCH, M, 2, TB>(acc, Atile, lda, k0, Bs, wg); \
+    else rb_mma<ASYNC, NCH, M, 1, TB>(acc, Atile, lda, k0, Bs, wg);      \
+    return;                                                          \
   }
+  RB_CASE(1)
+  RB_CASE(2)
+  if constexpr (NCH == 4) {
+    RB_CASE(3)
+    RB_CASE(4)
+  }
+#undef RB_CASE
 }
 
 // one product pass of the tile into the calling warpgroup's chunks; `s` is
-// the running slab index (its ring stage is s % kRbStages), `cur` loads the
-// slab kRbStages - 1 ahead
+// the running slab index (its ring stage is s % RG::kStages), `cur` loads the
+// slab RG::kLead ahead
+template <class RG, int NCH>
 __device__ __forceinline__ void rb_product(const Plan& p, const bf16* W, int q, int& s,
                                            RbCursor& cur, bf16* ring, const bf16* Atile, int lda,
-                                           float (&acc)[kMaxChunks][32]) {
+                                           float (&acc)[NCH][32]) {
   const RbProd pr = rb_prod(p, W, q);
   const int ns = rb_slabs(pr);
   const int nch = (pr.Wout + kChunk - 1) / kChunk;
   // the warpgroup index through a shuffle, so the compiler sees it uniform
   const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
-  const int mine = (nch - wg + 1) / 2;  // chunks wg, wg + 2, ... below nch
+  const int mine = TileMap<NCH>::mine(nch, wg);
 #pragma unroll
-  for (int ci = 0; ci < kMaxChunks; ++ci)
+  for (int ci = 0; ci < NCH; ++ci)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[ci][i] = 0.0f;
+  constexpr int ST = RG::kStages;
   for (int i = 0; i < ns; ++i, ++s) {
-    cp_async_wait<kRbStages - 2>();
-    fence_async_smem();
-    __syncthreads();  // slab s landed; every warpgroup is done with slab s - 1
-    cur.load_next(p, W, ring + ((s + kRbStages - 1) % kRbStages) * kSlab);
-    cp_async_commit();
-    const bf16* Bs = ring + (s % kRbStages) * kSlab;
+    if constexpr (RG::kBulk) {
+      mbar_wait(cur.bars + s % ST, (s / ST) & 1);
+    } else {
+      cp_async_wait<RG::kLead - 1>();
+      fence_async_smem();
+    }
+    if constexpr (RG::kAsync) wg_wait<1>();  // this warpgroup's slab s - 2 is done
+    __syncthreads();  // slab s landed; every warpgroup is done with the stage to load
+    if constexpr (RG::kBulk) {
+      if (threadIdx.x == 0) cur.load<RG>(p, W, ring, (s + RG::kLead) % ST);
+    } else {
+      cur.load<RG>(p, W, ring, (s + RG::kLead) % ST);
+      cp_async_commit();
+    }
+    const bf16* Bs = ring + (s % ST) * kSlab;
     const int k0 = i * kKS;
     const bool full = pr.Kin - k0 >= kKS;
-    if (pr.mn) rb_mma_pick<1>(mine, full, acc, Atile, lda, k0, Bs, wg);
-    else rb_mma_pick<0>(mine, full, acc, Atile, lda, k0, Bs, wg);
+    if (pr.mn) rb_mma_pick<RG::kAsync, NCH, 1>(mine, full, acc, Atile, lda, k0, Bs, wg);
+    else rb_mma_pick<RG::kAsync, NCH, 0>(mine, full, acc, Atile, lda, k0, Bs, wg);
   }
+  if constexpr (RG::kAsync) wg_wait<0>();
 }
 
-// Atile[:, 0:width] -> dst[row0 + r, 0:width] (row stride ld), 16-byte stores;
-// a warp's lanes cover 8 rows x 4 column groups of 8
+// 64-row tiles: Atile[:, 0:width] -> dst[row0 + r, 0:width] (row stride ld),
+// 16-byte stores; a warp's lanes cover 8 rows x 4 column groups of 8
 __device__ void store_tile(const bf16* Atile, int lda, int width, bf16* dst, int ld, int row0) {
   const int n_kg = width >> 3;
-  for (int idx = threadIdx.x; idx < kRows * n_kg; idx += kThreads) {
-    const int i8 = idx & 7;
-    const int u = idx >> 3;
-    const int kg = u % n_kg;
-    const int m = (u / n_kg) * 8 + i8;
-    *reinterpret_cast<uint4*>(dst + (size_t)(row0 + m) * ld + kg * 8) =
-        *reinterpret_cast<const uint4*>(Atile + core_at(m, kg * 8, lda));
+  const int i8 = threadIdx.x & 7;
+  for (int mb = 0; mb < kRows; mb += 8) {
+    const int m = mb + i8;
+    bf16* drow = dst + (size_t)(row0 + m) * ld;
+    for (int kg = threadIdx.x >> 3; kg < n_kg; kg += kThreads / 8)
+      *reinterpret_cast<uint4*>(drow + kg * 8) =
+          *reinterpret_cast<const uint4*>(Atile + core_at(m, kg * 8, lda));
   }
 }
 
 // Loop over the accumulator registers of the calling thread that hold
-// columns < width of a product's output: f(ci, i, row, col, value&)
-template <typename F>
-__device__ __forceinline__ void for_owned(float (&acc)[kMaxChunks][32], int width, F f) {
+// columns < width of a product pass's output, by pairs of adjacent columns
+// (col even): f(ci, i, row, col, v0&, v1&), v0 in register i, v1 in i + 1
+template <int NCH, typename F>
+__device__ __forceinline__ void for_pairs(float (&acc)[NCH][32], int width, F f) {
   const int wg = threadIdx.x >> 7;
   const int q4 = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = TileMap<NCH>::row0(wg) + 16 * q4 + g;
 #pragma unroll
-  for (int ci = 0; ci < kMaxChunks; ++ci) {
-    const int c0 = (wg + 2 * ci) * kChunk;
+  for (int ci = 0; ci < NCH; ++ci) {
+    const int c0 = TileMap<NCH>::chunk(wg, ci) * kChunk;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (c0 + j * 8 < width) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f(ci, j * 4 + e, 16 * q4 + g + (e >> 1) * 8, c0 + j * 8 + 2 * t + (e & 1),
-            acc[ci][j * 4 + e]);
+        for (int h = 0; h < 2; ++h)
+          f(ci, j * 4 + 2 * h, r0 + h * 8, c0 + j * 8 + 2 * t, acc[ci][j * 4 + 2 * h],
+            acc[ci][j * 4 + 2 * h + 1]);
       }
     }
   }
 }
 
-// backward, one layer's f32 delta in the registers: db partial column sums
-// into `red`, the bf16 delta into Atile. The caller syncs, then calls
-// emit_finish.
-__device__ __forceinline__ void emit_regs(float (&acc)[kMaxChunks][32], int Np, bf16* Atile, int lda,
-                          float* red) {
+// the same one register at a time: f(ci, i, row, col, value&)
+template <int NCH, typename F>
+__device__ __forceinline__ void for_owned(float (&acc)[NCH][32], int width, F f) {
+  for_pairs(acc, width, [&](int ci, int i, int r, int c, float& v0, float& v1) {
+    f(ci, i, r, c, v0);
+    f(ci, i + 1, r, c + 1, v1);
+  });
+}
+
+// backward (64-row tiles), one layer's f32 delta in the registers, columns
+// < Np: db partial column sums into `red`, the bf16 delta into Atile. The
+// caller syncs, then calls emit_finish.
+__device__ __forceinline__ void emit_regs(float (&acc)[2][32], int Np, bf16* Atile, int lda,
+                                          float* red) {
   const int wg = threadIdx.x >> 7;
   const int q4 = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int ci = 0; ci < kMaxChunks; ++ci) {
-    const int c0 = (wg + 2 * ci) * kChunk;
+  for (int ci = 0; ci < 2; ++ci) {
+    const int c0 = TileMap<2>::chunk(wg, ci) * kChunk;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (c0 + j * 8 < Np) {
@@ -696,11 +745,12 @@ __device__ __forceinline__ void emit_regs(float (&acc)[kMaxChunks][32], int Np, 
   }
 }
 
-// after emit_regs and a barrier: db partial (the four warps in order) and the
-// bf16 delta out to `dels`
-__device__ void emit_finish(const Plan& p, const LayerDesc& d, const float* red,
+// after emit_regs and a barrier: db partial of the first `nreg` columns (the
+// four warps in order) and the bf16 delta, all Np columns of Atile, out to
+// `dels`
+__device__ void emit_finish(const Plan& p, const LayerDesc& d, int nreg, const float* red,
                             const bf16* Atile, float* dbpart, bf16* dels, int row0) {
-  for (int c = threadIdx.x; c < d.Np; c += kThreads)
+  for (int c = threadIdx.x; c < nreg; c += kThreads)
     dbpart[(size_t)blockIdx.x * p.total_b + d.boff + c] =
         ((red[c] + red[kMaxOut + c]) + red[2 * kMaxOut + c]) + red[3 * kMaxOut + c];
   store_tile(Atile, p.lda, d.Np, dels + d.doff, p.del_w, row0);
@@ -717,43 +767,40 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                   const bf16* __restrict__ W, const float* __restrict__ B, Plan p, bf16* acts, bf16* dels,
                   float* dbpart) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  using RG = K3Ring;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);               // [stages][kSlab]
-  bf16* Atile = ring + kRbStages * kSlab;                        // [64, lda] core
+  bf16* Atile = ring + RG::kStages * kSlab;                      // [64, lda] core
   uint32_t* maskw = reinterpret_cast<uint32_t*>(Atile + kRows * p.lda);
-  float* red = reinterpret_cast<float*>(maskw + (p.n_layers - 1) * kMaxChunks * kThreads);
+  float* red = reinterpret_cast<float*>(maskw + (p.n_layers - 1) * 2 * kThreads);
   float* Sv = red + 4 * kMaxOut;                                 // [64, e_a]
 
   const int L = p.n_layers;
   const int row0 = blockIdx.x * kRows;
-  const int n_prod = 2 * L - 1 + rb_passes0(p);
-  RbCursor cur{0, 0, n_prod};
-  for (int i = 0; i < kRbStages - 1; ++i) {
-    cur.load_next(p, W, ring + i * kSlab);
-    cp_async_commit();
-  }
+  RbCursor cur{0, 0, p.n_prod, nullptr};
+  cur.prologue<RG>(p, W, ring);
   render_input(p, pts, nrm, dirs, feat, n, row0, Atile,
                [&](int r, int c) { return core_at(r, c, p.lda); });
   fence_async_smem();
   __syncthreads();
 
-  float acc[kMaxChunks][32];
+  float acc[2][32];
   int s = 0;
   for (int l = 0; l < L; ++l) {
     const LayerDesc& d = p.L[l];
     store_tile(Atile, p.lda, d.Kp, acts + d.aoff, p.act_w, row0);
-    rb_product(p, W, l, s, cur, ring, Atile, p.lda, acc);
+    rb_product<RG>(p, W, l, s, cur, ring, Atile, p.lda, acc);
     __syncthreads();  // every warpgroup is done reading Atile
     if (l + 1 == L) break;
     const float* bias = B + d.boff;
-    uint32_t bits[kMaxChunks] = {0u, 0u};
+    uint32_t bits[2] = {0u, 0u};
     for_owned(acc, d.Np, [&](int ci, int i, int r, int c, float& v) {
       const bf16 h = __float2bfloat16(fmaxf(v + bias[c], 0.0f));
       Atile[core_at(r, c, p.lda)] = h;
       if (__bfloat162float(h) > 0.0f) bits[ci] |= 1u << i;
     });
 #pragma unroll
-    for (int ci = 0; ci < kMaxChunks; ++ci)
-      maskw[(l * kMaxChunks + ci) * kThreads + threadIdx.x] = bits[ci];
+    for (int ci = 0; ci < 2; ++ci)
+      maskw[(l * 2 + ci) * kThreads + threadIdx.x] = bits[ci];
     fence_async_smem();
     __syncthreads();
   }
@@ -779,20 +826,20 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
     emit_regs(acc, o.Np, Atile, p.lda, red);
     fence_async_smem();
     __syncthreads();
-    emit_finish(p, o, red, Atile, dbpart, dels, row0);
+    emit_finish(p, o, o.Np, red, Atile, dbpart, dels, row0);
   }
 
   for (int l = L - 1; l >= 1; --l) {
     const LayerDesc& d = p.L[l];
-    rb_product(p, W, 2 * L - 1 - l, s, cur, ring, Atile, p.lda, acc);
+    rb_product<RG>(p, W, 2 * L - 1 - l, s, cur, ring, Atile, p.lda, acc);
     __syncthreads();  // every warpgroup is done reading the delta in Atile
     for_owned(acc, d.Kp, [&](int ci, int i, int, int, float& v) {
-      if (!((maskw[((l - 1) * kMaxChunks + ci) * kThreads + threadIdx.x] >> i) & 1u)) v = 0.0f;
+      if (!((maskw[((l - 1) * 2 + ci) * kThreads + threadIdx.x] >> i) & 1u)) v = 0.0f;
     });
     emit_regs(acc, p.L[l - 1].Np, Atile, p.lda, red);
     fence_async_smem();
     __syncthreads();
-    emit_finish(p, p.L[l - 1], red, Atile, dbpart, dels, row0);
+    emit_finish(p, p.L[l - 1], p.L[l - 1].Np, red, Atile, dbpart, dels, row0);
   }
 
   // dx of layer 0, the cotangent of the input concat, in passes of kMaxOut
@@ -802,10 +849,10 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   const int c_nrm = 3 + (use_view ? p.e_a : 0);
   const int c_feat = c_nrm + (use_nrm ? 3 : 0);
   const int K0 = p.L[0].K;
-  for (int q = 2 * L - 1; q < n_prod; ++q) {
-    const int n0 = (q - (2 * L - 1)) * kMaxOut;
-    rb_product(p, W, q, s, cur, ring, Atile, p.lda, acc);
-    for_owned(acc, min(kMaxOut, p.L[0].Kp - n0), [&](int, int, int r, int c, float& v) {
+  for (int q = 2 * L - 1; q < p.n_prod; ++q) {
+    const int n0 = p.q_n0[q];
+    rb_product<RG>(p, W, q, s, cur, ring, Atile, p.lda, acc);
+    for_owned(acc, p.q_w[q], [&](int, int, int r, int c, float& v) {
       const int gr = row0 + r;
       c += n0;
       if (gr >= n || c >= K0) return;
@@ -835,236 +882,357 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   }
 }
 
-// K4/K5 input tiles: the point embedding (into A and Ea) and the view
-// embedding (into Eb)
+// ---------------------------------------------------------------------------
+// K4 and K5: the background NeRF on the wgmma tile machinery
+// ---------------------------------------------------------------------------
+//
+// Layers (as _nerf_meta packs them): trunk 0..T-1 (relu, width Wt), then
+// [feature | alpha] (wf + 1 columns), views0 (relu) and [rgb | dpt]. Two
+// packing choices keep each forward output and its dx counterpart in the
+// same thread and register: the input after a skip layer is [h | emb_pts]
+// (the next layer's W rows permuted to match), so columns 0..Wt-1 of its dx
+// are the skip layer's delta under that layer's relu-mask bits and columns
+// Wt.. add into the point embedding's cotangent dE; and the feature columns
+// come first, so views0's dx columns 0..wf-1 are [feature | alpha]'s delta
+// as they stand. The point embedding sits in Ea (layer 0's input, and copied
+// after every skip layer), the view embedding in Eb (views0's input beside
+// the feature).
+//
+// K4 (nerf_fwd_kernel, replaces _nerf_kernel_fwd): 128-row tiles, each
+// warpgroup owning 64 rows and a full product pass (128 accumulator
+// registers), one CTA of 217 KB per SM, a synchronous 6-stage bulk-copy
+// ring. The [feature | alpha] layer runs its wf feature columns as a pass
+// and alpha as a per-row dot of the layer's input in its epilogue; alpha,
+// rgb and dpt are written from the epilogues. Bound: operations (1.208
+// MFLOP of bf16 products a row at full width: 0.165 ms at 135,168 rows).
+// What the design does about it: every product on the tensor cores through
+// wgmma, each weight slab read from L2 once per 128 rows (1.23 MB of packed
+// weights per tile) by one bulk copy.
+//
+// K5 (nerf_bwd_kernel, replaces _nerf_kernel_bwd): 64-row tiles (128 would
+// need more than 227 KB: ring, A tile, embeddings, the f32 dE and the mask
+// bits of nine layers), the warpgroups splitting each pass's columns, one
+// CTA of 206 KB per SM, an asynchronous 6-stage bulk-copy ring (a slab's
+// wgmma runs on through the next slab's barrier). It recomputes the forward
+// through views0 storing every layer's input to `acts` and the relu masks
+// as bits, then runs the dx passes in reverse (the passes of a dx wider than
+// 256 columns first, so that the last pass, columns 0..255, stays in the
+// registers for the next delta). Bound: operations, 3x the forward's (0.062
+// ms at 16,896 rows); the same design answers it.
+
+// rows x [c0, c1) of Atile <- E[r, c - c0] (row-major, `le` columns, zero past
+// the embedding), zero from le on
+template <int R>
+__device__ void put_cols(bf16* Atile, int lda, int c0, int c1, const bf16* E, int le) {
+  const int w = c1 - c0;
+  for (int idx = threadIdx.x; idx < R * w; idx += kThreads) {
+    const int r = idx / w;
+    const int c = idx % w;
+    Atile[core_at(r, c0 + c, lda)] = c < le ? E[r * le + c] : __float2bfloat16(0.0f);
+  }
+}
+
+// the point embedding into Ea and into layer 0's input (Atile), the view
+// embedding into Eb; zero past the embeddings and for rows past n
+template <int R>
 __device__ void nerf_input(const Plan& p, const float* __restrict__ pts,
-                           const float* __restrict__ views, int n, int row0,
-                           bf16* A, bf16* Ea, bf16* Eb) {
+                           const float* __restrict__ views, int n, int row0, bf16* Atile,
+                           bf16* Ea, bf16* Eb) {
   const int lea = pad16(p.e_a);
   const int leb = pad16(p.e_b);
-  for (int idx = threadIdx.x; idx < kRows * lea; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * lea; idx += kThreads) {
     const int r = idx / lea;
     const int c = idx % lea;
     const int gr = row0 + r;
-    float v = 0.0f;
-    if (gr < n && c < p.e_a) v = embed_at(pts + (size_t)gr * p.d_a, p.d_a, c);
+    const float v = gr < n && c < p.e_a ? embed_at(pts + (size_t)gr * p.d_a, p.d_a, c) : 0.0f;
     const bf16 h = __float2bfloat16(v);
     Ea[idx] = h;
-    A[r * p.lda + c] = h;
+    Atile[core_at(r, c, p.lda)] = h;
   }
-  for (int idx = threadIdx.x; idx < kRows * leb; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * leb; idx += kThreads) {
     const int r = idx / leb;
     const int c = idx % leb;
     const int gr = row0 + r;
-    float v = 0.0f;
-    if (gr < n && c < p.e_b) v = embed_at(views + gr * 3, 3, c);
+    const float v = gr < n && c < p.e_b ? embed_at(views + gr * 3, 3, c) : 0.0f;
     Eb[idx] = __float2bfloat16(v);
   }
-  zero_cols(A, p.lda, lea, p.L[0].Kp);
 }
 
-// K4/K5 forward through the trunk and the [alpha | feature] product; leaves
-// that product (without bias) in S and h in A. With `acts` set, stores every
-// trunk layer's input and h.
-__device__ void nerf_trunk(const Plan& p, const bf16* __restrict__ W,
-                           const float* __restrict__ B, float* S, bf16* A,
-                           const bf16* Ea, bf16* acts, int row0) {
-  const int lea = pad16(p.e_a);
-  // trunk: relu linears, [emb_pts, h] after every skip layer
-  for (int i = 0; i < p.trunk; ++i) {
-    const LayerDesc& d = p.L[i];
-    if (acts) store_act(A, p.lda, d.Kp, acts + d.aoff, p.act_w, row0);
-    mm_tile(A, p.lda, d.Kp, W + d.woff, d.Np, S, p.lds);
-    __syncthreads();
-    const int skip = (p.skips >> i) & 1u;
-    const int col0 = skip ? p.e_a : 0;
-    epilogue(S, p.lds, 0, d.N, B + d.boff, 1, A, p.lda, col0);
-    if (skip) {
-      for (int idx = threadIdx.x; idx < kRows * p.e_a; idx += kThreads)
-        A[(idx / p.e_a) * p.lda + idx % p.e_a] = Ea[(idx / p.e_a) * lea + idx % p.e_a];
+// K4: alpha = h . w_alpha + b_alpha for each row, h the [feature | alpha]
+// layer's bf16 input in Atile; two threads per row, 16-byte reads
+template <int R>
+__device__ void nerf_alpha(const Plan& p, const bf16* Atile, const float* walpha, float bias,
+                           float* __restrict__ alpha, int n, int row0) {
+  static_assert(2 * R == kThreads, "two threads per row");
+  const int r = threadIdx.x >> 1;
+  float s = 0.0f;
+  for (int kg = threadIdx.x & 1; kg < p.L[p.trunk].Kp / 8; kg += 2) {
+    const uint4 u = *reinterpret_cast<const uint4*>(Atile + core_at(r, kg * 8, p.lda));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      s = fmaf(f.x, walpha[kg * 8 + 2 * e], s);
+      s = fmaf(f.y, walpha[kg * 8 + 2 * e + 1], s);
     }
-    zero_cols(A, p.lda, col0 + d.N, p.L[i + 1].Kp);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if ((threadIdx.x & 1) == 0 && row0 + r < n) alpha[row0 + r] = s + bias;
+}
+
+// The forward through views0 (product passes 0..T+1), leaving views0's bf16
+// output in Atile. K5 (BWD) stores each layer's input to `acts` and keeps
+// the relu masks of the trunk (slots 0..T-1) and of views0 (slot T) in
+// maskw; K4 writes alpha.
+template <class RG, int NCH, bool BWD>
+__device__ void nerf_forward(const Plan& p, const bf16* __restrict__ W,
+                             const float* __restrict__ B, int& s, RbCursor& cur, bf16* ring,
+                             bf16* Atile, const bf16* Ea, const bf16* Eb, float (&acc)[NCH][32],
+                             uint32_t* maskw, bf16* acts, const float* walpha,
+                             float* __restrict__ alpha, int n, int row0) {
+  constexpr int R = TileMap<NCH>::kRows;
+  const int T = p.trunk;
+  for (int l = 0; l <= T + 1; ++l) {
+    const LayerDesc& d = p.L[l];
+    if constexpr (BWD) store_tile(Atile, p.lda, d.Kp, acts + d.aoff, p.act_w, row0);
+    rb_product<RG>(p, W, l, s, cur, ring, Atile, p.lda, acc);
+    __syncthreads();  // every warpgroup is done reading Atile
+    const float* bias = B + d.boff;
+    if (l == T) {
+      if constexpr (!BWD) {
+        nerf_alpha<R>(p, Atile, walpha, bias[p.wf], alpha, n, row0);
+        __syncthreads();
+      }
+      // views0's input: [feature | emb_view]
+      for_pairs(acc, p.wf, [&](int, int, int r, int c, float& v0, float& v1) {
+        *reinterpret_cast<__nv_bfloat162*>(Atile + core_at(r, c, p.lda)) =
+            __floats2bfloat162_rn(v0 + bias[c], v1 + bias[c + 1]);
+      });
+      put_cols<R>(Atile, p.lda, p.wf, p.L[T + 1].Kp, Eb, pad16(p.e_b));
+    } else {
+      uint32_t bits[NCH] = {};
+      for_pairs(acc, d.Np, [&](int ci, int i, int r, int c, float& v0, float& v1) {
+        const __nv_bfloat162 h =
+            __floats2bfloat162_rn(fmaxf(v0 + bias[c], 0.0f), fmaxf(v1 + bias[c + 1], 0.0f));
+        *reinterpret_cast<__nv_bfloat162*>(Atile + core_at(r, c, p.lda)) = h;
+        if (BWD) {
+          const float2 f = __bfloat1622float2(h);
+          bits[ci] |= (f.x > 0.0f ? 1u << i : 0u) | (f.y > 0.0f ? 2u << i : 0u);
+        }
+      });
+      if constexpr (BWD) {
+        const int slot = l < T ? l : T;
+#pragma unroll
+        for (int ci = 0; ci < NCH; ++ci)
+          maskw[(slot * NCH + ci) * kThreads + threadIdx.x] = bits[ci];
+      }
+      // after a skip layer the next input is [h | emb_pts]
+      if (l < T && ((p.skips >> l) & 1u))
+        put_cols<R>(Atile, p.lda, d.N, p.L[l + 1].Kp, Ea, pad16(p.e_a));
+    }
+    fence_async_smem();
     __syncthreads();
   }
-  const LayerDesc& af = p.L[p.trunk];
-  if (acts) store_act(A, p.lda, af.Kp, acts + af.aoff, p.act_w, row0);
-  mm_tile(A, p.lda, af.Kp, W + af.woff, af.Np, S, p.lds);
-  __syncthreads();
 }
 
-// K4/K5: A = [feature, emb_view] from the [alpha | feature] product in S
-__device__ void nerf_views_input(const Plan& p, const float* __restrict__ B,
-                                 const float* S, bf16* A, const bf16* Eb) {
-  const int leb = pad16(p.e_b);
-  const LayerDesc& af = p.L[p.trunk];
-  const int wfeat = af.N - 1;
-  epilogue(S, p.lds, 1, wfeat, B + af.boff + 1, 0, A, p.lda, 0);
-  for (int idx = threadIdx.x; idx < kRows * p.e_b; idx += kThreads)
-    A[(idx / p.e_b) * p.lda + wfeat + idx % p.e_b] = Eb[(idx / p.e_b) * leb + idx % p.e_b];
-  zero_cols(A, p.lda, wfeat + p.e_b, p.L[p.trunk + 1].Kp);
-}
-
-// Layers: trunk 0..D-1, then [alpha | feature], views0, [rgb | dpt].
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 nerf_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
-                float* __restrict__ alpha, float* __restrict__ rgb,
-                float* __restrict__ dpt, int n,
-                const bf16* __restrict__ W,
+                float* __restrict__ alpha, float* __restrict__ rgb, float* __restrict__ dpt, int n,
+                const bf16* __restrict__ W, const bf16* __restrict__ img,
                 const float* __restrict__ B, Plan p) {
+  constexpr int NCH = 4;
+  constexpr int R = TileMap<NCH>::kRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* S = reinterpret_cast<float*>(smem_raw);
-  bf16* A = reinterpret_cast<bf16*>(S + kRows * p.lds);
-  bf16* Ea = A + kRows * p.lda;              // [64, pad16(e_a)]
-  bf16* Eb = Ea + kRows * pad16(p.e_a);      // [64, pad16(e_b)]
+  using RG = K4Ring;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);         // [stages][kSlab]
+  bf16* Atile = ring + RG::kStages * kSlab;                // [R, lda] core layout
+  bf16* Ea = Atile + R * p.lda;                            // [R, pad16(e_a)]
+  bf16* Eb = Ea + R * pad16(p.e_a);                        // [R, pad16(e_b)]
+  float* walpha = reinterpret_cast<float*>(Eb + R * pad16(p.e_b));  // [Kp of the alpha layer]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(walpha + p.L[p.trunk].Kp);  // [stages]
 
-  const int row0 = blockIdx.x * kRows;
-  nerf_input(p, pts, views, n, row0, A, Ea, Eb);
+  const int T = p.trunk;
+  const int row0 = blockIdx.x * R;
+  RbCursor cur{0, 0, p.n_prod, bars};
+  cur.init<RG>();
   __syncthreads();
-  nerf_trunk(p, W, B, S, A, Ea, nullptr, row0);
+  cur.prologue<RG>(p, img, ring);
+  nerf_input<R>(p, pts, views, n, row0, Atile, Ea, Eb);
+  const LayerDesc& af = p.L[T];
+  for (int k = threadIdx.x; k < af.Kp; k += kThreads)
+    walpha[k] = __bfloat162float(W[af.woff + (size_t)k * af.Np + p.wf]);
+  fence_async_smem();
+  __syncthreads();
 
-  // heads: alpha straight from the accumulators
-  const LayerDesc& af = p.L[p.trunk];
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+  float acc[NCH][32];
+  int s = 0;
+  nerf_forward<RG, NCH, false>(p, img, B, s, cur, ring, Atile, Ea, Eb, acc, nullptr, nullptr, walpha,
+                           alpha, n, row0);
+  const LayerDesc& rd = p.L[T + 2];
+  rb_product<RG>(p, img, T + 2, s, cur, ring, Atile, p.lda, acc);
+  for_owned(acc, rd.Np, [&](int, int, int r, int c, float& v) {
     const int gr = row0 + r;
-    if (gr < n) alpha[gr] = S[r * p.lds] + B[af.boff];
-  }
-  nerf_views_input(p, B, S, A, Eb);
-  __syncthreads();
-
-  const LayerDesc& v0 = p.L[p.trunk + 1];
-  mm_tile(A, p.lda, v0.Kp, W + v0.woff, v0.Np, S, p.lds);
-  __syncthreads();
-  const LayerDesc& rd = p.L[p.trunk + 2];
-  epilogue(S, p.lds, 0, v0.N, B + v0.boff, 1, A, p.lda, 0);
-  zero_cols(A, p.lda, v0.N, rd.Kp);
-  __syncthreads();
-
-  mm_tile(A, p.lda, rd.Kp, W + rd.woff, rd.Np, S, p.lds);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * rd.N; idx += kThreads) {
-    const int r = idx / rd.N;
-    const int c = idx % rd.N;
-    const int gr = row0 + r;
-    if (gr >= n) continue;
-    const float v = S[r * p.lds + c] + B[rd.boff + c];
+    if (gr >= n) return;
+    const float o = v + B[rd.boff + c];
     if (c < p.d_rgb)
-      rgb[(size_t)gr * p.d_rgb + c] = v;
-    else
-      dpt[(size_t)gr * p.d_dpt + c - p.d_rgb] = v;
-  }
+      rgb[(size_t)gr * p.d_rgb + c] = o;
+    else if (c < p.d_rgb + p.d_dpt)
+      dpt[(size_t)gr * p.d_dpt + c - p.d_rgb] = o;
+  });
 }
 
 // K5: recompute, then (g_alpha, g_rgb, g_dpt) -> d(pts), d(views) and the
-// per-layer deltas (dW/db follow in dw_kernel and the reductions).
-__global__ void __launch_bounds__(kThreads)
+// per-layer deltas and db partials (dW follows in the contraction).
+__global__ void __launch_bounds__(kThreads, 1)
 nerf_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ views,
                 const float* __restrict__ g_alpha, const float* __restrict__ g_rgb,
                 const float* __restrict__ g_dpt, float* __restrict__ d_pts,
-                float* __restrict__ d_views, int n,
-                const bf16* __restrict__ W, const float* __restrict__ B,
-                Plan p, bf16* acts, bf16* dels, float* dbpart) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* S = reinterpret_cast<float*>(smem_raw);
-  bf16* A = reinterpret_cast<bf16*>(S + kRows * p.lds);
-  bf16* Ea = A + kRows * p.lda;
-  bf16* Eb = Ea + kRows * pad16(p.e_a);
-  float* dE = reinterpret_cast<float*>(Eb + kRows * pad16(p.e_b));  // [64, e_a]
-
-  const int row0 = blockIdx.x * kRows;
+                float* __restrict__ d_views, int n, const bf16* __restrict__ img,
+                const float* __restrict__ B, Plan p, bf16* acts, bf16* dels, float* dbpart) {
+  constexpr int NCH = 2;
+  constexpr int R = TileMap<NCH>::kRows;
   const int T = p.trunk;
-  nerf_input(p, pts, views, n, row0, A, Ea, Eb);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using RG = K5Ring;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);         // [stages][kSlab]
+  bf16* Atile = ring + RG::kStages * kSlab;                // [R, lda] core layout
+  bf16* Ea = Atile + R * p.lda;                            // [R, pad16(e_a)]
+  bf16* Eb = Ea + R * pad16(p.e_a);                        // [R, pad16(e_b)]
+  uint32_t* maskw = reinterpret_cast<uint32_t*>(Eb + R * pad16(p.e_b));  // [T + 1][NCH][threads]
+  float* red = reinterpret_cast<float*>(maskw + (T + 1) * NCH * kThreads);  // [4, kMaxOut]
+  float* dE = red + 4 * kMaxOut;                           // [R, e_a]
+  float* Sv = dE + R * p.e_a;                              // [R, e_b]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Sv + R * p.e_b);  // [stages]
+
+  const int row0 = blockIdx.x * R;
+  RbCursor cur{0, 0, p.n_prod, bars};
+  cur.init<RG>();
   __syncthreads();
-  nerf_trunk(p, W, B, S, A, Ea, acts, row0);
-  nerf_views_input(p, B, S, A, Eb);
+  cur.prologue<RG>(p, img, ring);
+  nerf_input<R>(p, pts, views, n, row0, Atile, Ea, Eb);
+  for (int i = threadIdx.x; i < R * p.e_a; i += kThreads) dE[i] = 0.0f;
+  fence_async_smem();
   __syncthreads();
+
+  float acc[NCH][32];
+  int s = 0;
+  nerf_forward<RG, NCH, true>(p, img, B, s, cur, ring, Atile, Ea, Eb, acc, maskw, acts, nullptr, nullptr,
+                          n, row0);
   const LayerDesc& af = p.L[T];
   const LayerDesc& v0 = p.L[T + 1];
   const LayerDesc& rd = p.L[T + 2];
-  store_act(A, p.lda, v0.Kp, acts + v0.aoff, p.act_w, row0);
-  mm_tile(A, p.lda, v0.Kp, W + v0.woff, v0.Np, S, p.lds);
-  __syncthreads();
-  epilogue(S, p.lds, 0, v0.N, B + v0.boff, 1, A, p.lda, 0);
-  zero_cols(A, p.lda, v0.N, rd.Kp);
-  __syncthreads();
-  store_act(A, p.lda, rd.Kp, acts + rd.aoff, p.act_w, row0);
-  for (int idx = threadIdx.x; idx < kRows * p.e_a; idx += kThreads)
-    dE[idx] = 0.0f;
+  store_tile(Atile, p.lda, rd.Kp, acts + rd.aoff, p.act_w, row0);
+  __syncthreads();  // done reading views0's output before the delta replaces it
 
   // [rgb | dpt]: the delta is the cotangent itself
-  for (int idx = threadIdx.x; idx < kRows * rd.Np; idx += kThreads) {
-    const int r = idx / rd.Np;
-    const int c = idx % rd.Np;
+  for_owned(acc, rd.Np, [&](int, int, int r, int c, float& v) {
     const int gr = row0 + r;
-    float v = 0.0f;
+    float gv = 0.0f;
     if (gr < n) {
       if (c < p.d_rgb)
-        v = g_rgb[(size_t)gr * p.d_rgb + c];
+        gv = g_rgb[(size_t)gr * p.d_rgb + c];
       else if (c < p.d_rgb + p.d_dpt)
-        v = g_dpt[(size_t)gr * p.d_dpt + c - p.d_rgb];
+        gv = g_dpt[(size_t)gr * p.d_dpt + c - p.d_rgb];
     }
-    S[r * p.lds + c] = v;
-  }
+    v = gv;
+  });
+  emit_regs(acc, rd.Np, Atile, p.lda, red);
+  fence_async_smem();
   __syncthreads();
-  emit_delta(Delta{S, p.lds, 0, rd.N, nullptr, row0, n}, rd, p, A, p.lda,
-             dbpart, dels);
-  __syncthreads();
-  mm_tile_t(A, p.lda, rd.Np, W + rd.woff, rd.Kp, S, p.lds);
-  __syncthreads();
-  relu_mask(S, p.lds, 0, rd.Kp, acts, p.act_w, rd.aoff, row0);
-  __syncthreads();
+  emit_finish(p, rd, rd.Np, red, Atile, dbpart, dels, row0);
 
-  // views0: d_h2 -> d[feature, emb_view]; the view part goes out now
-  emit_delta(Delta{S, p.lds, 0, v0.N, nullptr, row0, n}, v0, p, A, p.lda,
-             dbpart, dels);
+  // dx of layer l, all its passes (those from column kMaxOut on first):
+  // column c >= split of the layer's input cotangent goes to tail(r, c, v);
+  // columns below stay in the registers as the next delta, under the relu
+  // mask of slot mslot (none if < 0)
+  int q = T + 2;
+  auto dx = [&](int split, int mslot, auto tail) {
+    for (; p.q_n0[q] != 0; ++q) {
+      const int n0 = p.q_n0[q];
+      rb_product<RG>(p, img, q, s, cur, ring, Atile, p.lda, acc);
+      for_owned(acc, p.q_w[q], [&](int, int, int r, int c, float& v) { tail(r, n0 + c, v); });
+    }
+    rb_product<RG>(p, img, q, s, cur, ring, Atile, p.lda, acc);
+    __syncthreads();  // every warpgroup is done reading the delta in Atile
+    for_owned(acc, p.q_w[q], [&](int ci, int i, int r, int c, float& v) {
+      if (c >= split)
+        tail(r, c, v);
+      else if (mslot >= 0 && !((maskw[(mslot * NCH + ci) * kThreads + threadIdx.x] >> i) & 1u))
+        v = 0.0f;
+    });
+    ++q;
+  };
+  auto no_tail = [](int, int, float) {};
+  auto to_dE = [&](int c0) {
+    return [&, c0](int r, int c, float v) {
+      c -= c0;
+      if (c < p.e_a) dE[r * p.e_a + c] += v;
+    };
+  };
+  constexpr int kAll = 1 << 30;
+
+  // views0: dx of [rgb | dpt] under views0's relu
+  dx(kAll, T, no_tail);
+  emit_regs(acc, v0.Np, Atile, p.lda, red);
+  fence_async_smem();
   __syncthreads();
-  mm_tile_t(A, p.lda, v0.Np, W + v0.woff, v0.Kp, S, p.lds);
+  emit_finish(p, v0, v0.Np, red, Atile, dbpart, dels, row0);
+
+  // [feature | alpha]: dx of views0 is [d_feature | d_emb_view]; the delta is
+  // [d_feature | g_alpha | 0]
+  dx(p.wf, -1, [&](int r, int c, float v) {
+    c -= p.wf;
+    if (c < p.e_b) Sv[r * p.e_b + c] = v;
+  });
+  emit_regs(acc, p.wf, Atile, p.lda, red);
+  for (int idx = threadIdx.x; idx < R * (af.Np - p.wf); idx += kThreads) {
+    const int r = idx % R;
+    const int c = p.wf + idx / R;
+    const float v = c == p.wf && row0 + r < n ? g_alpha[row0 + r] : 0.0f;
+    Atile[core_at(r, c, p.lda)] = __float2bfloat16(v);
+  }
+  fence_async_smem();
   __syncthreads();
-  const int wfeat = af.N - 1;
-  for (int idx = threadIdx.x; idx < kRows * 3; idx += kThreads) {
+  emit_finish(p, af, p.wf, red, Atile, dbpart, dels, row0);
+  for (int c = p.wf + threadIdx.x; c < af.Np; c += kThreads) {
+    float sum = 0.0f;
+    if (c == p.wf)
+      for (int r = 0; r < R && row0 + r < n; ++r) sum += g_alpha[row0 + r];
+    dbpart[(size_t)blockIdx.x * p.total_b + af.boff + c] = sum;
+  }
+  for (int idx = threadIdx.x; idx < R * 3; idx += kThreads) {
     const int r = idx / 3;
     const int j = idx % 3;
     const int gr = row0 + r;
-    if (gr >= n) continue;
-    const float* srow = S + r * p.lds + wfeat;
-    d_views[gr * 3 + j] =
-        embed_vjp([&](int c) { return srow[c]; }, views + gr * 3, 3, j, p.freqs_b);
+    if (gr < n)
+      d_views[gr * 3 + j] =
+          embed_vjp([&](int c) { return Sv[r * p.e_b + c]; }, views + gr * 3, 3, j, p.freqs_b);
   }
 
-  // [alpha | feature]: the delta is [g_alpha | d_feature]
-  emit_delta(Delta{S, p.lds, 0, af.N, g_alpha, row0, n}, af, p, A, p.lda,
-             dbpart, dels);
-  __syncthreads();
-  mm_tile_t(A, p.lda, af.Np, W + af.woff, af.Kp, S, p.lds);
-  __syncthreads();
-
-  // trunk in reverse: S holds the cotangent of layer i+1's input; after a
-  // skip layer that input is [emb, h_i], whose emb part accumulates in dE
-  for (int i = T - 1; i >= 0; --i) {
-    const LayerDesc& d = p.L[i];
-    const int s0 = ((p.skips >> i) & 1u) ? p.e_a : 0;
-    if (s0) {
-      for (int idx = threadIdx.x; idx < kRows * p.e_a; idx += kThreads)
-        dE[idx] += S[(idx / p.e_a) * p.lds + idx % p.e_a];
-    }
-    relu_mask(S, p.lds, s0, d.N, acts, p.act_w, p.L[i + 1].aoff + s0, row0);
+  // the trunk in reverse: dx of layer i is layer i-1's delta under its relu
+  // mask, and after a skip layer also the skip's share of dE
+  for (int i = T; i >= 1; --i) {
+    const bool skip = i < T && ((p.skips >> (i - 1)) & 1u);
+    const LayerDesc& d = p.L[i - 1];
+    if (skip)
+      dx(d.N, i - 1, to_dE(d.N));
+    else
+      dx(kAll, i - 1, no_tail);
+    emit_regs(acc, d.Np, Atile, p.lda, red);
+    fence_async_smem();
     __syncthreads();
-    emit_delta(Delta{S, p.lds, s0, d.N, nullptr, row0, n}, d, p, A, p.lda,
-               dbpart, dels);
-    __syncthreads();
-    mm_tile_t(A, p.lda, d.Np, W + d.woff, d.Kp, S, p.lds);
-    __syncthreads();
+    emit_finish(p, d, d.Np, red, Atile, dbpart, dels, row0);
   }
-
-  for (int idx = threadIdx.x; idx < kRows * p.d_a; idx += kThreads) {
+  // layer 0's input is the point embedding itself
+  dx(0, -1, to_dE(0));
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < R * p.d_a; idx += kThreads) {
     const int r = idx / p.d_a;
     const int j = idx % p.d_a;
     const int gr = row0 + r;
-    if (gr >= n) continue;
-    const float* srow = S + r * p.lds;
-    const float* erow = dE + r * p.e_a;
-    d_pts[(size_t)gr * p.d_a + j] =
-        embed_vjp([&](int c) { return erow[c] + srow[c]; },
-                  pts + (size_t)gr * p.d_a, p.d_a, j, p.freqs_a);
+    if (gr < n)
+      d_pts[(size_t)gr * p.d_a + j] = embed_vjp([&](int c) { return dE[r * p.e_a + c]; },
+                                                pts + (size_t)gr * p.d_a, p.d_a, j, p.freqs_a);
   }
 }
 
@@ -1311,6 +1479,70 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// append product pass (layer l, forward or dx, first column n0, width w);
+// 1 when the list is full
+int add_prod(Plan* p, int l, int dx, int n0, int w) {
+  if (p->n_prod >= kMaxProds || w <= 0 || w > kMaxOut) return 1;
+  p->q_layer[p->n_prod] = (unsigned char)l;
+  p->q_dx[p->n_prod] = (unsigned char)dx;
+  p->q_n0[p->n_prod] = (short)n0;
+  p->q_w[p->n_prod] = (short)w;
+  ++p->n_prod;
+  return 0;
+}
+
+// dx of layer l in passes of kMaxOut columns, from column 0 on
+int add_dx(Plan* p, int l) {
+  const int Kp = p->L[l].Kp;
+  int err = 0;
+  for (int n0 = 0; n0 < Kp; n0 += kMaxOut)
+    err |= add_prod(p, l, 1, n0, Kp - n0 < kMaxOut ? Kp - n0 : kMaxOut);
+  return err;
+}
+
+// K3: the forward, dx of layers L-1..1 (one pass each), layer 0's dx
+int render_schedule(Plan* p) {
+  const int L = p->n_layers;
+  int err = 0;
+  for (int l = 0; l < L; ++l) err |= add_prod(p, l, 0, 0, p->L[l].Np);
+  for (int l = L - 1; l >= 1; --l) err |= p->L[l].Kp > kMaxOut || add_dx(p, l);
+  return err | add_dx(p, 0);
+}
+
+// K4/K5: check the layer list against the NeRF's shape and take the product
+// passes from the wrapper's `sched` ([n, then layer, dx, n0, width,
+// ring-image offset per pass]). Their order, and the dynamic shared memory
+// the launch gets, come from fused_mlp.nerf_schedule / nerf_launch_plan
+// alone; here each pass must lie inside its layer and start on a 16-byte
+// boundary of the image. 1 if any of that fails.
+int nerf_plan(Plan* p, const long long* sched) {
+  const int T = p->trunk;
+  if (T < 1 || p->n_layers != T + 3) return 1;
+  p->e_a = p->freqs_a > 0 ? p->d_a * (1 + 2 * p->freqs_a) : p->d_a;
+  p->e_b = p->freqs_b > 0 ? 3 * (1 + 2 * p->freqs_b) : 3;
+  const LayerDesc* L = p->L;
+  const int wt = L[0].N;
+  p->wf = L[T].N - 1;
+  bool ok = L[0].K == p->e_a && wt % 16 == 0 && wt <= kMaxOut && !((p->skips >> (T - 1)) & 1u);
+  for (int i = 0; i < T; ++i) ok = ok && L[i].N == wt;
+  for (int i = 1; i <= T; ++i)
+    ok = ok && L[i].K == wt + ((i < T && ((p->skips >> (i - 1)) & 1u)) ? p->e_a : 0);
+  ok = ok && p->wf % 16 == 0 && p->wf <= kMaxOut && L[T + 1].K == p->wf + p->e_b &&
+       L[T + 1].Np <= kMaxOut && L[T + 2].K == L[T + 1].N && L[T + 2].Kp <= kMaxOut &&
+       L[T + 2].N == p->d_rgb + p->d_dpt;
+  if (!ok || sched[0] < 1 || sched[0] > kMaxProds) return 1;
+  p->n_prod = 0;
+  for (int q = 0; q < (int)sched[0]; ++q) {
+    const long long* e = sched + 1 + 5 * q;
+    if (e[0] < 0 || e[0] >= p->n_layers || (e[1] != 0 && e[1] != 1) || e[2] < 0 ||
+        e[2] + e[3] > (e[1] ? L[e[0]].Kp : L[e[0]].Np) || e[4] < 0 || e[4] % 8 ||
+        add_prod(p, (int)e[0], (int)e[1], (int)e[2], (int)e[3]))
+      return 1;
+    p->q_off[q] = (int)e[4];
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int render_fwd_launch(const float* pts, const float* nrm,
@@ -1342,13 +1574,10 @@ extern "C" int render_bwd_launch(const float* pts, const float* nrm,
                                  const long long* meta, void* acts, void* dels,
                                  float* dbpart, void* stream) {
   Plan p;
-  if (read_plan(meta, &p) || n <= 0) return (int)cudaErrorInvalidValue;
+  if (read_plan(meta, &p) || n <= 0 || render_schedule(&p)) return (int)cudaErrorInvalidValue;
   p.e_a = p.freqs_a > 0 ? 3 * (1 + 2 * p.freqs_a) : 3;
-  // every product pass but layer 0's dx fits one pass of the warpgroups
-  for (int l = 0; l < p.n_layers; ++l)
-    if (p.L[l].Np > kMaxOut || (l > 0 && p.L[l].Kp > kMaxOut)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(bf16) * ((size_t)kRbStages * kSlab + (size_t)kRows * p.lda) +
-                      sizeof(uint32_t) * (size_t)(p.n_layers - 1) * kMaxChunks * kThreads +
+  const size_t smem = sizeof(bf16) * ((size_t)K3Ring::kStages * kSlab + (size_t)kRows * p.lda) +
+                      sizeof(uint32_t) * (size_t)(p.n_layers - 1) * 2 * kThreads +
                       sizeof(float) * ((size_t)4 * kMaxOut + (size_t)kRows * p.e_a);
   int err = prepare(render_bwd_kernel, smem);
   if (err) return err;
@@ -1359,49 +1588,41 @@ extern "C" int render_bwd_launch(const float* pts, const float* nrm,
   return (int)cudaGetLastError();
 }
 
+// meta packed by fused_mlp._nerf_meta, W its packed weights, img their ring
+// image and sched the passes (fused_mlp._nerf_ring); smem: the dynamic shared
+// memory of fused_mlp.nerf_launch_plan
 extern "C" int nerf_fwd_launch(const float* pts, const float* views,
                                float* alpha, float* rgb, float* dpt, int n,
-                               const void* W, const float* B,
-                               const long long* meta, void* stream) {
+                               const void* W, const void* img, const float* B,
+                               const long long* meta, const long long* sched, int smem,
+                               void* stream) {
   Plan p;
-  if (read_plan(meta, &p)) return (int)cudaErrorInvalidValue;
-  if (p.n_layers != p.trunk + 3) return (int)cudaErrorInvalidValue;
-  p.e_a = p.freqs_a > 0 ? p.d_a * (1 + 2 * p.freqs_a) : p.d_a;
-  p.e_b = p.freqs_b > 0 ? 3 * (1 + 2 * p.freqs_b) : 3;
-  const size_t smem =
-      sizeof(float) * kRows * p.lds +
-      sizeof(bf16) * kRows * (p.lda + pad16(p.e_a) + pad16(p.e_b));
+  if (read_plan(meta, &p) || nerf_plan(&p, sched) || smem <= 0 || smem % 16)
+    return (int)cudaErrorInvalidValue;
   int err = prepare(nerf_fwd_kernel, smem);
   if (err) return err;
   if (n == 0) return 0;
-  nerf_fwd_kernel<<<(n + kRows - 1) / kRows, kThreads, smem,
-                    (cudaStream_t)stream>>>(
-      pts, views, alpha, rgb, dpt, n, reinterpret_cast<const bf16*>(W), B, p);
+  nerf_fwd_kernel<<<(n + 127) / 128, kThreads, smem, (cudaStream_t)stream>>>(
+      pts, views, alpha, rgb, dpt, n, reinterpret_cast<const bf16*>(W),
+      reinterpret_cast<const bf16*>(img), B, p);
   return (int)cudaGetLastError();
 }
 
+// scratch as render_bwd_launch's (64-row tiles)
 extern "C" int nerf_bwd_launch(const float* pts, const float* views,
                                const float* g_alpha, const float* g_rgb,
                                const float* g_dpt, float* d_pts, float* d_views,
-                               int n, const void* W, const float* B,
-                               const long long* meta, void* acts, void* dels,
-                               float* dbpart, void* stream) {
+                               int n, const void* img, const float* B,
+                               const long long* meta, const long long* sched, int smem,
+                               void* acts, void* dels, float* dbpart, void* stream) {
   Plan p;
-  if (read_plan(meta, &p) || n <= 0) return (int)cudaErrorInvalidValue;
-  if (p.n_layers != p.trunk + 3) return (int)cudaErrorInvalidValue;
-  p.e_a = p.freqs_a > 0 ? p.d_a * (1 + 2 * p.freqs_a) : p.d_a;
-  p.e_b = p.freqs_b > 0 ? 3 * (1 + 2 * p.freqs_b) : 3;
-  p.lds = p.lds > p.lda ? p.lds : p.lda;  // dx products are Kp wide
-  const size_t smem =
-      sizeof(float) * kRows * p.lds +
-      sizeof(bf16) * kRows * (p.lda + pad16(p.e_a) + pad16(p.e_b)) +
-      sizeof(float) * kRows * p.e_a;
+  if (read_plan(meta, &p) || n <= 0 || nerf_plan(&p, sched) || smem <= 0 || smem % 16)
+    return (int)cudaErrorInvalidValue;
   int err = prepare(nerf_bwd_kernel, smem);
   if (err) return err;
-  nerf_bwd_kernel<<<(n + kRows - 1) / kRows, kThreads, smem,
-                    (cudaStream_t)stream>>>(
+  nerf_bwd_kernel<<<(n + kRows - 1) / kRows, kThreads, smem, (cudaStream_t)stream>>>(
       pts, views, g_alpha, g_rgb, g_dpt, d_pts, d_views, n,
-      reinterpret_cast<const bf16*>(W), B, p, reinterpret_cast<bf16*>(acts),
+      reinterpret_cast<const bf16*>(img), B, p, reinterpret_cast<bf16*>(acts),
       reinterpret_cast<bf16*>(dels), dbpart);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,8 @@ gradient after each product, where the kernels round the delta before it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vdnerf_tpu_torch.models.embedder import embed, freqs
@@ -217,26 +219,39 @@ def _pad16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def _pack(layers, device):
-    """[(w [K, N], b [N])] -> (bf16 weights padded to [Kp, Np] and packed,
-    f32 biases padded to Np and packed, per-layer meta)."""
-    w_parts, b_parts, meta = [], [], []
-    woff = boff = 0
+def _pack(layers, device, dtype=torch.bfloat16):
+    """[(w [K, N], b [N])] -> (weights padded to [Kp, Np] and packed, bf16 for
+    the kernels, f32 biases padded to Np and packed, per-layer meta). One
+    gather each from the concatenated weights and biases, through an index
+    cached per layer shapes: a few launches whatever the number of layers."""
     for w, b in layers:
-        K, N = w.shape
-        if b.shape != (N,) or w.device != device:
+        if b.shape != (w.shape[1],) or w.device != device:
             raise ValueError("fused_mlp: weight/bias shapes or devices disagree")
+    widx, bidx, meta = _pack_index(tuple(tuple(w.shape) for w, _ in layers), device)
+    zero = torch.zeros(1, device=device)
+    W = torch.cat([zero] + [w.detach().float().reshape(-1) for w, _ in layers])
+    B = torch.cat([zero] + [b.detach().float() for _, b in layers])
+    return W.index_select(0, widx).to(dtype), B.index_select(0, bidx), list(meta)
+
+
+@functools.lru_cache(maxsize=32)
+def _pack_index(shapes: tuple, device: torch.device):
+    """-> (source of each packed weight, of each packed bias, meta) for layers
+    of these [K, N] shapes; source 0 is a zero, source 1 + i the i-th value
+    of the concatenated flat weights (biases)."""
+    meta, widx, bidx, wsrc, bsrc = [], [], [], 1, 1
+    for K, N in shapes:
         Kp, Np = _pad16(K), _pad16(N)
-        wp = torch.zeros(Kp, Np, device=device, dtype=torch.bfloat16)
-        wp[:K, :N] = w.detach().to(torch.bfloat16)
-        bp = torch.zeros(Np, device=device, dtype=torch.float32)
-        bp[:N] = b.detach().float()
-        w_parts.append(wp.reshape(-1))
-        b_parts.append(bp)
-        meta += [K, N, Kp, Np, woff, boff]
-        woff += Kp * Np
-        boff += Np
-    return torch.cat(w_parts), torch.cat(b_parts), meta
+        meta += [K, N, Kp, Np, sum(t.numel() for t in widx), sum(t.numel() for t in bidx)]
+        w = torch.zeros(Kp, Np, dtype=torch.int64)
+        w[:K, :N] = wsrc + torch.arange(K * N).view(K, N)
+        b = torch.zeros(Np, dtype=torch.int64)
+        b[:N] = bsrc + torch.arange(N)
+        widx.append(w.reshape(-1))
+        bidx.append(b)
+        wsrc += K * N
+        bsrc += N
+    return torch.cat(widx).to(device), torch.cat(bidx).to(device), tuple(meta)
 
 
 def _check_inputs(name, *tensors):
@@ -267,12 +282,27 @@ def _render_meta(plan, feat, ws, bs, device):
     return W, B, meta
 
 
-def _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, device):
-    """K4/K5 pack alpha with feature and rgb with dpt into single layers."""
+def _emb_width(d: int, multires: int) -> int:
+    return d * (1 + 2 * multires) if multires > 0 else d
+
+
+def _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, device, dtype=torch.bfloat16):
+    """K4/K5's packed layers: the trunk, [feature | alpha], views0, [rgb | dpt].
+
+    The input after a skip layer is packed as [h | emb_pts] (the next layer's
+    W rows permuted from the JAX order [emb_pts | h]), and feature comes
+    before alpha, so that a forward output and its dx counterpart share a
+    thread and register in the kernels. ``nerf_grads_from_packed`` maps the
+    packed gradients back."""
     multires, multires_view, skips, D, has_dpt = plan
-    layers = list(zip(trunk_w, trunk_b))
-    layers.append((torch.cat([head_w[0], head_w[1]], dim=1),
-                   torch.cat([head_b[0], head_b[1]])))
+    e_a = _emb_width(d_a, multires)
+    layers = []
+    for i, (w, b) in enumerate(zip(trunk_w, trunk_b)):
+        if i - 1 in skips:
+            w = torch.cat([w[e_a:], w[:e_a]])
+        layers.append((w, b))
+    layers.append((torch.cat([head_w[1], head_w[0]], dim=1),
+                   torch.cat([head_b[1], head_b[0]])))
     layers.append((head_w[2], head_b[2]))
     d_rgb = head_w[3].shape[1]
     d_dpt = head_w[4].shape[1] if has_dpt else 0
@@ -281,11 +311,135 @@ def _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, device):
                        torch.cat([head_b[3], head_b[4]])))
     else:
         layers.append((head_w[3], head_b[3]))
-    W, B, layer_meta = _pack(layers, device)
+    W, B, layer_meta = _pack(layers, device, dtype)
     skip_mask = sum(1 << i for i in skips if i < D)
     meta = [len(layers), 0, 0, multires, multires_view, d_a, 0, skip_mask, D,
             d_rgb, d_dpt] + layer_meta
     return W, B, meta
+
+
+def nerf_grads_from_packed(meta, grads):
+    """Per packed layer (dW [K, N], db [N]) of a ``_nerf_meta`` layer list ->
+    (dtw, dtb, dhw, dhb) in the JAX order of ``nerf_bwd_plain``."""
+    multires, d_a, skip_mask, D, d_rgb, d_dpt = (meta[k] for k in (3, 5, 7, 8, 9, 10))
+    e_a = _emb_width(d_a, multires)
+    dtw, dtb = [], []
+    for i, (dw, db) in enumerate(grads[:D]):
+        if i > 0 and (skip_mask >> (i - 1)) & 1:
+            dw = torch.cat([dw[dw.shape[0] - e_a:], dw[:dw.shape[0] - e_a]])
+        dtw.append(dw)
+        dtb.append(db)
+    (dw_fa, db_fa), (dw_v0, db_v0), (dw_rd, db_rd) = grads[D:]
+    wf = dw_fa.shape[1] - 1
+    dhw = [dw_fa[:, wf:], dw_fa[:, :wf], dw_v0, dw_rd[:, :d_rgb]]
+    dhb = [db_fa[wf:], db_fa[:wf], db_v0, db_rd[:d_rgb]]
+    if d_dpt:
+        dhw.append(dw_rd[:, d_rgb:])
+        dhb.append(db_rd[d_rgb:])
+    return dtw, dtb, dhw, dhb
+
+
+# The NeRF tile kernels' weight ring (csrc/fused_mlp.cu, K4Ring/K5Ring): 6 stages
+# of one slab each, a slab being _KS reduction rows of a product pass of at
+# most _MAX_OUT output columns, as wgmma reads it from shared memory.
+_RING_STAGES = 6
+_KS = 32
+_MAX_OUT = 256
+_THREADS = 256
+
+
+def nerf_launch_plan(meta, bwd: bool) -> tuple[int, int]:
+    """-> (rows per CTA, dynamic shared-memory bytes) of K4 (``bwd`` False)
+    or K5's tile kernel for a ``_nerf_meta`` layer list, as the kernels carve
+    it (csrc/fused_mlp.cu, nerf_fwd_kernel / nerf_bwd_kernel): the ring, the
+    bf16 activation tile [rows, lda] and the two embeddings [rows, pad16(e)];
+    K4 adds alpha's weight column in f32, K5 the relu-mask bits of the trunk
+    and views0 (two 32-bit words per thread each), the db column sums of four
+    warps and the f32 cotangents of the two embeddings; then one mbarrier per
+    ring stage. The launchers take these bytes as given."""
+    layers = _layers_of(meta)
+    multires, multires_view, d_a, D = meta[3], meta[4], meta[5], meta[8]
+    e_a, e_b = _emb_width(d_a, multires), _emb_width(3, multires_view)
+    lda = max(max(Kp, _pad16(N)) for _, N, Kp, _, _, _ in layers)
+    rows = 64 if bwd else 128
+    smem = 2 * (_RING_STAGES * _KS * _MAX_OUT + rows * (lda + _pad16(e_a) + _pad16(e_b)))
+    if bwd:
+        smem += 4 * ((D + 1) * 2 * _THREADS + 4 * _MAX_OUT + rows * (e_a + e_b))
+    else:
+        smem += 4 * layers[D][2]
+    return rows, smem + 8 * _RING_STAGES
+
+
+def nerf_schedule(meta, bwd: bool):
+    """The product passes of K4 (``bwd`` False) or of K5's tile kernel, in the
+    order the kernel runs them: (layer, dx, first output column, width). The
+    forward through views0 ([feature | alpha] as its wf feature columns; alpha
+    is a per-row dot), then K4's [rgb | dpt], or K5's dx of every layer from
+    the last down, each in passes of at most _MAX_OUT columns with the pass
+    from column 0 last. The launchers take this list as given, checking only
+    that each pass lies inside its layer."""
+    layers = _layers_of(meta)
+    T = meta[8]
+    out = [(l, 0, 0, layers[l][3]) for l in range(T)]
+    out += [(T, 0, 0, layers[T][1] - 1), (T + 1, 0, 0, layers[T + 1][3])]
+    if not bwd:
+        return out + [(T + 2, 0, 0, layers[T + 2][3])]
+    for l in range(T + 2, -1, -1):
+        Kp = layers[l][2]
+        out += [(l, 1, n0, min(_MAX_OUT, Kp - n0)) for n0 in range(_MAX_OUT, Kp, _MAX_OUT)]
+        out.append((l, 1, 0, min(_MAX_OUT, Kp)))
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _nerf_ring_index(meta: tuple, device: torch.device):
+    """-> (gather index into [packed W | 0] that gives the ring image, K4's
+    and K5's schedules with each pass's offset in it), cached per layer list.
+
+    The image holds every slab of every pass of both kernels exactly as a
+    ring stage holds it (the no-swizzle core-matrix layout of the wgmma
+    machinery, zero past the layer), so that one bulk copy fills a stage:
+    core matrix (n / 8, k / 8) of a slab at (n / 8) * 256 + (k / 8) * 64,
+    its 16-byte row n % 8 (dx, K-major) or k % 8 (forward, MN-major); a pass
+    of width w fills ceil(w / 64) * 64 output rows of each slab."""
+    layers = _layers_of(meta)
+    zero = sum(Kp * Np for _, _, Kp, Np, _, _ in layers)
+    s4, s5 = nerf_schedule(meta, False), nerf_schedule(meta, True)
+    parts, offs, off = [], {}, 0
+    for l, dx, n0, w in dict.fromkeys(s4 + s5):
+        _, _, Kp, Np, woff, _ = layers[l]
+        rows = -(-w // 64) * 64
+        slabs = -(-(Np if dx else Kp) // _KS)
+        k = torch.arange(slabs * _KS)
+        n = torch.arange(rows)
+        if dx:
+            src = woff + (n0 + n[:, None]) * Np + k[None, :]
+            ok = (n[:, None] < w) & (k[None, :] < Np)
+            g = torch.where(ok, src, zero).view(rows // 8, 8, slabs, _KS // 8, 8)
+            g = g.permute(2, 0, 3, 1, 4)
+        else:
+            src = woff + k[:, None] * Np + n0 + n[None, :]
+            ok = (k[:, None] < Kp) & (n[None, :] < w)
+            g = torch.where(ok, src, zero).view(slabs, _KS, rows // 8, 8).permute(0, 2, 1, 3)
+        parts.append(g.reshape(-1))
+        offs[(l, dx, n0, w)] = off
+        off += g.numel()
+    idx = torch.cat(parts).to(device=device, dtype=torch.int32)
+    sched = lambda ps: [len(ps)] + [v for q in ps for v in (*q, offs[q])]  # noqa: E731
+    return idx, sched(s4), sched(s5)
+
+
+def _nerf_ring(W, meta):
+    """-> (the ring image of packed weights W, K4's schedule, K5's)."""
+    idx, s4, s5 = _nerf_ring_index(tuple(meta), W.device)
+    return torch.index_select(torch.cat([W, W.new_zeros(1)]), 0, idx), s4, s5
+
+
+def _nerf_pack(plan, d_a, trunk_w, trunk_b, head_w, head_b, device):
+    """-> what K4 and K5 launch on: the (W, B, meta) of _nerf_meta and
+    _nerf_ring's (image, K4's schedule, K5's), built once for the pair."""
+    W, B, meta = _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, device)
+    return W, B, meta, _nerf_ring(W, meta)
 
 
 def _render_launch(plan, pts, normals, dirs, feat, ws, bs):
@@ -305,27 +459,32 @@ def _render_launch(plan, pts, normals, dirs, feat, ws, bs):
     return out
 
 
-def _nerf_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
-    has_dpt = plan[4]
-    _check_inputs("nerf_fwd", pts, views)
-    n, d_a = pts.shape
+def _nerf_fwd_run(pts, views, packed, has_dpt):
+    """K4's launch on contiguous inputs and weights packed by _nerf_pack ->
+    (alpha, rgb, dpt | None)."""
+    n = pts.shape[0]
     dev = pts.device
-    W, B, meta = _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, dev)
+    W, B, meta, (img, sched, _) = packed
     d_rgb, d_dpt = meta[9], meta[10]
-    pts, views = pts.contiguous(), views.contiguous()
     alpha = torch.empty(n, 1, device=dev, dtype=torch.float32)
     rgb = torch.empty(n, d_rgb, device=dev, dtype=torch.float32)
     # without the dpt head the kernel never writes this buffer
     dpt = torch.empty(n if has_dpt else 1, max(d_dpt, 1), device=dev, dtype=torch.float32)
-    lib = build.library("fused_mlp")
-    err = lib.nerf_fwd_launch(
+    err = build.library("fused_mlp").nerf_fwd_launch(
         pts.data_ptr(), views.data_ptr(), alpha.data_ptr(), rgb.data_ptr(),
-        dpt.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-        build.int64_array(meta), build.stream_ptr(dev),
+        dpt.data_ptr(), n, W.data_ptr(), img.data_ptr(), B.data_ptr(), build.int64_array(meta),
+        build.int64_array(sched), nerf_launch_plan(meta, False)[1], build.stream_ptr(dev),
     )
     build.LAUNCHES["nerf_fwd"] += 1
     build.check(err, "nerf_fwd")
     return alpha, rgb, dpt if has_dpt else None
+
+
+def _nerf_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
+    """K4 -> ((alpha, rgb, dpt | None), what _nerf_pack packed for it)."""
+    _check_inputs("nerf_fwd", pts, views)
+    packed = _nerf_pack(plan, pts.shape[1], trunk_w, trunk_b, head_w, head_b, pts.device)
+    return _nerf_fwd_run(pts.contiguous(), views.contiguous(), packed, plan[4]), packed
 
 
 def _layers_of(meta):
@@ -422,26 +581,31 @@ def _render_bwd_launch(plan, pts, normals, dirs, feat, ws, bs, g):
     return (*outs, [dw for dw, _ in grads], [db for _, db in grads])
 
 
-def _nerf_bwd_tile(ins, outs, W, B, meta, scratch: _BwdScratch) -> None:
+def _nerf_bwd_tile(ins, outs, packed, scratch: _BwdScratch) -> None:
     """K5's tile kernel: ins = contiguous (pts, views, g_alpha, g_rgb, g_dpt),
-    outs = (d_pts, d_views), weights packed by _nerf_meta; leaves the deltas
+    outs = (d_pts, d_views), weights packed by _nerf_pack; leaves the deltas
     and activations in ``scratch`` for its contraction."""
+    _, B, meta, (img, _, sched) = packed
     err = build.library("fused_mlp").nerf_bwd_launch(
-        *(t.data_ptr() for t in (*ins, *outs)), ins[0].shape[0], W.data_ptr(), B.data_ptr(),
-        build.int64_array(meta), *scratch.tile_args(), build.stream_ptr(ins[0].device),
+        *(t.data_ptr() for t in (*ins, *outs)), ins[0].shape[0], img.data_ptr(), B.data_ptr(),
+        build.int64_array(meta), build.int64_array(sched), nerf_launch_plan(meta, True)[1],
+        *scratch.tile_args(), build.stream_ptr(ins[0].device),
     )
     build.LAUNCHES["nerf_bwd"] += 1
     build.check(err, "nerf_bwd")
 
 
 def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
-                     g_alpha, g_rgb, g_dpt=None):
+                     g_alpha, g_rgb, g_dpt=None, packed=None):
+    """K5 -> (d_pts, d_views, dtw, dtb, dhw, dhb); ``packed``: what K4
+    launched with (_nerf_pack), else packed here."""
     has_dpt = plan[4]
-    D = len(trunk_w)
     _check_inputs("nerf_bwd", pts, views, g_alpha, g_rgb)
     n, d_a = pts.shape
     dev = pts.device
-    W, B, meta = _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, dev)
+    if packed is None:
+        packed = _nerf_pack(plan, d_a, trunk_w, trunk_b, head_w, head_b, dev)
+    meta = packed[2]
     d_rgb, d_dpt = meta[9], meta[10]
     if has_dpt and g_dpt is None:
         g_dpt = torch.zeros(n, d_dpt, device=dev)
@@ -456,17 +620,9 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
         return (d_pts, d_views, [z(w) for w in trunk_w], [z(b) for b in trunk_b],
                 [z(w) for w in head_w], [z(b) for b in head_b])
     scratch = _BwdScratch(n, meta, dev)
-    _nerf_bwd_tile(ins, (d_pts, d_views), W, B, meta, scratch)
+    _nerf_bwd_tile(ins, (d_pts, d_views), packed, scratch)
     scratch.contract()
-    grads = scratch.grads()
-    (dw_af, db_af), (dw_v0, db_v0), (dw_rd, db_rd) = grads[D:]
-    dhw = [dw_af[:, :1], dw_af[:, 1:], dw_v0, dw_rd[:, :d_rgb]]
-    dhb = [db_af[:1], db_af[1:], db_v0, db_rd[:d_rgb]]
-    if has_dpt:
-        dhw.append(dw_rd[:, d_rgb:])
-        dhb.append(db_rd[d_rgb:])
-    return (d_pts, d_views, [dw for dw, _ in grads[:D]], [db for _, db in grads[:D]],
-            dhw, dhb)
+    return (d_pts, d_views, *nerf_grads_from_packed(meta, scratch.grads()))
 
 
 # ---------------------------------------------------------------------------
@@ -515,8 +671,12 @@ class _NeRF(torch.autograd.Function):
         ctx.plan = plan
         ctx.save_for_backward(pts, views, *weights)
         args = _split_nerf(weights, D, n_head)
-        fn = nerf_plain if _on(pts, "nerf") == "cpu" else _nerf_launch
-        alpha, rgb, dpt = fn(plan, pts, views, *args)
+        ctx.packed = None
+        if _on(pts, "nerf") == "cpu":
+            alpha, rgb, dpt = nerf_plain(plan, pts, views, *args)
+        else:
+            # the backward launches K5 on the weights K4 was launched with
+            (alpha, rgb, dpt), ctx.packed = _nerf_launch(plan, pts, views, *args)
         return (alpha, rgb) if dpt is None else (alpha, rgb, dpt)
 
     @staticmethod
@@ -524,9 +684,12 @@ class _NeRF(torch.autograd.Function):
         pts, views, *weights = ctx.saved_tensors
         D, n_head = ctx.plan[3], 5 if ctx.plan[4] else 4
         args = _split_nerf(weights, D, n_head)
-        fn = nerf_bwd_plain if _on(g_alpha, "nerf") == "cpu" else _nerf_bwd_launch
-        d_pts, d_views, dtw, dtb, dhw, dhb = fn(ctx.plan, pts, views, *args,
-                                                g_alpha, g_rgb, g_dpt)
+        if _on(g_alpha, "nerf") == "cpu":
+            out = nerf_bwd_plain(ctx.plan, pts, views, *args, g_alpha, g_rgb, g_dpt)
+        else:
+            out = _nerf_bwd_launch(ctx.plan, pts, views, *args, g_alpha, g_rgb, g_dpt,
+                                   packed=ctx.packed)
+        d_pts, d_views, dtw, dtb, dhw, dhb = out
         return (None, d_pts, d_views, *dtw, *dtb, *dhw, *dhb)
 
 
