@@ -9,10 +9,14 @@
 3. Kernel phase: holds each kernel against its plain PyTorch version on the
    card at the full ``confs/womsk_white_tpu.conf`` widths, at the row counts
    one 4096-ray chunk (K1, K2, K4) or one 512-ray training step (K1's ladder,
-   K3, K4, K5) gives it plus a ragged tail, and times kernel and plain version
-   with CUDA events. ``ms`` is the wrapper's call, as the main path makes it
-   (packing the weights and allocating each call); every kernel but K2 also
-   gives ``kernel_ms``, its launches alone on weights packed once. K4 is
+   K2, K3, K4, K5) gives it plus a ragged tail, and times kernel and plain
+   version with CUDA events. ``ms`` is the wrapper's call, as the main path
+   makes it (packing the weights and allocating each call); every kernel
+   also gives ``kernel_ms``, its launches alone on weights packed once. K2 is
+   held at a chunk's rows and at a step's on both core widths, with the
+   colour head's 3 outputs and with the depth head's 96 (the same net), and
+   timed beside its library yardstick: the five products alone as bf16
+   ``torch.matmul`` calls on pre-rounded operands, no epilogue. K4 is
    held and timed at a chunk's rows and at a training step's. K1 also holds
    the plain version's division by 100 on the card against the kernel's
    multiply by 0.01f. Then the dW contraction that K3 and K5 share, alone on
@@ -71,10 +75,11 @@ K1_ROWS = (CHUNK * 64, CHUNK * 16, BATCH * 64, BATCH * 16)
 K2_ROWS = CHUNK * 96
 K4_ROWS = CHUNK * 33
 RAGGED = 37
-# rows per training step (batch 512): the backward of the colour head over
-# the faithful 128-sample core (96 after resample_from), and of the
-# background NeRF over 32 outside samples + 1
+# rows per training step (batch 512): the colour head over the faithful
+# 128-sample core (96 after resample_from), and the background NeRF's
+# backward over 32 outside samples + 1
 K3_ROWS = BATCH * 128
+K2_TRAIN_ROWS = (K3_ROWS, BATCH * 96)
 K5_ROWS = BATCH * 33
 
 # K1 is f32 throughout: the kernel and torch differ in summation order and in
@@ -270,9 +275,12 @@ def kernel_phase(device) -> dict:
     rec["sdf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes,
                       "plain_div_is_mul_by_0.01f": same}
 
-    # K2: IDR colour head, 4x256, multires_view 4 -> 3 + 27 + 3 + 256 = 289 inputs
+    # K2: IDR colour head, 4x256, multires_view 4 -> 3 + 27 + 3 + 256 = 289 inputs;
+    # the wdepth recipe's depth head is the same net with 96 outputs
     r_dims = [(289, 256), (256, 256), (256, 256), (256, 256), (256, 3)]
     ws, bs = _weights(gen, r_dims, device)
+    ws96, bs96 = _weights(gen, [(256, 96)], device)
+    ws96, bs96 = ws[:4] + ws96, bs[:4] + bs96
     plan = ("idr", 4, True)
 
     def r_inputs(rows):
@@ -281,19 +289,32 @@ def kernel_phase(device) -> dict:
         feat = torch.randn(rows, 256, generator=gen) * 0.5
         return [x.to(device) for x in (*t, feat)]
 
-    inp = r_inputs(K2_ROWS + RAGGED)
-    err = _compare("render_fwd", [fused_mlp.render_net(plan, *inp, ws, bs)],
-                   [fused_mlp.render_net_plain(plan, *inp, ws, bs)], bf16_tol)
-    inp = [x[:K2_ROWS].contiguous() for x in inp]
     flops_row = 2 * sum(k * n for k, n in r_dims)
     wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(ws, bs))
-    b_ms, b_by = bound(K2_ROWS, flops_row, (3 + 3 + 3 + 256 + 3) * 4, wbytes, PEAK_BF16_S)
-    rec["render_fwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
-        "rows": K2_ROWS,
-        "ms": time_ms(lambda: fused_mlp.render_net(plan, *inp, ws, bs)),
-        "plain_ms": time_ms(lambda: fused_mlp.render_net_plain(plan, *inp, ws, bs)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }]}
+    packed = fused_mlp._render_pack(plan, r_inputs(1)[3], ws, bs, device)
+    packed96 = fused_mlp._render_pack(plan, r_inputs(1)[3], ws96, bs96, device)
+    errs, shapes = [], []
+    for rows in (K2_ROWS, *K2_TRAIN_ROWS):
+        inp = r_inputs(rows + RAGGED)
+        for w_, b_ in ((ws, bs), (ws96, bs96)):
+            errs.append(_compare(
+                f"render_fwd(rows={rows + RAGGED}, d_out={w_[-1].shape[1]})",
+                [fused_mlp.render_net(plan, *inp, w_, b_)],
+                [fused_mlp.render_net_plain(plan, *inp, w_, b_)], bf16_tol))
+        inp = [x[:rows].contiguous() for x in inp]
+        b_ms, b_by = bound(rows, flops_row, (3 + 3 + 3 + 256 + 3) * 4, wbytes, PEAK_BF16_S)
+        shapes.append({
+            "rows": rows,
+            "ms": time_ms(lambda: fused_mlp.render_net(plan, *inp, ws, bs)),
+            # the launch alone, on weights packed once
+            "kernel_ms": time_ms(lambda: fused_mlp._render_fwd_run(*inp, packed)),
+            "kernel_ms_d_out_96": time_ms(lambda: fused_mlp._render_fwd_run(*inp, packed96)),
+            "plain_ms": time_ms(lambda: fused_mlp.render_net_plain(plan, *inp, ws, bs)),
+            "library_ms": _time_render_products(plan, inp, ws),
+            "library": "products only, no epilogue: five bf16 torch.matmul on pre-rounded operands",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rec["render_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
 
     # K4: background NeRF 8x256, skip after 4, d_in 4 multires 10 (84 ch),
     # views multires 4 (27 ch); heads alpha, feature, views0, rgb[, dpt 96]
@@ -413,6 +434,25 @@ def kernel_phase(device) -> dict:
     rec["dw_contract"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
                           "shapes": shapes}
     return rec
+
+
+def _time_render_products(plan, inp, ws) -> float:
+    """K2's library yardstick: its five products alone, one bf16
+    torch.matmul each on operands rounded to bf16 beforehand (the layer
+    inputs as the kernel holds them), with no bias, activation or concat."""
+    import torch
+
+    from vdnerf_tpu_torch.models.embedder import embed
+    from vdnerf_tpu_torch.ops.kernels import fused_mlp
+
+    pts, nrm, dirs, feat = inp
+    x = fused_mlp._render_concat(pts, embed(dirs, plan[1]), nrm, feat, plan[0])
+    ops, a = [], x.to(torch.bfloat16)
+    for w in ws:
+        w = w.to(torch.bfloat16)
+        ops.append((a, w))
+        a = torch.relu(a @ w)
+    return time_ms(lambda: [torch.matmul(a, w) for a, w in ops])
 
 
 def _contraction_operands(sc):

@@ -119,6 +119,79 @@ def test_render_kernel_matches_plain(card, mode, multires_view, d_small, squeeze
     _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs))
 
 
+def _render_inputs(rng, n, d_feat, device):
+    pts, nrm, dirs = (torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=device)
+                      for _ in range(3))
+    feat = torch.tensor(rng.normal(size=(n, d_feat)) * 0.5, dtype=torch.float32, device=device)
+    return pts, nrm, dirs, feat
+
+
+@pytest.mark.parametrize("n,d_feat,aligned", [(0, 32, True), (77, 30, True), (77, 32, False),
+                                              (300, 36, True)])
+def test_render_kernel_input_paths(card, n, d_feat, aligned):
+    """K2's input tile from a feature width that is not a multiple of 4, or a
+    feature buffer off a 16-byte boundary (the scalar path), a width that is
+    (the 16-byte path), and no rows at all."""
+    rng = np.random.default_rng(5)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + d_feat, 48), (48, 40), (40, 3)], card)
+    pts, nrm, dirs, feat = _render_inputs(rng, n, d_feat, card)
+    if not aligned:
+        buf = torch.empty(n * d_feat + 1, device=card)[1:].view(n, d_feat)
+        feat = buf.copy_(feat)
+        assert feat.is_contiguous() and feat.data_ptr() % 16
+    plan = ("idr", 4, True)
+    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs)
+    assert got.shape == (n, 3)
+    if n:
+        _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs))
+
+
+@pytest.mark.parametrize("dims", [[(3 + 27 + 3 + 32, 272), (272, 3)], [(3 + 27 + 3 + 32, 48),
+                                                                      (48, 264)]])
+def test_render_kernel_refuses_a_pass_wider_than_256(card, dims):
+    rng = np.random.default_rng(6)
+    ws, bs = _weights(rng, dims, card)
+    with pytest.raises(RuntimeError, match="render_fwd launch failed"):
+        fused_mlp.render_net(("idr", 4, True), *_render_inputs(rng, 9, 32, card), ws, bs)
+
+
+def _render_full_width(rng, n, d_out, device):
+    """The colour head of womsk_white_tpu, 289 -> 256 x4 -> d_out: 3, or the
+    96 of the wdepth recipe's depth head, which is the same net."""
+    ws, bs = _weights(rng, [(289, 256)] + [(256, 256)] * 3 + [(256, d_out)], device)
+    return ("idr", 4, True), _render_inputs(rng, n, 256, device), ws, bs
+
+
+@pytest.mark.parametrize("d_out", [3, 96])
+@pytest.mark.parametrize("n", [1, 63, 127, 128, 129, 65536 + 37, 393216 + 37])
+def test_render_kernel_full_width_row_counts(card, n, d_out):
+    """K2 at full width around its 128-row tiles and at a training step's
+    and a serving chunk's rows with a ragged tail, against the plain version."""
+    plan, x, ws, bs = _render_full_width(np.random.default_rng(26), n, d_out, card)
+    got = fused_mlp.render_net(plan, *x, ws, bs)
+    want = fused_mlp.render_net_plain(plan, *x, ws, bs)
+    assert got.shape == want.shape == (n, d_out)
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("n,width", [(141, 48), (1001, 256)])
+def test_render_bwd_on_the_forward_pack(card, n, width):
+    """K3 launched on the weights K2 packed (as the autograd Function hands
+    them over) equals K3 packing its own, bit for bit."""
+    rng = np.random.default_rng(27)
+    ws, bs = _weights(rng, [(3 + 27 + 3 + width, width), (width, width), (width, 3)], card)
+    x = _render_inputs(rng, n, width, card)
+    g = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=card)
+    plan = ("idr", 4, True)
+    _, packed = fused_mlp._render_launch(plan, *x, ws, bs)
+    flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
+    got = flat(fused_mlp._render_bwd_launch(plan, *x, ws, bs, g, packed=packed))
+    want = flat(fused_mlp._render_bwd_launch(plan, *x, ws, bs, g))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_kernel_matches_plain(card, has_dpt):
     plan, pts, views, (tw, tb, hw, hb) = _nerf_inputs(np.random.default_rng(3), 83, has_dpt, card)

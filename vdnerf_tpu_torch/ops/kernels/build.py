@@ -45,7 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "sdf_fwd_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_float, _P],
-    "render_fwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "render_fwd_launch": [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _P],
     "nerf_fwd_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I, _P],
     "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7,
     "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 4 + [_I] + [_P] * 4,

@@ -15,18 +15,15 @@
 //
 // Bound: operations. A row of the background NeRF is 1.208 MFLOP of bf16
 // matmul forward (K4) and 3x that backward (K5), against ~50 bytes of I/O; a
-// row of the colour head 0.54 MFLOP. K2 keeps the simple design: one CTA of
-// 8 warps per 64-row tile, nvcuda::wmma 16x16x16 products reading the
-// (zero-padded, [in, out] row-major, bf16) weights straight from L2, an f32
-// staging tile in shared memory, a scalar epilogue.
+// row of the colour head 0.54 MFLOP forward (K2) against 1,072 bytes.
 //
-// K3, K4 and K5 share one tile design (below, "wgmma tile machinery"): every
+// All four share one tile design (below, "wgmma tile machinery"): every
 // product is a wgmma on shared-memory operands with its accumulators in
 // registers, the weights stream through one ring of shared-memory stages
 // that both warpgroups read, and the epilogues (bias, relu, bf16 rounding into the next
 // layer's input tile, relu-mask bits, db column sums) work on the registers.
-// K4 runs 128-row tiles (each warpgroup owns 64 rows and a full pass of up to
-// 256 columns), so each weight slab is read from L2 once per 128 rows; K3 and
+// K2 and K4 run 128-row tiles (each warpgroup owns 64 rows and a full pass of
+// up to 256 columns), so each weight slab is read from L2 once per 128 rows; K3 and
 // K5 run 64-row tiles (the warpgroups split a pass's columns), because K5's
 // backward state (masks, point-embedding cotangent) does not fit twice.
 //
@@ -58,10 +55,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -91,18 +85,18 @@ struct Plan {
   unsigned skips;   // K4: trunk layers followed by the skip concat
   int trunk;        // K4: number of trunk layers
   int d_rgb, d_dpt; // K4: head widths
-  int lda, lds;     // shared-memory strides (elements)
+  int lda;          // the activation tile's row stride (elements)
   int e_a, e_b;     // embedding widths
   int act_w, del_w; // backward: widths of `acts` (sum Kp) and `dels` (sum Np)
   int total_b;      // sum Np: packed bias length
   long long total_w;  // sum Kp * Np: packed weight length
   int wf;           // K4/K5: feature width ([feature | alpha] is wf + 1 wide)
-  // K3/K4/K5: the tile's product passes in the order the kernel runs them:
-  // layer, forward (0) or dx (1), first output column, output width
+  // the tile's product passes in the order the kernel runs them: layer,
+  // forward (0) or dx (1), first output column, output width
   int n_prod;
   unsigned char q_layer[kMaxProds], q_dx[kMaxProds];
   short q_n0[kMaxProds], q_w[kMaxProds];
-  int q_off[kMaxProds];  // K4/K5: the pass's first slab in the ring image (elements)
+  int q_off[kMaxProds];  // K2/K4/K5: the pass's first slab in the ring image (elements)
 };
 
 __host__ __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
@@ -131,58 +125,11 @@ __device__ __forceinline__ float embed_vjp(F demb, const float* x, int d, int j,
   return acc;
 }
 
-// S[0:64, 0:Np] = A[0:64, 0:Kp] @ W[0:Kp, 0:Np]; bf16 in, f32 out.
-__device__ void mm_tile(const bf16* A, int lda, int Kp,
-                        const bf16* __restrict__ W, int Np, float* S,
-                        int lds) {
-  const int warp = threadIdx.x / 32;
-  const int nfrags = Np / 16;
-  for (int nf = warp; nf < nfrags; nf += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRows / 16];
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    for (int k = 0; k < Kp; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, W + (size_t)k * Np + nf * 16, Np);
-#pragma unroll
-      for (int m = 0; m < kRows / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + m * 16 * lda + k, lda);
-        wmma::mma_sync(acc[m], a, b, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kRows / 16; ++m)
-      wmma::store_matrix_sync(S + m * 16 * lds + nf * 16, acc[m], lds,
-                              wmma::mem_row_major);
-  }
-}
-
-// A[:, col0:col0+N] = bf16(act(S[:, s0:s0+N] + bias)); act: 1 relu, 0 none
-__device__ void epilogue(const float* S, int lds, int s0, int N,
-                         const float* __restrict__ bias, int relu,
-                         bf16* A, int lda, int col0) {
-  for (int idx = threadIdx.x; idx < kRows * N; idx += kThreads) {
-    const int r = idx / N;
-    const int c = idx % N;
-    float v = S[r * lds + s0 + c] + bias[c];
-    if (relu) v = fmaxf(v, 0.0f);
-    A[r * lda + col0 + c] = __float2bfloat16(v);
-  }
-}
-
-__device__ void zero_cols(bf16* A, int lda, int c_begin, int c_end) {
-  const int w = c_end - c_begin;
-  if (w <= 0) return;
-  for (int idx = threadIdx.x; idx < kRows * w; idx += kThreads)
-    A[(idx / w) * lda + c_begin + idx % w] = __float2bfloat16(0.0f);
-}
-
-// K2/K3 input tile: the mode's concat [pts | emb_view | normals | feat],
-// element (r, c) stored at A[at(r, c)] (row-major for K2, the wgmma core
-// layout for K3). The feature block, most of the row, is read with 16-byte
-// loads, all of a thread's rows unrolled so that their loads are in flight
-// together; a warp per row covers the few other columns.
+// K3's input tile: the mode's concat [pts | emb_view | normals | feat],
+// element (r, c) stored at A[at(r, c)] (the wgmma core layout). The feature
+// block, most of the row, is read with 16-byte loads, all of a thread's rows
+// unrolled so that their loads are in flight together; a warp per row covers
+// the few other columns.
 template <typename At>
 __device__ void render_input(const Plan& p, const float* __restrict__ pts,
                              const float* __restrict__ nrm,
@@ -246,52 +193,8 @@ __device__ void render_input(const Plan& p, const float* __restrict__ pts,
   }
 }
 
-// K2 forward over the tile; leaves the last layer's pre-activation (without
-// bias) in S.
-__device__ void render_forward(const Plan& p, const bf16* __restrict__ W,
-                               const float* __restrict__ B, float* S, bf16* A) {
-  for (int l = 0; l < p.n_layers; ++l) {
-    const LayerDesc& d = p.L[l];
-    mm_tile(A, p.lda, d.Kp, W + d.woff, d.Np, S, p.lds);
-    __syncthreads();
-    if (l + 1 < p.n_layers) {
-      epilogue(S, p.lds, 0, d.N, B + d.boff, 1, A, p.lda, 0);
-      zero_cols(A, p.lda, d.N, p.L[l + 1].Kp);
-      __syncthreads();
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
-                  const float* __restrict__ dirs, const float* __restrict__ feat,
-                  float* __restrict__ out, int n,
-                  const bf16* __restrict__ W,
-                  const float* __restrict__ B, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* S = reinterpret_cast<float*>(smem_raw);       // [64, lds]
-  bf16* A = reinterpret_cast<bf16*>(S + kRows * p.lds);  // [64, lda]
-
-  const int row0 = blockIdx.x * kRows;
-  render_input(p, pts, nrm, dirs, feat, n, row0, A,
-               [&](int r, int c) { return r * p.lda + c; });
-  __syncthreads();
-  render_forward(p, W, B, S, A);
-  const LayerDesc& d = p.L[p.n_layers - 1];
-  for (int idx = threadIdx.x; idx < kRows * d.N; idx += kThreads) {
-    const int r = idx / d.N;
-    const int c = idx % d.N;
-    const int gr = row0 + r;
-    if (gr < n) {
-      const float v = S[r * p.lds + c] + B[d.boff + c];
-      out[(size_t)gr * d.N + c] =
-          p.squeeze_out ? 1.0f / (1.0f + expf(-v)) : fmaxf(v, 0.0f);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// wgmma tile machinery (K3, K4, K5): products on operands in shared memory
+// wgmma tile machinery (K2-K5): products on operands in shared memory
 // ---------------------------------------------------------------------------
 //
 // Each product pass of a tile is [rows, Kin] x [Kin, Wout] -> [rows, Wout]
@@ -329,7 +232,7 @@ render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
 // in order).
 //
 // The ring's copies (Ring): K3's threads copy each slab from the packed W
-// with 16-byte cp.async; K4 and K5 fill a stage with one bulk copy
+// with 16-byte cp.async; K2, K4 and K5 fill a stage with one bulk copy
 // (cp.async.bulk, the TMA engine without a tensor map) from a ring image the
 // wrapper lays out stage by stage, completing on the stage's mbarrier: one
 // instruction per 16 KB slab instead of 1,024. Not done here: wgmma's
@@ -349,21 +252,33 @@ static_assert(kKS == 32, "rb_product issues one or two k16 steps per slab");
 // ST - 2 slabs ahead into the stage read two slabs back, which every
 // warpgroup has finished when it passes the barrier.
 // The copies: 16-byte cp.async by every thread from the packed W (K3), or
-// (BULK, K4 and K5) one bulk asynchronous copy per slab, issued by one thread
-// from a ring image that the wrapper lays out as the stages hold it
-// (fused_mlp._nerf_ring_index), completing on the stage's mbarrier.
-template <int ST, bool ASYNC, bool BULK>
+// (BULK, K2, K4 and K5) one bulk asynchronous copy per slab, issued by one
+// thread from a ring image that the wrapper lays out as the stages hold it
+// (fused_mlp._ring_index), completing on the stage's mbarrier.
+// The barrier between slabs is the CTA's, or (NAMED, K2) named barrier 1 of
+// the kThreads threads that run the products, when the CTA has more.
+template <int ST, bool ASYNC, bool BULK, bool NAMED = false>
 struct Ring {
   static_assert(ST >= (ASYNC ? 3 : 2), "too few stages");
   static constexpr int kStages = ST;
   static constexpr bool kAsync = ASYNC;
   static constexpr bool kBulk = BULK;
   static constexpr int kLead = ASYNC ? ST - 2 : ST - 1;  // slabs loaded ahead
+  __device__ static __forceinline__ void sync() {
+    if constexpr (NAMED)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+    else
+      __syncthreads();
+  }
 };
-// one CTA per SM for K4 and K5, six stages each (fused_mlp.nerf_launch_plan);
-// K4's 128 accumulator registers a thread leave ptxas too few to keep a
-// slab's wgmma in flight (it serialises them), so K4's ring is synchronous
+// one CTA per SM for K2, K4 and K5 (fused_mlp's render_launch_plan /
+// nerf_launch_plan); the 128 accumulator registers a thread of a 128-row
+// tile holds leave ptxas too few to keep a slab's wgmma in flight (it
+// serialises them), so the rings of K2 and K4 are synchronous. K2's has five
+// stages (its CTA keeps a second activation tile) and a named barrier (its
+// CTA has a third warpgroup that does not run the products)
 using K3Ring = Ring<3, false, false>;  // two CTAs per SM
+using K2Ring = Ring<5, false, true, true>;
 using K4Ring = Ring<6, false, true>;
 using K5Ring = Ring<6, true, true>;
 static_assert(K4Ring::kStages == K5Ring::kStages, "nerf_launch_plan sizes one ring for both");
@@ -440,6 +355,11 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   for (long long i = 0; !mbar_try_wait(bar, parity); ++i)
     if (i == (1LL << 26)) __trap();
+}
+// this thread's arrival on bar (release: its earlier writes are visible to
+// a thread that waits for the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 // one thread: `bytes` from global src to shared dst, completing on bar
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
@@ -528,10 +448,12 @@ __device__ void rb_load(const RbProd& pr, int k0, bf16* dst) {
 }
 
 // The ring's producer side: the next slab to load, as (product pass q, slab
-// i of it), advanced one slab per load
+// i of it), advanced one slab per load; the pass list runs `reps` times (K2's
+// CTA runs it once per tile)
 struct RbCursor {
   int q, i, n_prod;
   uint64_t* bars;  // BULK: the stages' mbarriers
+  int reps = 1;
   // the next slab into ring stage `stage` (BULK: one thread calls this)
   template <class RG>
   __device__ void load(const Plan& p, const bf16* W, bf16* ring, int stage) {
@@ -545,8 +467,8 @@ struct RbCursor {
       rb_load(pr, i * kKS, ring + stage * kSlab);
     }
     if (++i == rb_slabs(pr)) {
-      ++q;
       i = 0;
+      if (++q == n_prod && --reps > 0) q = 0;
     }
   }
   // BULK: the stages' mbarriers, before a barrier and the prologue
@@ -643,7 +565,7 @@ __device__ __forceinline__ void rb_product(const Plan& p, const bf16* W, int q, 
       fence_async_smem();
     }
     if constexpr (RG::kAsync) wg_wait<1>();  // this warpgroup's slab s - 2 is done
-    __syncthreads();  // slab s landed; every warpgroup is done with the stage to load
+    RG::sync();  // slab s landed; every warpgroup is done with the stage to load
     if constexpr (RG::kBulk) {
       if (threadIdx.x == 0) cur.load<RG>(p, W, ring, (s + RG::kLead) % ST);
     } else {
@@ -879,6 +801,209 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
       dd = embed_vjp([&](int c) { return Sv[r * p.e_a + c]; }, dirs + gr * 3, 3, j,
                      p.freqs_a);
     d_dirs[gr * 3 + j] = dd;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: the colour head's forward on the wgmma tile machinery
+// ---------------------------------------------------------------------------
+//
+// K2 (render_fwd_kernel, replaces _render_kernel_fwd) is K4's tile without
+// the skip concat and the alpha dot: 128-row tiles, each of two warpgroups
+// owning 64 rows and a full product pass (128 accumulator registers), a
+// synchronous bulk-copy ring fed from a ring image the wrapper gathers once
+// per pack (fused_mlp._render_pack, which K3 reuses). One product pass per
+// layer (fused_mlp.render_schedule): layer 0 reduces over Kp (304 at full
+// width: nine full slabs and a half one); the output layer is one 64-column
+// chunk zero-padded in the image (d_out 3; d_out 96 is two), so every d_out
+// <= 256 takes the same code. The epilogues work on the registers: a hidden
+// layer's bias and relu, rounded to bf16 into the hidden tile; the output's
+// bias and sigmoid (or relu) in f32, rows past n masked.
+//
+// Bound: operations (542,720 FLOP of bf16 products a row at full width,
+// 0.216 ms at 393,216 rows; the padded products are 7% more). Unlike K4's,
+// K2's input is wide: 265 f32 a row (417 MB a serving chunk, 0.126 ms at the
+// memory rate). Read at the start of each tile it stalls the products, and
+// loads issued by the product warpgroups before a pass are waited for at the
+// pass's first wgmma. So the CTA is persistent (tiles blockIdx.x, +
+// gridDim.x, ...; fused_mlp.render_launch_plan gives the grid, one CTA per
+// SM), the ring runs on from one tile's passes into the next's, and a third
+// warpgroup, the producer, loads each tile's input (K2Input) into its own
+// tile X while the two product warpgroups run the previous tile's hidden
+// passes on the hidden tile H. Two mbarriers hand X over: `full` (the
+// producer's 128 threads arrive after their writes) and `empty` (the 256
+// product threads arrive once layer 0 has read it). 220 KB of shared memory:
+// a 5-stage ring (16 KB a stage), X [128, 304] and H [128, 256] in bf16.
+
+constexpr int kK2Threads = kThreads + 128;  // two product warpgroups, one producer
+
+// K2's producer: one tile's input into X [128, Kp0], the mode's concat [pts |
+// emb_view | normals | feat] (the columns past it are zeroed once, before the
+// first tile), zero for rows past n. The feature block goes in chunks of
+// kPre float4 a thread, all in flight together: a warp's 32 lanes load 8 rows
+// x 4 float4s (64 contiguous bytes of each row) and store them into 8 rows of
+// two or three core matrices, which spreads the 2-byte stores over the banks.
+// The 9 other floats a row (pts, dirs, normals) come first; the thread that
+// holds a dirs value writes every view-embedding column made from it, as
+// embed_at computes them.
+struct K2Input {
+  static constexpr int kR = 128;
+  static constexpr int kT = kK2Threads - kThreads;  // producer threads
+  static constexpr int kPre = 16;                   // float4 per thread per chunk
+
+  // unit i of chunk c for producer thread t -> (tile row, first feature
+  // column); false past the block
+  __device__ static bool at(const Plan& p, int t, int c, int i, int& row, int& col) {
+    const int u = t / 32 + (kT / 32) * (kPre * c + i);  // units of 8 rows x 16 floats
+    row = 8 * (u % (kR / 8)) + (t & 7);
+    col = 4 * (4 * (u / (kR / 8)) + ((t & 31) >> 3));
+    return col < p.d_feat;
+  }
+
+  __device__ static void fill(const Plan& p, const float* __restrict__ pts,
+                              const float* __restrict__ nrm, const float* __restrict__ dirs,
+                              const float* __restrict__ feat, int n, int row0, bf16* X, int ldx) {
+    const int t = threadIdx.x - kThreads;
+    const int use_view = p.mode != 1, use_nrm = p.mode != 2;
+    const int c_nrm = 3 + (use_view ? p.e_a : 0);
+    constexpr int kSmall = 3 * kR / kT;
+    float sv[3][kSmall];
+#pragma unroll
+    for (int h = 0; h < kSmall; ++h) {
+      const int e = t + kT * h;  // row * 3 + j
+      const bool ok = row0 + e / 3 < n;
+      const size_t g = (size_t)row0 * 3 + e;
+      sv[0][h] = ok ? pts[g] : 0.0f;
+      sv[1][h] = ok && use_view ? dirs[g] : 0.0f;
+      sv[2][h] = ok && use_nrm ? nrm[g] : 0.0f;
+    }
+#pragma unroll
+    for (int h = 0; h < kSmall; ++h) {
+      const int e = t + kT * h;
+      const int row = e / 3, j = e % 3;
+      X[core_at(row, j, ldx)] = __float2bfloat16(sv[0][h]);
+      if (use_view) {
+        X[core_at(row, 3 + j, ldx)] = __float2bfloat16(sv[1][h]);
+        for (int b = 0; b < p.freqs_a; ++b) {
+          const float v = sv[1][h] * ldexpf(1.0f, b);
+          X[core_at(row, 6 + 6 * b + j, ldx)] = __float2bfloat16(sinf(v));
+          X[core_at(row, 9 + 6 * b + j, ldx)] = __float2bfloat16(cosf(v));
+        }
+      }
+      if (use_nrm) X[core_at(row, c_nrm + j, ldx)] = __float2bfloat16(sv[2][h]);
+    }
+
+    const int c_feat = p.L[0].K - p.d_feat;
+    const bool vec = p.d_feat % 4 == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
+    const int units = (kR / 8) * ((p.d_feat + 15) / 16);
+    const int chunks = ((units + kT / 32 - 1) / (kT / 32) + kPre - 1) / kPre;
+    for (int c = 0; c < chunks; ++c) {
+      float4 f[kPre];
+#pragma unroll
+      for (int i = 0; i < kPre; ++i) {
+        int row, col;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (at(p, t, c, i, row, col) && row0 + row < n) {
+          const float* src = feat + (size_t)(row0 + row) * p.d_feat + col;
+          if (vec) {
+            v = __ldg(reinterpret_cast<const float4*>(src));
+          } else {
+            v.x = src[0];
+            if (col + 1 < p.d_feat) v.y = src[1];
+            if (col + 2 < p.d_feat) v.z = src[2];
+            if (col + 3 < p.d_feat) v.w = src[3];
+          }
+        }
+        f[i] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < kPre; ++i) {
+        int row, col;
+        if (!at(p, t, c, i, row, col)) continue;
+        const float v[4] = {f[i].x, f[i].y, f[i].z, f[i].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < p.d_feat) X[core_at(row, c_feat + col + e, ldx)] = __float2bfloat16(v[e]);
+      }
+    }
+  }
+};
+static_assert(3 * K2Input::kR % K2Input::kT == 0, "the small columns split evenly");
+
+__global__ void __launch_bounds__(kK2Threads, 1)
+render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
+                  const float* __restrict__ dirs, const float* __restrict__ feat,
+                  float* __restrict__ out, int n, const bf16* __restrict__ img,
+                  const float* __restrict__ B, Plan p) {
+  constexpr int NCH = 4;
+  constexpr int R = TileMap<NCH>::kRows;
+  static_assert(R == K2Input::kR, "one input tile per product tile");
+  using RG = K2Ring;
+  const int L = p.n_layers;
+  const int ldx = p.L[0].Kp;
+  int ldh = 0;
+  for (int l = 1; l < L; ++l) ldh = max(ldh, p.L[l].Kp);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);                 // [stages][kSlab]
+  bf16* X = ring + RG::kStages * kSlab;                            // [R, ldx] core layout
+  bf16* H = X + R * ldx;                                           // [R, ldh] core layout
+  uint64_t* bars = reinterpret_cast<uint64_t*>(H + R * ldh);      // [stages]
+  uint64_t* full = bars + RG::kStages;                             // X holds the next tile
+  uint64_t* empty = full + 1;                                      // layer 0 has read X
+
+  const int n_tiles = (n + R - 1) / R;
+  const int tiles = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;  // this CTA's
+  RbCursor cur{0, 0, p.n_prod, bars, tiles};
+  cur.init<RG>();
+  if (threadIdx.x == 0) {
+    mbar_init(full, K2Input::kT);
+    mbar_init(empty, kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the last barrier of all three warpgroups
+
+  if (threadIdx.x >= kThreads) {  // the producer
+    const int pad = ldx - p.L[0].K;
+    for (int idx = threadIdx.x - kThreads; idx < R * pad; idx += K2Input::kT)
+      X[core_at(idx / pad, p.L[0].K + idx % pad, ldx)] = __float2bfloat16(0.0f);
+    for (int t = 0; t < tiles; ++t) {
+      if (t > 0) mbar_wait(empty, (t - 1) & 1);
+      K2Input::fill(p, pts, nrm, dirs, feat, n, (blockIdx.x + t * gridDim.x) * R, X, ldx);
+      fence_async_smem();
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  cur.prologue<RG>(p, img, ring);
+  float acc[NCH][32];
+  int s = 0;
+  for (int t = 0; t < tiles; ++t) {
+    const int row0 = (blockIdx.x + t * gridDim.x) * R;
+    mbar_wait(full, t & 1);
+    for (int l = 0; l < L; ++l) {
+      rb_product<RG>(p, img, l, s, cur, ring, l == 0 ? X : H, l == 0 ? ldx : ldh, acc);
+      RG::sync();  // every warpgroup is done reading its input tile
+      if (l == 0 && t + 1 < tiles) mbar_arrive(empty);
+      const LayerDesc& d = p.L[l];
+      if (l + 1 < L) {
+        const float* bias = B + d.boff;
+        for_pairs(acc, d.Np, [&](int, int, int r, int col, float& v0, float& v1) {
+          *reinterpret_cast<__nv_bfloat162*>(H + core_at(r, col, ldh)) = __floats2bfloat162_rn(
+              fmaxf(v0 + bias[col], 0.0f), fmaxf(v1 + bias[col + 1], 0.0f));
+        });
+        fence_async_smem();
+        RG::sync();
+      } else {
+        for_owned(acc, d.Np, [&](int, int, int r, int col, float& v) {
+          const int gr = row0 + r;
+          if (gr >= n || col >= d.N) return;
+          const float z = v + B[d.boff + col];
+          out[(size_t)gr * d.N + col] =
+              p.squeeze_out ? 1.0f / (1.0f + expf(-z)) : fmaxf(z, 0.0f);
+        });
+      }
+    }
   }
 }
 
@@ -1441,7 +1566,7 @@ int read_plan(const long long* meta, Plan* p) {
   p->trunk = (int)meta[8];
   p->d_rgb = (int)meta[9];
   p->d_dpt = (int)meta[10];
-  int lda = 0, lds = 0, aoff = 0, doff = 0;
+  int lda = 0, aoff = 0, doff = 0;
   long long total_w = 0;
   for (int l = 0; l < p->n_layers; ++l) {
     const long long* m = meta + 11 + 6 * l;
@@ -1461,10 +1586,8 @@ int read_plan(const long long* meta, Plan* p) {
     total_w += (long long)d.Kp * d.Np;
     lda = lda > d.Kp ? lda : d.Kp;
     lda = lda > pad16(d.N) ? lda : pad16(d.N);
-    lds = lds > d.Np ? lds : d.Np;
   }
   p->lda = lda;
-  p->lds = lds;
   p->act_w = aoff;
   p->del_w = doff;
   p->total_b = doff;
@@ -1501,12 +1624,36 @@ int add_dx(Plan* p, int l) {
 }
 
 // K3: the forward, dx of layers L-1..1 (one pass each), layer 0's dx
-int render_schedule(Plan* p) {
+int render_bwd_schedule(Plan* p) {
   const int L = p->n_layers;
   int err = 0;
   for (int l = 0; l < L; ++l) err |= add_prod(p, l, 0, 0, p->L[l].Np);
   for (int l = L - 1; l >= 1; --l) err |= p->L[l].Kp > kMaxOut || add_dx(p, l);
   return err | add_dx(p, 0);
+}
+
+// K2: check the layer list against the colour head's shape and take the
+// product passes from the wrapper's `sched` ([n, then layer, dx, n0, width,
+// ring-image offset per pass]): fused_mlp.render_schedule's one forward pass
+// per layer, in order, over the layer's padded width, each starting on a
+// 16-byte boundary of the image. 1 if any of that fails.
+int render_plan(Plan* p, const long long* sched) {
+  const int L = p->n_layers;
+  p->e_a = p->freqs_a > 0 ? 3 * (1 + 2 * p->freqs_a) : 3;
+  const LayerDesc* d = p->L;
+  bool ok = p->mode >= 0 && p->mode <= 2 && p->d_feat >= 0 &&
+            d[0].K == 3 + (p->mode != 1 ? p->e_a : 0) + (p->mode != 2 ? 3 : 0) + p->d_feat;
+  for (int l = 0; l < L; ++l) ok = ok && d[l].Np <= kMaxOut && (l == 0 || d[l].K == d[l - 1].N);
+  if (!ok || sched[0] != L) return 1;
+  p->n_prod = 0;
+  for (int q = 0; q < L; ++q) {
+    const long long* e = sched + 1 + 5 * q;
+    if (e[0] != q || e[1] != 0 || e[2] != 0 || e[3] != d[q].Np || e[4] < 0 || e[4] % 8 ||
+        add_prod(p, q, 0, 0, d[q].Np))
+      return 1;
+    p->q_off[q] = (int)e[4];
+  }
+  return 0;
 }
 
 // K4/K5: check the layer list against the NeRF's shape and take the product
@@ -1545,22 +1692,23 @@ int nerf_plan(Plan* p, const long long* sched) {
 
 }  // namespace
 
-extern "C" int render_fwd_launch(const float* pts, const float* nrm,
-                                 const float* dirs, const float* feat,
-                                 float* out, int n, const void* W,
-                                 const float* B, const long long* meta,
-                                 void* stream) {
+// meta packed by fused_mlp._render_meta, img the ring image of its weights
+// and sched K2's passes (fused_mlp._render_pack); ctas (persistent, each
+// running every ctas-th 128-row tile) and smem, the dynamic shared memory:
+// fused_mlp.render_launch_plan
+extern "C" int render_fwd_launch(const float* pts, const float* nrm, const float* dirs,
+                                 const float* feat, float* out, int n, const void* img,
+                                 const float* B, const long long* meta, const long long* sched,
+                                 int ctas, int smem, void* stream) {
   Plan p;
-  if (read_plan(meta, &p)) return (int)cudaErrorInvalidValue;
-  p.e_a = p.freqs_a > 0 ? 3 * (1 + 2 * p.freqs_a) : 3;
-  const size_t smem = sizeof(float) * kRows * p.lds +
-                      sizeof(bf16) * kRows * p.lda;
+  if (read_plan(meta, &p) || render_plan(&p, sched) || smem <= 0 || smem % 16)
+    return (int)cudaErrorInvalidValue;
   int err = prepare(render_fwd_kernel, smem);
   if (err) return err;
   if (n == 0) return 0;
-  render_fwd_kernel<<<(n + kRows - 1) / kRows, kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      pts, nrm, dirs, feat, out, n, reinterpret_cast<const bf16*>(W), B, p);
+  if (ctas < 1 || ctas > (n + 127) / 128) return (int)cudaErrorInvalidValue;
+  render_fwd_kernel<<<ctas, kK2Threads, smem, (cudaStream_t)stream>>>(
+      pts, nrm, dirs, feat, out, n, reinterpret_cast<const bf16*>(img), B, p);
   return (int)cudaGetLastError();
 }
 
@@ -1574,7 +1722,7 @@ extern "C" int render_bwd_launch(const float* pts, const float* nrm,
                                  const long long* meta, void* acts, void* dels,
                                  float* dbpart, void* stream) {
   Plan p;
-  if (read_plan(meta, &p) || n <= 0 || render_schedule(&p)) return (int)cudaErrorInvalidValue;
+  if (read_plan(meta, &p) || n <= 0 || render_bwd_schedule(&p)) return (int)cudaErrorInvalidValue;
   p.e_a = p.freqs_a > 0 ? 3 * (1 + 2 * p.freqs_a) : 3;
   const size_t smem = sizeof(bf16) * ((size_t)K3Ring::kStages * kSlab + (size_t)kRows * p.lda) +
                       sizeof(uint32_t) * (size_t)(p.n_layers - 1) * 2 * kThreads +

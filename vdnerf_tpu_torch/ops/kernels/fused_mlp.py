@@ -269,14 +269,16 @@ def _check_shapes(name, n, *pairs):
             raise ValueError(f"{name}: expected [{n}, {width}], got {tuple(t.shape)}")
 
 
-def _render_meta(plan, feat, ws, bs, device):
+def _render_meta(plan, feat, ws, bs, device, dtype=torch.bfloat16):
+    """The colour head's packed layers (W, B, meta), as K2, K3 and the ring
+    image read them."""
     mode, multires_view, squeeze_out = plan
     e_view = 3 * (1 + 2 * multires_view) if multires_view > 0 else 3
     k0 = 3 + feat.shape[1] + (e_view if mode != "no_view_dir" else 0) + (
         3 if mode != "no_normal" else 0)
     if ws[0].shape[0] != k0:
         raise ValueError(f"render_net: first layer takes {ws[0].shape[0]} inputs, concat is {k0}")
-    W, B, layer_meta = _pack(list(zip(ws, bs)), device)
+    W, B, layer_meta = _pack(list(zip(ws, bs)), device, dtype)
     meta = [len(ws), _MODES[mode], int(squeeze_out), multires_view, 0, 3,
             feat.shape[1], 0, 0, 0, 0] + layer_meta
     return W, B, meta
@@ -339,13 +341,40 @@ def nerf_grads_from_packed(meta, grads):
     return dtw, dtb, dhw, dhb
 
 
-# The NeRF tile kernels' weight ring (csrc/fused_mlp.cu, K4Ring/K5Ring): 6 stages
-# of one slab each, a slab being _KS reduction rows of a product pass of at
-# most _MAX_OUT output columns, as wgmma reads it from shared memory.
+# The weight rings of the 128-row and the NeRF tile kernels (csrc/fused_mlp.cu,
+# K2Ring, K4Ring, K5Ring): stages of one slab each, a slab being _KS reduction
+# rows of a product pass of at most _MAX_OUT output columns, as wgmma reads it
+# from shared memory. K2 keeps one stage fewer for its second input tile.
 _RING_STAGES = 6
+_K2_RING_STAGES = 5
 _KS = 32
 _MAX_OUT = 256
 _THREADS = 256
+
+
+def render_launch_plan(meta, n: int, sms: int) -> tuple[int, int, int]:
+    """-> (rows per tile, CTAs, dynamic shared-memory bytes) of K2 on ``n``
+    rows of a ``_render_meta`` layer list, on a card of ``sms`` SMs. The CTAs
+    are persistent, one per SM (or per tile, if fewer), CTA i running tiles
+    i, i + CTAs, ...; the bytes are its carve (csrc/fused_mlp.cu,
+    render_fwd_kernel): the ring, then two bf16 tiles in the core layout,
+    layer 0's input [rows, Kp0] and the hidden layers' [rows, max Kp of the
+    later layers], then an mbarrier per ring stage and the two that hand the
+    input tile from the producer warpgroup to the product warpgroups (the
+    bytes rounded up to 16). The launcher takes both as given."""
+    layers = _layers_of(meta)
+    rows = 128
+    ldh = max((Kp for _, _, Kp, _, _, _ in layers[1:]), default=0)
+    smem = 2 * (_K2_RING_STAGES * _KS * _MAX_OUT + rows * (layers[0][2] + ldh))
+    return rows, min(-(-n // rows), sms), smem + -(-8 * (_K2_RING_STAGES + 2) // 16) * 16
+
+
+def render_schedule(meta):
+    """K2's product passes, in the order the kernel runs them: (layer, dx,
+    first output column, width), one forward pass per layer over its padded
+    width (the output layer's 16 columns fill one 64-column chunk). The
+    launcher checks that the list is exactly this."""
+    return [(l, 0, 0, Np) for l, (_, _, _, Np, _, _) in enumerate(_layers_of(meta))]
 
 
 def nerf_launch_plan(meta, bwd: bool) -> tuple[int, int]:
@@ -392,21 +421,21 @@ def nerf_schedule(meta, bwd: bool):
 
 
 @functools.lru_cache(maxsize=16)
-def _nerf_ring_index(meta: tuple, device: torch.device):
-    """-> (gather index into [packed W | 0] that gives the ring image, K4's
-    and K5's schedules with each pass's offset in it), cached per layer list.
+def _ring_index(meta: tuple, schedules: tuple, device: torch.device):
+    """-> (gather index into [packed W | 0] that gives the ring image, each
+    of ``schedules`` as its launcher takes it: [n, then layer, dx, n0, width,
+    the pass's offset in the image per pass]), cached per layer list.
 
-    The image holds every slab of every pass of both kernels exactly as a
-    ring stage holds it (the no-swizzle core-matrix layout of the wgmma
+    The image holds every slab of every pass of the schedules once, exactly as
+    a ring stage holds it (the no-swizzle core-matrix layout of the wgmma
     machinery, zero past the layer), so that one bulk copy fills a stage:
     core matrix (n / 8, k / 8) of a slab at (n / 8) * 256 + (k / 8) * 64,
     its 16-byte row n % 8 (dx, K-major) or k % 8 (forward, MN-major); a pass
     of width w fills ceil(w / 64) * 64 output rows of each slab."""
     layers = _layers_of(meta)
     zero = sum(Kp * Np for _, _, Kp, Np, _, _ in layers)
-    s4, s5 = nerf_schedule(meta, False), nerf_schedule(meta, True)
     parts, offs, off = [], {}, 0
-    for l, dx, n0, w in dict.fromkeys(s4 + s5):
+    for l, dx, n0, w in dict.fromkeys(q for sched in schedules for q in sched):
         _, _, Kp, Np, woff, _ = layers[l]
         rows = -(-w // 64) * 64
         slabs = -(-(Np if dx else Kp) // _KS)
@@ -425,14 +454,19 @@ def _nerf_ring_index(meta: tuple, device: torch.device):
         offs[(l, dx, n0, w)] = off
         off += g.numel()
     idx = torch.cat(parts).to(device=device, dtype=torch.int32)
-    sched = lambda ps: [len(ps)] + [v for q in ps for v in (*q, offs[q])]  # noqa: E731
-    return idx, sched(s4), sched(s5)
+    return idx, [[len(ps)] + [v for q in ps for v in (*q, offs[q])] for ps in schedules]
+
+
+def _ring(W, meta, schedules):
+    """-> (the ring image of packed weights W, then each of ``schedules``
+    with its passes' offsets in the image)."""
+    idx, scheds = _ring_index(tuple(meta), tuple(tuple(s) for s in schedules), W.device)
+    return (torch.index_select(torch.cat([W, W.new_zeros(1)]), 0, idx), *scheds)
 
 
 def _nerf_ring(W, meta):
     """-> (the ring image of packed weights W, K4's schedule, K5's)."""
-    idx, s4, s5 = _nerf_ring_index(tuple(meta), W.device)
-    return torch.index_select(torch.cat([W, W.new_zeros(1)]), 0, idx), s4, s5
+    return _ring(W, meta, (nerf_schedule(meta, False), nerf_schedule(meta, True)))
 
 
 def _nerf_pack(plan, d_a, trunk_w, trunk_b, head_w, head_b, device):
@@ -442,21 +476,39 @@ def _nerf_pack(plan, d_a, trunk_w, trunk_b, head_w, head_b, device):
     return W, B, meta, _nerf_ring(W, meta)
 
 
-def _render_launch(plan, pts, normals, dirs, feat, ws, bs):
-    _check_inputs("render_fwd", pts, normals, dirs, feat)
+def _render_pack(plan, feat, ws, bs, device):
+    """-> what K2 launches on and K3 takes from it: the (W, B, meta) of
+    _render_meta (K3 reads W) and (the ring image of W, K2's schedule)."""
+    W, B, meta = _render_meta(plan, feat, ws, bs, device)
+    return W, B, meta, _ring(W, meta, (render_schedule(meta),))
+
+
+def _render_fwd_run(pts, normals, dirs, feat, packed):
+    """K2's launch on contiguous inputs and weights packed by _render_pack ->
+    [n, d_out]."""
     n = pts.shape[0]
-    W, B, meta = _render_meta(plan, feat, ws, bs, pts.device)
-    pts, normals, dirs, feat = (t.contiguous() for t in (pts, normals, dirs, feat))
-    out = torch.empty(n, ws[-1].shape[1], device=pts.device, dtype=torch.float32)
-    lib = build.library("fused_mlp")
-    err = lib.render_fwd_launch(
-        pts.data_ptr(), normals.data_ptr(), dirs.data_ptr(), feat.data_ptr(),
-        out.data_ptr(), n, W.data_ptr(), B.data_ptr(),
-        build.int64_array(meta), build.stream_ptr(pts.device),
+    _, B, meta, (img, sched) = packed
+    out = torch.empty(n, _layers_of(meta)[-1][1], device=pts.device, dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
+    _, ctas, smem = render_launch_plan(meta, n, sms)
+    err = build.library("fused_mlp").render_fwd_launch(
+        pts.data_ptr(), normals.data_ptr(), dirs.data_ptr(), feat.data_ptr(), out.data_ptr(), n,
+        img.data_ptr(), B.data_ptr(), build.int64_array(meta), build.int64_array(sched), ctas,
+        smem, build.stream_ptr(pts.device),
     )
     build.LAUNCHES["render_fwd"] += 1
     build.check(err, "render_fwd")
     return out
+
+
+def _render_launch(plan, pts, normals, dirs, feat, ws, bs):
+    """K2 -> (output [n, d_out], what _render_pack packed for it)."""
+    _check_inputs("render_fwd", pts, normals, dirs, feat)
+    _check_shapes("render_fwd", pts.shape[0], (pts, 3), (normals, 3), (dirs, 3),
+                  (feat, feat.shape[1]))
+    packed = _render_pack(plan, feat, ws, bs, pts.device)
+    ins = (t.contiguous() for t in (pts, normals, dirs, feat))
+    return _render_fwd_run(*ins, packed), packed
 
 
 def _nerf_fwd_run(pts, views, packed, has_dpt):
@@ -551,8 +603,9 @@ class _BwdScratch:
 
 def _render_bwd_tile(ins, outs, W, B, meta, scratch: _BwdScratch) -> None:
     """K3's tile kernel: ins = contiguous (pts, normals, dirs, feat, g), outs =
-    (d_pts, d_normals, d_dirs, d_feat), weights packed by _render_meta; leaves
-    the deltas and activations in ``scratch`` for its contraction."""
+    (d_pts, d_normals, d_dirs, d_feat), weights packed by _render_meta (as
+    _render_pack packs them for K2); leaves the deltas and activations in
+    ``scratch`` for its contraction."""
     err = build.library("fused_mlp").render_bwd_launch(
         *(t.data_ptr() for t in (*ins, *outs)), ins[0].shape[0], W.data_ptr(), B.data_ptr(),
         build.int64_array(meta), *scratch.tile_args(), build.stream_ptr(ins[0].device),
@@ -561,14 +614,16 @@ def _render_bwd_tile(ins, outs, W, B, meta, scratch: _BwdScratch) -> None:
     build.check(err, "render_bwd")
 
 
-def _render_bwd_launch(plan, pts, normals, dirs, feat, ws, bs, g):
+def _render_bwd_launch(plan, pts, normals, dirs, feat, ws, bs, g, packed=None):
+    """K3 -> (d_pts, d_normals, d_dirs, d_feat, dws, dbs); ``packed``: what
+    K2 launched with (_render_pack), else packed here."""
     _check_inputs("render_bwd", pts, normals, dirs, feat, g)
     n = pts.shape[0]
     # the first layer's width against feat's is checked by _render_meta
     _check_shapes("render_bwd", n, (pts, 3), (normals, 3), (dirs, 3), (feat, feat.shape[1]),
                   (g, ws[-1].shape[1]))
     dev = pts.device
-    W, B, meta = _render_meta(plan, feat, ws, bs, dev)
+    W, B, meta = packed[:3] if packed is not None else _render_meta(plan, feat, ws, bs, dev)
     ins = tuple(t.contiguous() for t in (pts, normals, dirs, feat, g))
     outs = (*(torch.empty(n, 3, device=dev) for _ in range(3)),
             torch.empty(n, feat.shape[1], device=dev))
@@ -646,18 +701,24 @@ class _RenderNet(torch.autograd.Function):
         ws, bs = list(wb[:n]), list(wb[n:])
         ctx.plan = plan
         ctx.save_for_backward(pts, normals, dirs, feat, *wb)
+        ctx.packed = None
         if _on(pts, "render_net") == "cpu":
             return render_net_plain(plan, pts, normals, dirs, feat, ws, bs)
-        return _render_launch(plan, pts, normals, dirs, feat.float(), ws, bs)
+        # the backward launches K3 on the weights K2 was launched with
+        out, ctx.packed = _render_launch(plan, pts, normals, dirs, feat.float(), ws, bs)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         pts, normals, dirs, feat, *wb = ctx.saved_tensors
         n = len(wb) // 2
         ws, bs = wb[:n], wb[n:]
-        fn = render_net_bwd_plain if _on(g, "render_net") == "cpu" else _render_bwd_launch
-        d_pts, d_nrm, d_dirs, d_feat, dws, dbs = fn(
-            ctx.plan, pts, normals, dirs, feat.float(), ws, bs, g.float())
+        args = (ctx.plan, pts, normals, dirs, feat.float(), ws, bs, g.float())
+        if _on(g, "render_net") == "cpu":
+            out = render_net_bwd_plain(*args)
+        else:
+            out = _render_bwd_launch(*args, packed=ctx.packed)
+        d_pts, d_nrm, d_dirs, d_feat, dws, dbs = out
         return (None, d_pts, d_nrm, d_dirs, d_feat.to(feat.dtype), *dws, *dbs)
 
 

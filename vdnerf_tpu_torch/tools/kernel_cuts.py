@@ -1,20 +1,22 @@
-"""Where K4's and K5's time goes: their launches timed with parts cut out.
+"""Where K2's, K4's and K5's time goes: their launches timed with parts cut
+out.
 
-    python -m vdnerf_tpu_torch.tools.kernel_cuts [--iters 20]
+    python -m vdnerf_tpu_torch.tools.kernel_cuts [--iters 20] [--cuts none no_input ...]
 
 ``ncu`` does not run on the card's machine, so this tool answers "what
 limits the tile kernels" the way a profiler's stall breakdown would, by
 subtraction. For each cut it copies this package under
 ``ops/kernels/_build/cuts/<cut>/``, removes one part of
 ``csrc/fused_mlp.cu`` by an exact textual replacement (the tool fails if
-the text is not there once), builds that copy and times the full-width
-``womsk_white_tpu`` K4 launch at a serving chunk's rows (135,168) and K5's
-tile kernel at a training step's outside rows (16,896) with CUDA events,
-weights packed once. A cut kernel computes wrong numbers; only its time is
-read. ``sync_mma`` is a variant, not a cut: K5's wgmmas complete slab by slab,
-as K4's do. Prints the card's name and power limit, then one JSON line per cut
-with its times and the kernels for which ptxas reports serialised wgmmas or
-an injected wait.
+the text is not there once), builds that copy and times, with CUDA events and
+weights packed once, the full-width ``womsk_white_tpu`` launches: K2 at a
+serving chunk's rows (393,216), K4 at a chunk's (135,168) and K5's tile
+kernel at a training step's outside rows (16,896). A cut kernel computes
+wrong numbers; only its time is read. ``sync_mma`` is a variant, not a cut:
+K5's wgmmas complete slab by slab, as K2's and K4's do. Prints the card's
+name and power limit, then one JSON line per cut with its times, each tile
+kernel's registers and spill bytes from ptxas, and the kernels for which
+ptxas reports serialised wgmmas (C7512) or an injected wait (C7517).
 """
 
 from __future__ import annotations
@@ -36,17 +38,20 @@ CUTS = {
     "no_mma": [("    if (pr.mn) rb_mma_pick<RG::kAsync, NCH, 1>(mine, full, acc, Atile, lda, k0, Bs, wg);\n"
                 "    else rb_mma_pick<RG::kAsync, NCH, 0>(mine, full, acc, Atile, lda, k0, Bs, wg);\n",
                 "")],
-    # the weight ring's bulk copies after the prologue, and the waits for them
-    # (the wgmmas read whatever the stages hold)
+    # the weight ring's bulk copies, and the waits for them (the wgmmas read
+    # whatever the stages hold; no copy is left in flight when a CTA exits)
     "no_load": [("      mbar_wait(cur.bars + s % ST, (s / ST) & 1);\n", ""),
-                ("      if (threadIdx.x == 0) cur.load<RG>(p, W, ring, (s + RG::kLead) % ST);\n", "")],
+                ("      if (threadIdx.x == 0) cur.load<RG>(p, W, ring, (s + RG::kLead) % ST);\n", ""),
+                ("        if (threadIdx.x == 0) load<RG>(p, W, ring, j);\n", "")],
     # K5's acts/dels stores to global memory
     "no_store": [("  const int n_kg = width >> 3;\n", "  const int n_kg = 0 * (width >> 3);\n")],
+    # K2's feature block: zeros in place of its global loads
+    "no_input": [("            v = __ldg(reinterpret_cast<const float4*>(src));\n", "")],
     # not a cut: K5's wgmmas complete slab by slab, as K4's do
     "sync_mma": [("using K5Ring = Ring<6, true, true>;", "using K5Ring = Ring<6, false, true>;")],
 }
 
-KERNELS = ("render_bwd_kernel", "nerf_fwd_kernel", "nerf_bwd_kernel")
+KERNELS = ("render_fwd_kernel", "render_bwd_kernel", "nerf_fwd_kernel", "nerf_bwd_kernel")
 
 _TIMER = r'''
 import json, sys, torch
@@ -82,8 +87,32 @@ gs = [torch.randn(n, k, generator=g).to(dev) for k in (1, 3)]
 sc = fused_mlp._BwdScratch(n, meta, dev)
 outs = [torch.empty_like(pts), torch.empty_like(views)]
 k5 = time_ms(lambda: fused_mlp._nerf_bwd_tile((pts, views, *gs, gs[1]), outs, packed, sc))
-print(json.dumps({"k4_135168_ms": k4, "k5_tile_16896_ms": k5}))
+del pts, views, gs, sc, outs
+r = [lin(289, 256)] + [lin(256, 256) for _ in range(3)] + [lin(256, 3)]
+n = 393216
+x = [torch.randn(n, 3, generator=g).to(dev) for _ in range(3)] + [(torch.randn(n, 256, generator=g) * 0.5).to(dev)]
+rpacked = fused_mlp._render_pack(("idr", 4, True), x[3], [w for w, _ in r], [b for _, b in r], dev)
+k2 = time_ms(lambda: fused_mlp._render_fwd_run(*x, rpacked))
+print(json.dumps({"k2_393216_ms": k2, "k4_135168_ms": k4, "k5_tile_16896_ms": k5}))
 '''
+
+
+def ptxas_notes(log: str) -> dict:
+    """Per tile kernel: ptxas's registers and spill-store bytes, and the
+    kernels with a serialised-wgmma (C7512) or injected-wait (C7517) note."""
+    regs, spills, cur = {}, {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            cur = next((k for k in KERNELS if k in line), None)
+        elif cur and "spill stores" in line:
+            spills[cur] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif cur and "Used" in line and "registers" in line:
+            regs[cur] = int(line.split("Used")[1].split("registers")[0])
+    notes = {code: sorted({k for line in log.splitlines() if code in line
+                           for k in KERNELS if k in line})
+             for code in ("C7512", "C7517")}
+    return {"registers": regs, "spill_store_bytes": spills,
+            "serialized_wgmma": notes["C7512"], "injected_wait": notes["C7517"]}
 
 
 def make_variant(name: str) -> Path:
@@ -118,11 +147,8 @@ def main(argv=None) -> int:
             print(out.stderr[-3000:], file=sys.stderr)
             return 1
         log = (root / PKG.name / "ops" / "kernels" / "_build" / "fused_mlp.log").read_text()
-        notes = {code: sorted({k for line in log.splitlines() if code in line
-                               for k in KERNELS if k in line})
-                 for code in ("C7512", "C7517")}
         print(json.dumps({"cut": name, **json.loads(out.stdout.strip().splitlines()[-1]),
-                          "serialized_wgmma": notes["C7512"], "injected_wait": notes["C7517"]}))
+                          **ptxas_notes(log)}), flush=True)
     return 0
 
 
