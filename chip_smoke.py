@@ -13,17 +13,19 @@
    version with CUDA events. ``ms`` is the wrapper's call, as the main path
    makes it (packing the weights and allocating each call); every kernel
    also gives ``kernel_ms``, its launches alone on weights packed once. K2 is
-   held at a chunk's rows and at a step's on both core widths, with the
-   colour head's 3 outputs and with the depth head's 96 (the same net), and
-   timed beside its library yardstick: the five products alone as bf16
-   ``torch.matmul`` calls on pre-rounded operands, no epilogue. K4 is
-   held and timed at a chunk's rows and at a training step's. K1 also holds
-   the plain version's division by 100 on the card against the kernel's
-   multiply by 0.01f. Then the dW contraction that K3 and K5 share, alone on
-   the scratch their launches left: held against f32 matmuls of the same bf16
-   operands, two launches bit-identical, timed beside its plain version and a
-   bf16 ``torch.matmul`` per layer (the library yardstick, never called by
-   the port).
+   held at a chunk's rows, and K2 and K3 at a step's rows on each of the three
+   core widths (128 samples; 96 resampled at womsk_white_tpu, 64 at
+   wmask_tpu); K2 with the colour head's 3 outputs and with the depth head's
+   96 (the same net). K4 is held and timed at a chunk's rows and at a
+   training step's. K1 also holds the plain version's division by 100 on the
+   card against the kernel's multiply by 0.01f. Then the dW contraction that
+   K3 and K5 share, alone on the scratch their launches left: held against
+   f32 matmuls of the same bf16 operands, two launches bit-identical, timed
+   beside its plain version. Every kernel is timed beside its library
+   yardstick, which the port never calls: its products alone as
+   ``torch.matmul`` calls at its row counts, f32 with TF32 off for K1, bf16
+   on pre-rounded operands for the others (a backward with each layer's dX
+   and dW products), no epilogue.
 4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere), the
    conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
@@ -34,15 +36,28 @@
    same render through the plain versions on the CPU.
 6. Training phase: ``--mode train`` through the CLI at full width, 40 steps
    across ``resample_from`` (only the paths and five ``train`` keys
-   rewritten), launch counts set to 0 before and read after (fails unless all
-   five kernels ran); checks finite logged losses, the checkpoints, that every
-   network moved, and that ``valimg_40`` from the last checkpoint gives the
-   run's closing summary. Then times steps per core width.
+   rewritten, ``val_mesh_freq`` 20), launch counts set to 0 before and read
+   after (fails unless all five kernels ran); checks that the loop's cadence
+   wrote a 128^3 mesh at steps 20 and 40 with 8 K1 launches each, finite
+   logged losses, the checkpoints, that every network moved, and that
+   ``valimg_40`` from the last checkpoint gives the run's closing summary.
+   Then times steps per core width.
 7. Gradient check: one full-width step on 128 rays through the kernels on the
    card against the plain versions on the CPU.
-8. Prints one ``{"kernels": [...]}`` line (the five kernels and the
-   contraction), then the last line
-   ``{"ok": true, "device": {...}}``.
+8. Mesh phase: ``validate_mesh_40`` through the CLI (512^3, world space,
+   ``--mcube_threshold 0.0``) with the launch counts set to 0 before and read
+   after (K1 512 times, nothing else), timed by part; the 128^3 grid through
+   K1 against the plain grid on the card (1e-4; the two meshes' triangle
+   counts within 0.1%, and their Chamfer within 1e-3 of the plain mesh's
+   against itself, the floor of its 100,000-point sampling); ``geometry_qc``
+   at 512^3 against the scene's radius-0.5 sphere, reported only.
+9. Masked phase: phases 6 and 7 again on ``confs/wmask_tpu.conf`` (no outside
+   samples, a 64-of-128 resampled core at frac 0.25, the mask BCE): K1-K3
+   must run and K4/K5 never; the background NeRF must not move; the mask
+   loss is logged finite.
+10. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+    line (the five kernels and the contraction), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero and prints no result. Imports nothing of JAX.
 """
@@ -75,11 +90,11 @@ K1_ROWS = (CHUNK * 64, CHUNK * 16, BATCH * 64, BATCH * 16)
 K2_ROWS = CHUNK * 96
 K4_ROWS = CHUNK * 33
 RAGGED = 37
-# rows per training step (batch 512): the colour head over the faithful
-# 128-sample core (96 after resample_from), and the background NeRF's
+# rows per training step (batch 512): the colour head (K2 and K3) over the
+# faithful 128-sample core, then over the resampled core after resample_from
+# (96 samples at womsk_white_tpu, 64 at wmask_tpu); the background NeRF's
 # backward over 32 outside samples + 1
-K3_ROWS = BATCH * 128
-K2_TRAIN_ROWS = (K3_ROWS, BATCH * 96)
+CORE_ROWS = (BATCH * 128, BATCH * 96, BATCH * 64)
 K5_ROWS = BATCH * 33
 
 # K1 is f32 throughout: the kernel and torch differ in summation order and in
@@ -259,6 +274,8 @@ def kernel_phase(device) -> dict:
             "ms": time_ms(lambda: sdf_fwd.sdf_value(pts, *sdf_args)),
             "kernel_ms": time_ms(lambda: sdf_fwd._sdf_launch(pts, out, W, B, meta, 1.0)),
             "plain_ms": time_ms(lambda: sdf_fwd.sdf_value_plain(pts, *sdf_args)),
+            "library_ms": _time_products(sdf_dims, rows, torch.float32, device),
+            "library": "products only: nine f32 torch.matmul, TF32 off",
             "bound_ms": b_ms, "bound_by": b_by, "bound_f32_simt_ms": f32_ms,
         })
     # The kernel's softplus ends with a multiply by 0.01f where the plain
@@ -294,7 +311,7 @@ def kernel_phase(device) -> dict:
     packed = fused_mlp._render_pack(plan, r_inputs(1)[3], ws, bs, device)
     packed96 = fused_mlp._render_pack(plan, r_inputs(1)[3], ws96, bs96, device)
     errs, shapes = [], []
-    for rows in (K2_ROWS, *K2_TRAIN_ROWS):
+    for rows in (K2_ROWS, *CORE_ROWS):
         inp = r_inputs(rows + RAGGED)
         for w_, b_ in ((ws, bs), (ws96, bs96)):
             errs.append(_compare(
@@ -310,8 +327,8 @@ def kernel_phase(device) -> dict:
             "kernel_ms": time_ms(lambda: fused_mlp._render_fwd_run(*inp, packed)),
             "kernel_ms_d_out_96": time_ms(lambda: fused_mlp._render_fwd_run(*inp, packed96)),
             "plain_ms": time_ms(lambda: fused_mlp.render_net_plain(plan, *inp, ws, bs)),
-            "library_ms": _time_render_products(plan, inp, ws),
-            "library": "products only, no epilogue: five bf16 torch.matmul on pre-rounded operands",
+            "library_ms": _time_products(r_dims, rows, torch.bfloat16, device),
+            "library": BF16_PRODUCTS,
             "bound_ms": b_ms, "bound_by": b_by,
         })
     rec["render_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
@@ -357,44 +374,51 @@ def kernel_phase(device) -> dict:
             "kernel_ms": time_ms(lambda: fused_mlp._nerf_fwd_run(pts4, views, packed, False)),
             "plain_ms": time_ms(lambda: fused_mlp.nerf_plain(nplan, pts4, views, tw, tb, hw[:4],
                                                              hb[:4])),
+            "library_ms": _time_products(t_dims + h_dims[:4], rows, torch.bfloat16, device),
+            "library": BF16_PRODUCTS,
             "bound_ms": b_ms, "bound_by": b_by,
         })
     rec["nerf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
 
-    # K3: the colour head's backward at one training step's core rows. A
+    # K3: the colour head's backward at each of a training step's core rows. A
     # backward recomputes the forward, then runs dx and dW products: three
     # times the forward's operations. Bytes: the inputs and g read once, the
     # input cotangents written once, bf16 weights read, f32 dW/db written.
     def flat(grads):
         return [t for x in grads for t in (x if isinstance(x, list) else [x])]
 
-    inp = r_inputs(K3_ROWS + RAGGED)
-    g = torch.randn(K3_ROWS + RAGGED, 3, generator=gen).to(device)
-    err = _compare_bwd("render_bwd", *(flat(x) for x in _bwd_runs(
-        fused_mlp._render_bwd_launch, fused_mlp.render_net_bwd_plain,
-        (plan, *inp, ws, bs, g))))
-    inp, g = [x[:K3_ROWS].contiguous() for x in inp], g[:K3_ROWS].contiguous()
     flops_row = 3 * 2 * sum(k * n for k, n in r_dims)
     wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4 for w, b in zip(ws, bs))
-    b_ms, b_by = bound(K3_ROWS, flops_row, (3 + 3 + 3 + 256 + 3 + 3 + 3 + 3 + 256) * 4, wbytes,
-                       PEAK_BF16_S)
-    # the launches alone (tile kernel, then the contraction), on weights packed
-    # and scratch allocated once
-    W, B, meta = fused_mlp._render_meta(plan, inp[3], ws, bs, device)
-    sc3 = fused_mlp._BwdScratch(K3_ROWS, meta, device)
-    outs = [torch.empty_like(x) for x in inp]
+    errs, shapes, sc3 = [], [], {}
+    for rows in CORE_ROWS:
+        inp = r_inputs(rows + RAGGED)
+        g = torch.randn(rows + RAGGED, 3, generator=gen).to(device)
+        errs.append(_compare_bwd(f"render_bwd(rows={rows + RAGGED})", *(flat(x) for x in _bwd_runs(
+            fused_mlp._render_bwd_launch, fused_mlp.render_net_bwd_plain,
+            (plan, *inp, ws, bs, g)))))
+        inp, g = [x[:rows].contiguous() for x in inp], g[:rows].contiguous()
+        b_ms, b_by = bound(rows, flops_row, (3 + 3 + 3 + 256 + 3 + 3 + 3 + 3 + 256) * 4, wbytes,
+                           PEAK_BF16_S)
+        # the launches alone (tile kernel, then the contraction), on weights
+        # packed and scratch allocated once
+        W, B, meta = fused_mlp._render_meta(plan, inp[3], ws, bs, device)
+        sc3[rows] = fused_mlp._BwdScratch(rows, meta, device)
+        outs = [torch.empty_like(x) for x in inp]
 
-    def k3_launches():
-        fused_mlp._render_bwd_tile((*inp, g), outs, W, B, meta, sc3)
-        sc3.contract()
+        def k3_launches():
+            fused_mlp._render_bwd_tile((*inp, g), outs, W, B, meta, sc3[rows])
+            sc3[rows].contract()
 
-    rec["render_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
-        "rows": K3_ROWS,
-        "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, ws, bs, g)),
-        "kernel_ms": time_ms(k3_launches),
-        "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, ws, bs, g)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }]}
+        shapes.append({
+            "rows": rows,
+            "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, ws, bs, g)),
+            "kernel_ms": time_ms(k3_launches),
+            "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, ws, bs, g)),
+            "library_ms": _time_products(r_dims, rows, torch.bfloat16, device, backward=True),
+            "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    rec["render_bwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
 
     # K5: the background NeRF's backward at one training step's outside rows
     nplan = (10, 4, (4,), 8, False)
@@ -422,13 +446,16 @@ def kernel_phase(device) -> dict:
         "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
         "kernel_ms": time_ms(k5_launches),
         "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
+        "library_ms": _time_products(t_dims + h_dims[:4], K5_ROWS, torch.bfloat16, device,
+                                     backward=True),
+        "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
         "bound_ms": b_ms, "bound_by": b_by,
     }]}
 
     # the dW contraction alone (dw_kernel + the two fixed-order reductions), on
     # the scratch the timed K3 and K5 launches left
     errs, shapes = [], []
-    for rows, sc in ((K3_ROWS, sc3), (K5_ROWS, sc5)):
+    for rows, sc in ((CORE_ROWS[0], sc3[CORE_ROWS[0]]), (K5_ROWS, sc5)):
         errs.append(_check_contraction(sc, rows))
         shapes.append(_time_contraction(sc, rows))
     rec["dw_contract"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
@@ -436,23 +463,25 @@ def kernel_phase(device) -> dict:
     return rec
 
 
-def _time_render_products(plan, inp, ws) -> float:
-    """K2's library yardstick: its five products alone, one bf16
-    torch.matmul each on operands rounded to bf16 beforehand (the layer
-    inputs as the kernel holds them), with no bias, activation or concat."""
+BF16_PRODUCTS = "products only: one bf16 torch.matmul per layer on pre-rounded operands"
+
+
+def _time_products(dims, rows, dtype, device, backward=False) -> float:
+    """The library yardstick of every kernel: its products alone, one
+    ``torch.matmul`` per layer on operands made in ``dtype`` beforehand, with
+    no bias, activation, concat or embedding. A backward adds each layer's dX
+    (delta @ W^T) and dW (act^T @ delta) products. The port never calls it."""
     import torch
 
-    from vdnerf_tpu_torch.models.embedder import embed
-    from vdnerf_tpu_torch.ops.kernels import fused_mlp
-
-    pts, nrm, dirs, feat = inp
-    x = fused_mlp._render_concat(pts, embed(dirs, plan[1]), nrm, feat, plan[0])
-    ops, a = [], x.to(torch.bfloat16)
-    for w in ws:
-        w = w.to(torch.bfloat16)
+    ops = []
+    for k, n in dims:
+        a = torch.randn(rows, k, device=device).to(dtype)
+        w = torch.randn(k, n, device=device).to(dtype)
         ops.append((a, w))
-        a = torch.relu(a @ w)
-    return time_ms(lambda: [torch.matmul(a, w) for a, w in ops])
+        if backward:
+            d = torch.randn(rows, n, device=device).to(dtype)
+            ops += [(d, w.t()), (a.t(), d)]
+    return time_ms(lambda: [torch.matmul(a, b) for a, b in ops])
 
 
 def _contraction_operands(sc):
@@ -570,23 +599,24 @@ def write_scene(data_dir: str) -> None:
     np.savez(os.path.join(img_dir, "cameras_sphere.npz"), **cams)
 
 
-def write_conf(tmp: str, exp: str = "exp", train: dict | None = None) -> str:
-    """confs/womsk_white_tpu.conf with only its two paths (and the given
-    ``train`` keys) rewritten."""
-    with open(os.path.join(ROOT, "confs", "womsk_white_tpu.conf")) as f:
+def write_conf(tmp: str, exp: str = "exp", train: dict | None = None,
+               name: str = "womsk_white_tpu") -> str:
+    """confs/<name>.conf with only its two paths (and the given ``train``
+    keys) rewritten."""
+    with open(os.path.join(ROOT, "confs", f"{name}.conf")) as f:
         text = f.read()
     subs = [("./exp/CASE_NAME", f"{tmp}/{exp}/CASE_NAME"),
             ("./depth_data/CASE_NAME", f"{tmp}/depth_data/CASE_NAME")]
     for key, value in (train or {}).items():
         line = next((ln for ln in text.splitlines() if ln.strip().startswith(f"{key} =")), None)
         if line is None:
-            raise SystemExit(f"womsk_white_tpu.conf: no train key {key!r}")
+            raise SystemExit(f"{name}.conf: no train key {key!r}")
         subs.append((line, f"    {key} = {value}"))
     for old, new in subs:
         if text.count(old) != 1:
-            raise SystemExit(f"womsk_white_tpu.conf: expected one {old!r}")
+            raise SystemExit(f"{name}.conf: expected one {old!r}")
         text = text.replace(old, new)
-    path = os.path.join(tmp, f"womsk_white_tpu_{exp}.conf")
+    path = os.path.join(tmp, f"{name}_{exp}.conf")
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -683,78 +713,122 @@ def reference_check(conf, device) -> dict:
     return {"color_max_abs_err": color_err, "depth_agreement": depth_agree}
 
 
-# the training phase: 40 steps across the resample_from switch, both
-# checkpoints and validations inside the run, no mesh validation
+# the training phases: 40 steps across the resample_from switch, both
+# checkpoints and validations inside the run, and a 128^3 mesh at steps 20
+# and 40 through the loop's cadence
 TRAIN_KEYS = {"end_iter": 40, "resample_from": 20, "save_freq": 20, "val_freq": 20,
-              "val_mesh_freq": 1000000}
+              "val_mesh_freq": 20}
 TIMED_STEPS = 5
+# the background NeRF's kernels; the masked recipe (n_outside = 0) runs none
+BACKGROUND = ("nerf_fwd", "nerf_bwd")
 
 
-def train_phase(tmp: str) -> dict:
-    """--mode train through the port's CLI on the card, then valimg_40 from
-    its last checkpoint."""
-    import numpy as np
+def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
+    """--mode train of confs/<name>.conf through the port's CLI on the card,
+    then valimg_40 from its last checkpoint."""
     import torch
 
     from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.mesh import load_ply
     from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.runner import Runner
     from vdnerf_tpu_torch.train.builder import build_model, build_networks
     from vdnerf_tpu_torch.utils.hocon import load_conf
 
-    case = "sphere"
-    conf_path = write_conf(tmp, "exp_train", TRAIN_KEYS)
+    case, tag = "sphere", f"[train {name}]"
+    conf_path = write_conf(tmp, "exp_train", TRAIN_KEYS, name)
     conf = load_conf(conf_path, case)
     exp_dir = conf.get_string("general.base_exp_dir")
     base = ["--conf", conf_path, "--case", case]
+    masked = conf.get_int("model.neus_renderer.n_outside") == 0
 
-    build.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    summary = cli.main(base + ["--mode", "train"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
-    print(f"[train] {TRAIN_KEYS['end_iter']} steps + validations: {summary} wall_s={wall:.3f}")
-    print(f"[train] launches on the training path: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    # the cadence's meshes, each with the launches it made
+    meshes, validate_mesh = [], Runner.validate_mesh
+
+    def counted_mesh(self, *args, **kwargs):
+        before = dict(build.LAUNCHES)
+        out = validate_mesh(self, *args, **kwargs)
+        meshes.append({**out, "launches": {k: v - before[k] for k, v in build.LAUNCHES.items()}})
+        return out
+
+    Runner.validate_mesh = counted_mesh
+    try:
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = cli.main(base + ["--mode", "train"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+    finally:
+        Runner.validate_mesh = validate_mesh
+    print(f"{tag} {TRAIN_KEYS['end_iter']} steps + validations + meshes: {summary} "
+          f"wall_s={wall:.3f}")
+    print(f"{tag} launches on the training path: {launches}")
+    missing = [k for k, v in launches.items() if v == 0 and not (masked and k in BACKGROUND)]
     if missing:
         raise SystemExit(f"the training path launched no {missing}")
+    if masked and any(launches[k] for k in BACKGROUND):
+        raise SystemExit(f"the masked path launched the background NeRF: {launches}")
+
+    # 128^3 = 8 chunks of 64^3 through K1 per mesh, and nothing else
+    for m in meshes:
+        verts, tris = load_ply(m["path"])
+        print(f"{tag} mesh {os.path.basename(m['path'])}: {m['resolution']}^3 "
+              f"{len(verts)} vertices {len(tris)} triangles, launches {m['launches']}, "
+              f"seconds {m['seconds']}")
+        others = {k: v for k, v in m["launches"].items() if k != "sdf_fwd" and v}
+        if (m["resolution"], m["world_space"], m["launches"]["sdf_fwd"]) != (128, False, 8) \
+                or others or not len(tris) or (len(verts), len(tris)) != (m["n_verts"], m["n_tris"]):
+            raise SystemExit(f"{tag} mesh {m}: expected 128^3, 8 K1 launches, triangles")
+    names = [os.path.basename(m["path"]) for m in meshes]
+    if names != ["00000020.ply", "00000040.ply"] or launches["sdf_fwd"] < 16:
+        raise SystemExit(f"{tag} the cadence wrote {names}")
 
     with open(os.path.join(exp_dir, "logs", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = {r["step"]: r["loss"] for r in recs}
-    print(f"[train] logged loss by step: {losses}")
-    if sorted(losses) != [1, 10, 20, 30, 40] or not all(map(math.isfinite, losses.values())):
-        raise SystemExit(f"logged losses: {losses}")
+    mask_losses = {r["step"]: r["mask_loss"] for r in recs}
+    print(f"{tag} logged loss by step: {losses}; mask_loss: {mask_losses}")
+    if sorted(losses) != [1, 10, 20, 30, 40] or not all(
+            map(math.isfinite, [*losses.values(), *mask_losses.values()])):
+        raise SystemExit(f"logged losses: {losses}, mask losses {mask_losses}")
+    if masked and not all(v > 0 for v in mask_losses.values()):
+        raise SystemExit(f"the masked run logged no mask BCE: {mask_losses}")
     ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
     if ckpts != ["ckpt_000020.pth", "ckpt_000040.pth"]:
         raise SystemExit(f"checkpoints written: {ckpts}")
     trained = torch.load(os.path.join(exp_dir, "checkpoints", "ckpt_000040.pth"),
                          map_location="cpu", weights_only=True)
     fresh = build_model(conf, build_networks(conf), seed=0)
-    moved = {name: max(float((trained[name][k] - v).abs().max())
-                       for k, v in getattr(fresh, name).state_dict().items())
-             for name in ("nerf", "sdf_network_fine", "variance_network_fine",
-                          "color_network_fine")}
-    print(f"[train] largest parameter change per network after 40 steps: {moved}")
-    if not all(v > 0 for v in moved.values()):
-        raise SystemExit("training left a network unchanged")
+    moved = {net: max(float((trained[net][k] - v).abs().max())
+                      for k, v in getattr(fresh, net).state_dict().items())
+             for net in ("nerf", "sdf_network_fine", "variance_network_fine",
+                         "color_network_fine")}
+    print(f"{tag} largest parameter change per network after 40 steps: {moved}")
+    # with no outside samples the background NeRF gets a zero gradient, and
+    # Adam leaves it as it was
+    if not all((v == 0) if (masked and net == "nerf") else (v > 0) for net, v in moved.items()):
+        raise SystemExit("training left a network unchanged, or moved an unused one")
     if not all(os.listdir(os.path.join(exp_dir, sub)) for sub in ("validations_fine", "normals")):
         raise SystemExit("no validation images were written")
 
     served = cli.main(base + ["--mode", "valimg_40"])
     diff = max(abs(served[k] - summary[k]) for k in summary)
-    print(f"[train] valimg_40 from ckpt_000040.pth: {served}; max difference to the run's "
+    print(f"{tag} valimg_40 from ckpt_000040.pth: {served}; max difference to the run's "
           f"closing val_all_imgs {diff:.3e} (tol 1e-6: same weights, deterministic kernels)")
     if set(served) != set(summary) or not diff <= 1e-6:
         raise SystemExit("valimg_40 disagrees with the training run's closing validation")
     return {"launches": launches, "summary": summary, "wall_s": wall, "losses": losses,
-            "conf": conf, "conf_path": conf_path}
+            "mask_losses": mask_losses, "meshes": meshes, "conf": conf,
+            "conf_path": conf_path, "case": case}
 
 
 def time_train_steps(conf_path: str) -> dict:
-    """Steady-state ms/step and rays/s per core width: TIMED_STEPS steps
-    between torch.cuda.synchronize() calls after 2 warm-up steps."""
+    """Steady-state ms/step and rays/s per core width (the faithful core, and
+    the resampled one after resample_from): TIMED_STEPS steps between
+    torch.cuda.synchronize() calls after 2 warm-up steps, without the loop's
+    validations and meshes."""
     import dataclasses
 
     import numpy as np
@@ -763,11 +837,13 @@ def time_train_steps(conf_path: str) -> dict:
     from vdnerf_tpu_torch.runner import Runner
 
     runner = Runner(conf_path, case="sphere", mode="train")
-    faithful = dataclasses.replace(
-        runner.nets, renderer=dataclasses.replace(runner.nets.renderer, n_render_samples=0))
+    rcfg = runner.nets.renderer
+    faithful = dataclasses.replace(runner.nets, renderer=dataclasses.replace(rcfg,
+                                                                             n_render_samples=0))
     rng = np.random.default_rng(0)
     out = {}
-    for name, nets in (("core_128", faithful), ("core_96", runner.nets)):
+    for name, nets in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
+                       (f"core_{rcfg.n_render_samples}", runner.nets)):
         step = 0
 
         def run(n):
@@ -785,12 +861,110 @@ def time_train_steps(conf_path: str) -> dict:
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
         out[name] = {"ms_per_step": ms, "rays_per_s": runner.tcfg.batch_size * 1e3 / ms}
-        print(f"[train] {name}: {ms:.2f} ms/step, {out[name]['rays_per_s']:.1f} rays/s "
-              f"(batch {runner.tcfg.batch_size}, {TIMED_STEPS} steps after 2 warm-up)")
+        print(f"[train {os.path.basename(conf_path)}] {name}: {ms:.2f} ms/step, "
+              f"{out[name]['rays_per_s']:.1f} rays/s (batch {runner.tcfg.batch_size}, "
+              f"{TIMED_STEPS} steps after 2 warm-up)")
     return out
 
 
-def gradient_check(conf, device) -> dict:
+# ---------------------------------------------------------------------------
+# mesh phase
+# ---------------------------------------------------------------------------
+
+
+def mesh_phase(train: dict, device) -> dict:
+    """validate_mesh_40 through the port's CLI (512^3, world space) on the
+    trained checkpoint, timed by part, with the launch counts set to 0 just
+    before and read just after; then the K1 grid against the plain grid on
+    the card at 128^3, and geometry_qc against the scene's sphere."""
+    import cv2 as cv
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.mesh import load_ply, marching_cubes, mesh_chamfer
+    from vdnerf_tpu_torch.mesh.extract import grid_values
+    from vdnerf_tpu_torch.mesh.qc import geometry_qc
+    from vdnerf_tpu_torch.ops.kernels import build, sdf_fwd
+    from vdnerf_tpu_torch.runner import Runner
+
+    argv = ["--conf", train["conf_path"], "--case", train["case"], "--mode", "validate_mesh_40",
+            "--mcube_threshold", "0.0"]
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    verts, tris = load_ply(out["path"])
+    res = {"launches": launches, "wall_s": wall, "seconds": out["seconds"],
+           "n_verts": out["n_verts"], "n_tris": out["n_tris"]}
+    print(f"[mesh] validate_mesh_40 at {out['resolution']}^3, world space: {out['n_verts']} "
+          f"vertices {out['n_tris']} triangles; "
+          f"seconds by part {out['seconds']} (grid = 64^3 chunks through K1, synchronised), "
+          f"whole cli.main {wall:.3f} s (set-up and checkpoint load included)")
+    print(f"[mesh] launches: {launches}")
+    if launches["sdf_fwd"] != 512 or any(v for k, v in launches.items() if k != "sdf_fwd"):
+        raise SystemExit("validate_mesh_40 must launch K1 512 times and nothing else")
+    if (out["resolution"], out["world_space"]) != (512, True) or not len(tris) \
+            or (len(verts), len(tris)) != (out["n_verts"], out["n_tris"]) \
+            or not np.isfinite(verts).all():
+        raise SystemExit(f"validate_mesh_40 wrote {out}")
+
+    # the grid through K1 against the plain version on the card, at 128^3
+    runner = Runner(train["conf_path"], train["case"], mode="validate_mesh")
+    runner.load_checkpoint_iter(40)
+    sdf = runner.model.sdf_network_fine
+    with torch.no_grad():
+        ws, bs = sdf.weights()
+        ws[-1], bs[-1] = ws[-1][:, :1], bs[-1][:1]
+    args = (ws, bs, sdf.cfg.skip_in, sdf.cfg.multires, sdf.cfg.scale)
+    b_min, b_max = runner.scene_data.object_bbox_min, runner.scene_data.object_bbox_max
+    fields = {}
+    for key, fn in (("kernel", sdf_fwd.sdf_value), ("plain", sdf_fwd.sdf_value_plain)):
+        with torch.no_grad():
+            fields[key] = -grid_values(b_min, b_max, 128, lambda p: fn(p, *args)[:, 0],
+                                       device=device)
+    grid_err = float((fields["kernel"] - fields["plain"]).abs().max())
+    scale = (np.asarray(b_max, np.float32) - np.asarray(b_min, np.float32)) / 127.0
+    m = {}
+    for key, u in fields.items():
+        v, t = marching_cubes(u.cpu().numpy(), 0.0)
+        m[key] = (v * scale + np.asarray(b_min, np.float32), t)
+    n_k, n_p = len(m["kernel"][1]), len(m["plain"][1])
+    tri_gap = abs(n_k - n_p) / max(n_p, 1)
+    # mesh_chamfer samples each mesh with its own seed: the plain mesh against
+    # itself gives that sampling's floor, and the kernel's mesh must sit
+    # within 1e-3 above it
+    ch = mesh_chamfer(*m["kernel"], *m["plain"])["chamfer"]
+    floor = mesh_chamfer(*m["plain"], *m["plain"])["chamfer"]
+    print(f"[mesh] 128^3 grid through K1 vs the plain version on the card: max_abs_err "
+          f"{grid_err:.3e} (tol {K1_TOL:.0e}); triangles {n_k} vs {n_p} (gap {tri_gap:.2e}, tol "
+          f"1e-3); chamfer between the meshes {ch:.3e}, the plain mesh against itself "
+          f"{floor:.3e} (difference tol 1e-3)")
+    if not grid_err <= K1_TOL or not tri_gap <= 1e-3 or not ch - floor < 1e-3:
+        raise SystemExit("the K1 mesh grid disagrees with the plain grid")
+    res.update(grid_max_abs_err=grid_err, triangles_kernel_plain=(n_k, n_p),
+               chamfer_kernel_plain=ch, chamfer_plain_plain=floor)
+
+    # geometry QC against the analytic radius-0.5 sphere the scene shows:
+    # reported, not gated (the geometric-init zero set sits near radius 0.38)
+    masks = np.stack([(cv.imread(p, cv.IMREAD_UNCHANGED)[..., 3] > 127).astype(np.uint8)
+                      for p in runner.scene_data.images_lis])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        qc = geometry_qc(lambda p: -sdf.sdf_value(p)[:, 0],
+                         lambda p: 0.5 - torch.linalg.norm(p, dim=-1),
+                         b_min, b_max, 512, masks, np.stack(runner.scene_data.world_mats_np),
+                         device=device)
+    res["qc"] = qc
+    print(f"[mesh] geometry_qc at 512^3 against the radius-0.5 sphere: chamfer {qc['chamfer']}, "
+          f"raw {qc['raw']}, clean {qc['clean']} ({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
+def gradient_check(conf, device, name: str = "womsk_white_tpu") -> dict:
     """One step's loss and gradients at full width on 128 rays (perturb 0):
     the kernels on the card against the plain versions on the CPU. Loss within
     1e-3 relative; each parameter's gradient within 2^-6 relative L2 error.
@@ -827,7 +1001,7 @@ def gradient_check(conf, device) -> dict:
     rel = {n: float((g - res["plain"][1][n]).norm() / res["plain"][1][n].norm().clamp_min(1e-30))
            for n, g in res["card"][1].items()}
     worst = max(rel, key=rel.get)
-    print(f"[grad] 128-ray full-width step, card vs plain on the CPU: loss {res['card'][0]:.6f} "
+    print(f"[grad {name}] 128-ray full-width step, card vs plain on the CPU: loss {res['card'][0]:.6f} "
           f"vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol 1e-3); worst gradient rel L2 "
           f"error {rel[worst]:.3e} ({worst}, tol {2.0**-6:.3e}) over {len(rel)} tensors")
     if not loss_err <= 1e-3 or not rel[worst] <= 2.0**-6:
@@ -860,11 +1034,16 @@ def main() -> int:
         train = train_phase(tmp)
         steps = time_train_steps(train["conf_path"])
         gradient_check(train["conf"], device)
+        mesh = mesh_phase(train, device)
+        masked = train_phase(tmp, "wmask_tpu")
+        masked_steps = time_train_steps(masked["conf_path"])
+        gradient_check(masked["conf"], device, "wmask_tpu")
 
     kernels = []
     for name, r in kern.items():
         main_shape = r["shapes"][0]
-        by_path = {"serve": res["launches"][name], "train": train["launches"][name]}
+        by_path = {"serve": res["launches"][name], "train": train["launches"][name],
+                   "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -876,7 +1055,10 @@ def main() -> int:
         })
     print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"],
                       "train": {"steps": steps, "summary": train["summary"],
-                                "wall_s": train["wall_s"]}}))
+                                "wall_s": train["wall_s"]},
+                      "train_wmask": {"steps": masked_steps, "summary": masked["summary"],
+                                      "wall_s": masked["wall_s"]},
+                      "mesh": {k: v for k, v in mesh.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

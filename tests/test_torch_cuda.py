@@ -412,3 +412,56 @@ def test_nerf_bwd_kernel_full_width_row_counts(card, n, has_dpt):
     for a, b, w in zip(got, again, want):
         assert a.shape == w.shape and torch.equal(a, b)
         _rel_l2_close(a, w)
+
+
+def test_sdf_kernel_mesh_grid_matches_plain(card):
+    """The mesh grid through K1 at 65^3: one full 64^3 chunk and a ragged one
+    of 12,481 rows, against the same grid through the plain version."""
+    from vdnerf_tpu_torch.mesh.extract import grid_values
+
+    rng = np.random.default_rng(23)
+    ws, bs = _sdf_full_width(rng, card)
+    before = build.LAUNCHES["sdf_fwd"]
+    got = grid_values([-1.01] * 3, [1.01] * 3, 65,
+                      lambda p: sdf_fwd.sdf_value(p, ws, bs, (4,), 6, 1.0), device=card)
+    assert build.LAUNCHES["sdf_fwd"] == before + 2
+    want = grid_values([-1.01] * 3, [1.01] * 3, 65,
+                       lambda p: sdf_fwd.sdf_value_plain(p, ws, bs, (4,), 6, 1.0), device=card)
+    assert got.shape == (65, 65, 65) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_masked_render_launches_no_background_kernel(card):
+    """The masked regime's renderer (no outside samples, a resampled core at
+    frac 0.25) at small widths, forward and backward on the card: K1-K3 run,
+    K4/K5 never; colour within 5e-3 of the plain versions on the CPU."""
+    from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
+    from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
+    from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig, render
+
+    nets = NeuSNetworks(
+        sdf=SDFConfig(d_out=65, d_hidden=64, n_layers=4, skip_in=(2,)),
+        color=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4),
+        nerf=NeRFConfig(D=4, W=64, skips=(2,), multires=6, multires_view=2),
+        renderer=RendererConfig(n_samples=16, n_importance=16, n_outside=0, perturb=0.0,
+                                n_render_samples=16, resample_uniform_frac=0.25))
+    rng = np.random.default_rng(31)
+    o = rng.normal(size=(256, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.6, 0.6, size=(256, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    colors, launches = {}, {}
+    for dev in (card, torch.device("cpu")):
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
+        build.reset_launches()
+        out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd),
+                     background_rgb=torch.ones(1, 3, device=dev))
+        out["color_fine"].square().sum().backward()
+        colors[dev.type], launches[dev.type] = out["color_fine"].detach().cpu(), dict(build.LAUNCHES)
+    # the ladder's first query, its 3 rounds, and the 4th the weight estimate reads
+    assert launches["cuda"]["sdf_fwd"] == 5
+    assert launches["cuda"]["render_fwd"] == launches["cuda"]["render_bwd"] == 1
+    assert launches["cuda"]["nerf_fwd"] == launches["cuda"]["nerf_bwd"] == 0
+    assert not any(launches["cpu"].values())
+    torch.testing.assert_close(colors["cuda"], colors["cpu"], atol=5e-3, rtol=0)

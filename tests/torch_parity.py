@@ -27,8 +27,9 @@ NERF = jf.NeRFConfig(D=4, W=64, skips=(2,), multires=6, multires_view=2)
 
 
 def jax_nets(**renderer) -> jr.NeuSNetworks:
-    rcfg = jr.RendererConfig(n_samples=16, n_importance=16, n_outside=8,
-                             up_sample_steps=4, **renderer)
+    """16 + 16 ladder samples and 8 outside; ``renderer`` overrides any key."""
+    rcfg = jr.RendererConfig(**{"n_samples": 16, "n_importance": 16, "n_outside": 8,
+                                "up_sample_steps": 4, **renderer})
     return jr.NeuSNetworks(sdf=SDF, color=COLOR, nerf=NERF, renderer=rcfg)
 
 

@@ -2,12 +2,15 @@
 
 Usage:
     python -m vdnerf_tpu_torch.cli --conf confs/womsk_white_tpu.conf \
-        --case <case> --mode train [-c]         # or valimg_<iter>, getfeats_<iter>
+        --case <case> --mode train [-c]
+    # or valimg_<iter>, getfeats_<iter>, validate_mesh_<iter>, validate_mesh -c
 
 Ported modes: ``train`` (``-c`` resumes from the latest checkpoint),
-``valimg_<iter>`` and ``getfeats_<iter>``. Every other mode exits with a
-message. ``--gpu`` picks the CUDA device; the CLI runs on the card unless a
-caller of :func:`main` passes ``device="cpu"``.
+``valimg_<iter>``, ``getfeats_<iter>`` and ``validate_mesh_<iter>`` (or
+``validate_mesh`` with ``-c``, on the latest checkpoint): a 512^3 world-space
+mesh at ``--mcube_threshold``. Every other mode exits with a message.
+``--gpu`` picks the CUDA device; the CLI runs on the card unless a caller of
+:func:`main` passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-PORTED_MODES = ("valimg", "getfeats")  # with an _<iter> suffix, beside train
+PORTED_MODES = ("valimg", "getfeats", "validate_mesh")  # with an _<iter> suffix, beside train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,18 +37,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device=None) -> dict | None:
     """Run one mode; returns the validation summary (None after a training
-    run stopped by SIGTERM)."""
+    run stopped by SIGTERM), or for ``validate_mesh`` the mesh's path,
+    counts and seconds by part."""
     logging.basicConfig(
         level=logging.INFO,
         format="[%(filename)s:%(lineno)s - %(funcName)20s() ] %(message)s",
     )
     args = build_parser().parse_args(argv)
-    name, _, suffix = args.mode.partition("_")
-    if args.mode != "train" and (name not in PORTED_MODES or not suffix.isdigit()):
+    name, _, suffix = args.mode.rpartition("_")
+    if not suffix.isdigit():
+        name, suffix = args.mode, ""
+    if args.mode != "train" and not (name in PORTED_MODES and (suffix or name == "validate_mesh")):
         raise SystemExit(
             f"mode {args.mode!r} is not yet ported to vdnerf_tpu_torch "
-            "(ported: train, valimg_<iter>, getfeats_<iter>)"
+            "(ported: train, valimg_<iter>, getfeats_<iter>, validate_mesh[_<iter>])"
         )
+    if name == "validate_mesh" and not suffix and not args.is_continue:
+        # as the JAX CLI: the bare mode needs the resumed latest checkpoint
+        raise SystemExit("validate_mesh needs an iteration suffix or --is_continue")
 
     from vdnerf_tpu_torch.runner import Runner
 
@@ -56,7 +65,11 @@ def main(argv=None, device=None) -> dict | None:
     )
     if args.mode == "train":
         return runner.train()
-    runner.load_checkpoint_iter(int(suffix))
+    if suffix:
+        runner.load_checkpoint_iter(int(suffix))
+    if name == "validate_mesh":
+        return runner.validate_mesh(world_space=True, resolution=512,
+                                    threshold=args.mcube_threshold)
     if name == "getfeats":
         return runner.val_all_imgs(
             resolution_level=1, gen_depth_for_finetune=True, both_mask=False

@@ -11,7 +11,12 @@ Counterpart of ``vdnerf_tpu/runner.py`` for fixed cameras:
   resolution level 2;
 - ``getfeats_<it>``: per-image argmax-weight depth at full resolution,
   written to ``<data_dir>/<img_dir>/depth_from_sdf/sdf_<stem>.npy`` (stage 2
-  of the VDN cycle).
+  of the VDN cycle);
+- ``validate_mesh``: the -SDF iso-surface over the object bbox (grid through
+  K1), in world space through ``scale_mats_np[0]`` on request, written to
+  ``meshes/<iter:08d>.ply``; training extracts one at every
+  ``val_mesh_freq``-th step (128^3, 256^3 at every 50,000th, 512^3 in world
+  space at every 150,000th).
 
 Checkpoints load from the JAX package's ``ckpt_<it>.npz`` or a reference
 ``ckpt_<it>.pth``; training writes the latter. The runner runs on
@@ -24,6 +29,7 @@ import dataclasses
 import logging
 import os
 import signal
+import time
 
 import cv2 as cv
 import numpy as np
@@ -41,6 +47,7 @@ from vdnerf_tpu_torch.io import (
     record_run,
     save_training_checkpoint,
 )
+from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.step import Trainer
@@ -49,6 +56,17 @@ from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
 from vdnerf_tpu_torch.utils.hocon import load_conf
 
 log = logging.getLogger(__name__)
+
+
+def mesh_resolution(step: int) -> tuple[int, bool]:
+    """The training loop's mesh at ``step`` -> (resolution, world_space):
+    128^3, 256^3 at every 50,000th step, 512^3 in world space at every
+    150,000th (the JAX runner's cadence)."""
+    if step % 150000 == 0:
+        return 512, True
+    if step % 50000 == 0:
+        return 256, False
+    return 128, False
 
 
 class Runner:
@@ -70,13 +88,6 @@ class Runner:
         self.tcfg = TrainConfig.from_conf(self.conf)
         if self.tcfg.learnable:
             raise NotImplementedError("learned cameras are not ported yet")
-        if mode == "train" and self.tcfg.val_mesh_freq <= self.tcfg.end_iter:
-            raise NotImplementedError(
-                f"train.val_mesh_freq = {self.tcfg.val_mesh_freq} would extract a mesh "
-                f"before end_iter = {self.tcfg.end_iter}, and mesh extraction is not "
-                "ported yet (ROADMAP.md queue 1, item 2); set train.val_mesh_freq "
-                "above train.end_iter"
-            )
         self.base_exp_dir = self.conf.get_string("general.base_exp_dir")
         if img_dir != "image":
             self.base_exp_dir += "_" + img_dir.split("image")[-1]
@@ -86,7 +97,9 @@ class Runner:
         self.nets = build_networks(self.conf, self.tcfg.extract_depth)
         self.model = build_model(self.conf, self.nets, seed).to(self.device)
         self.iter_step = 0
-        self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis)
+        self.store = None
+        if "mesh" not in mode:
+            self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis)
         self.renderer = ImageRenderer(self.nets, self.tcfg, self.scene_data.H, self.scene_data.W)
         self.rng = np.random.default_rng(seed)
 
@@ -99,12 +112,12 @@ class Runner:
             }
             generator = torch.Generator(device=self.device).manual_seed(seed)
             self.trainer = Trainer(self.tcfg, self.model, cams, generator)
-            latest = latest_checkpoint(self.base_exp_dir) if is_continue else None
-            if latest is not None:
-                log.info("resuming from %s", latest)
-                self.iter_step = load_reference_checkpoint(latest, self.model,
-                                                           self.trainer.optimizer)
             record_run(self.base_exp_dir, self.conf.get("general.recording", []), conf_path)
+        latest = latest_checkpoint(self.base_exp_dir) if is_continue else None
+        if latest is not None:
+            log.info("resuming from %s", latest)
+            self.iter_step = load_reference_checkpoint(
+                latest, self.model, self.trainer.optimizer if self.trainer else None)
 
     # -- checkpoints ----------------------------------------------------------
 
@@ -185,6 +198,9 @@ class Runner:
                     self.save_checkpoint()
                 if step % tcfg.val_freq == 0:
                     self.validate_image()
+                if step % tcfg.val_mesh_freq == 0:
+                    res, world = mesh_resolution(step)
+                    self.validate_mesh(world_space=world, resolution=res)
         finally:
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
@@ -263,3 +279,33 @@ class Runner:
         log.info("val_all_imgs: %s", summary)
         print(summary)
         return summary
+
+    # -- mesh -----------------------------------------------------------------
+
+    def validate_mesh(self, world_space: bool = False, resolution: int = 256,
+                      threshold: float = 0.0) -> dict:
+        """-SDF iso-surface at ``threshold`` over the object bbox ->
+        ``meshes/<iter:08d>.ply``; returns its path, vertex and triangle
+        counts and the seconds of each part (the grid through K1
+        synchronised, the copy to the host, marching, the PLY write)."""
+        sdf_net = self.model.sdf_network_fine
+
+        def neg_sdf(pts):
+            return -sdf_net.sdf_value(pts)[:, 0]
+
+        seconds: dict = {}
+        verts, tris = extract_geometry(
+            self.scene_data.object_bbox_min, self.scene_data.object_bbox_max,
+            resolution, threshold, neg_sdf, device=self.device, timings=seconds,
+        )
+        if world_space and len(verts):
+            sm = self.scene_data.scale_mats_np[0]
+            verts = verts * sm[0, 0] + sm[:3, 3][None]
+        path = os.path.join(self.base_exp_dir, "meshes", f"{self.iter_step:08d}.ply")
+        t0 = time.perf_counter()
+        save_ply(path, verts, tris)
+        seconds["ply"] = time.perf_counter() - t0
+        log.info("mesh %s: %d vertices, %d triangles at %d^3 (%s)", path, len(verts), len(tris),
+                 resolution, {k: round(v, 3) for k, v in seconds.items()})
+        return {"path": path, "resolution": resolution, "world_space": world_space,
+                "n_verts": int(len(verts)), "n_tris": int(len(tris)), "seconds": seconds}

@@ -10,8 +10,9 @@ chunk of rays aimed at the unit sphere the way ``valimg``/``getfeats`` do
 (``perturb_overwrite=0``, white background). With ``--train`` it runs the
 training step of ``train/step.py`` (render with the conf's perturbation,
 loss, backward, Adam) on a batch of ``train.batch_size`` pixels of a camera
-3 units from the sphere, once on the faithful 128-sample core and once on the
-conf's resampled core. For each it reports:
+3 units from the sphere, once on the faithful core (128 samples in the
+shipped confs) and once on the conf's resampled core (96 in
+``womsk_white_tpu``, 64 in ``wmask_tpu``). For each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
@@ -120,10 +121,11 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
         "color": rng.uniform(0, 1, size=(tcfg.batch_size, 3)).astype(np.float32),
         "mask": np.ones((tcfg.batch_size, 1), np.float32),
     }
-    faithful = dataclasses.replace(
-        nets, renderer=dataclasses.replace(nets.renderer, n_render_samples=0))
+    rcfg = nets.renderer
+    faithful = dataclasses.replace(nets, renderer=dataclasses.replace(rcfg, n_render_samples=0))
     out = {}
-    for name, core in (("core_128", faithful), ("core_96", nets)):
+    for name, core in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
+                       (f"core_{rcfg.n_render_samples}", nets)):
         model = build_model(conf, nets, seed=0).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
         step = iter(range(10**9))
