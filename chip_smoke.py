@@ -15,11 +15,13 @@
    also gives ``kernel_ms``, its launches alone on weights packed once. K2 is
    held at a chunk's rows, and K2 and K3 at a step's rows on each of the three
    core widths (128 samples; 96 resampled at womsk_white_tpu, 64 at
-   wmask_tpu); K2 with the colour head's 3 outputs and with the depth head's
-   96 (the same net). K4 is held and timed at a chunk's rows and at a
-   training step's. K1 also holds the plain version's division by 100 on the
+   wmask_tpu); K2 and K3 with the colour head's 3 outputs and with the depth
+   head's 96 (the same net). K4 is held and timed at a chunk's rows and at a
+   training step's, K5 at a step's rows without and with the dpt head. K1
+   also holds the plain version's division by 100 on the
    card against the kernel's multiply by 0.01f. Then the dW contraction that
-   K3 and K5 share, alone on the scratch their launches left: held against
+   K3 and K5 share, alone on the scratch their launches left (K3's colour and
+   depth heads at 65,536 rows, K5 without dpt): held against
    f32 matmuls of the same bf16 operands, two launches bit-identical, timed
    beside its plain version. Every kernel is timed beside its library
    yardstick, which the port never calls: its products alone as
@@ -55,7 +57,18 @@
    samples, a 64-of-128 resampled core at frac 0.25, the mask BCE): K1-K3
    must run and K4/K5 never; the background NeRF must not move; the mask
    loss is logged finite.
-10. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+10. wdepth phase: seeded 96-channel features at half the image size per view
+    (``image/wavelet_feats/0/<stem>.npy``), then phase 6 on
+    ``confs/womsk_white_wdepth_tpu.conf`` at full width (the depth head
+    4x256 -> 96, the NeRF's dpt head) with ``depth_start_iter`` 10: K3 must
+    run once a step for the colour head and once more from step 11 on, K5
+    once a step; the depth loss is logged finite and the depth head moves.
+    Its timed steps (after depth_start_iter) must launch K2 and K3 twice and
+    K4/K5 once each; the gradient check runs past the distillation ramp
+    (ramp > 0.99) and holds the depth and dpt heads' gradients too;
+    ``getfeats_40`` from the run's checkpoint launches K2 twice per K4
+    launch and writes finite full-resolution depths.
+11. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -380,82 +393,102 @@ def kernel_phase(device) -> dict:
         })
     rec["nerf_fwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
 
-    # K3: the colour head's backward at each of a training step's core rows. A
+    # K3: the colour head's backward at each of a training step's core rows,
+    # then the wdepth recipe's depth head's (d_out 96) at the same rows. A
     # backward recomputes the forward, then runs dx and dW products: three
     # times the forward's operations. Bytes: the inputs and g read once, the
     # input cotangents written once, bf16 weights read, f32 dW/db written.
     def flat(grads):
         return [t for x in grads for t in (x if isinstance(x, list) else [x])]
 
-    flops_row = 3 * 2 * sum(k * n for k, n in r_dims)
-    wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4 for w, b in zip(ws, bs))
     errs, shapes, sc3 = [], [], {}
-    for rows in CORE_ROWS:
-        inp = r_inputs(rows + RAGGED)
-        g = torch.randn(rows + RAGGED, 3, generator=gen).to(device)
-        errs.append(_compare_bwd(f"render_bwd(rows={rows + RAGGED})", *(flat(x) for x in _bwd_runs(
-            fused_mlp._render_bwd_launch, fused_mlp.render_net_bwd_plain,
-            (plan, *inp, ws, bs, g)))))
-        inp, g = [x[:rows].contiguous() for x in inp], g[:rows].contiguous()
-        b_ms, b_by = bound(rows, flops_row, (3 + 3 + 3 + 256 + 3 + 3 + 3 + 3 + 256) * 4, wbytes,
-                           PEAK_BF16_S)
-        # the launches alone (tile kernel, then the contraction), on weights
-        # packed and scratch allocated once
-        W, B, meta = fused_mlp._render_meta(plan, inp[3], ws, bs, device)
-        sc3[rows] = fused_mlp._BwdScratch(rows, meta, device)
-        outs = [torch.empty_like(x) for x in inp]
+    for d_out, hw_, hb_ in ((3, ws, bs), (96, ws96, bs96)):
+        dims = r_dims[:4] + [(256, d_out)]
+        flops_row = 3 * 2 * sum(k * n for k, n in dims)
+        wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4
+                     for w, b in zip(hw_, hb_))
+        for rows in CORE_ROWS:
+            inp = r_inputs(rows + RAGGED)
+            g = torch.randn(rows + RAGGED, d_out, generator=gen).to(device)
+            errs.append(_compare_bwd(
+                f"render_bwd(rows={rows + RAGGED}, d_out={d_out})", *(flat(x) for x in _bwd_runs(
+                    fused_mlp._render_bwd_launch, fused_mlp.render_net_bwd_plain,
+                    (plan, *inp, hw_, hb_, g)))))
+            inp, g = [x[:rows].contiguous() for x in inp], g[:rows].contiguous()
+            b_ms, b_by = bound(rows, flops_row, (3 * 3 + 256 + d_out + 3 * 3 + 256) * 4, wbytes,
+                               PEAK_BF16_S)
+            # the launches alone (tile kernel, then the contraction), on weights
+            # packed and scratch allocated once
+            W, B, meta = fused_mlp._render_meta(plan, inp[3], hw_, hb_, device)
+            sc = sc3[(rows, d_out)] = fused_mlp._BwdScratch(rows, meta, device)
+            outs = [torch.empty_like(x) for x in inp]
 
-        def k3_launches():
-            fused_mlp._render_bwd_tile((*inp, g), outs, W, B, meta, sc3[rows])
-            sc3[rows].contract()
+            def k3_launches():
+                fused_mlp._render_bwd_tile((*inp, g), outs, W, B, meta, sc)
+                sc.contract()
+
+            shapes.append({
+                "rows": rows, "d_out": d_out,
+                "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, hw_, hb_, g)),
+                "kernel_ms": time_ms(k3_launches),
+                "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, hw_, hb_,
+                                                                           g)),
+                "library_ms": _time_products(dims, rows, torch.bfloat16, device, backward=True),
+                "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
+                "bound_ms": b_ms, "bound_by": b_by, "flops_row": flops_row,
+            })
+    rec["render_bwd"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
+                         "shapes": shapes}
+
+    # K5: the background NeRF's backward at one training step's outside rows,
+    # without the dpt head (womsk_white_tpu) and with it (the wdepth recipe)
+    errs, shapes = [], []
+    for has_dpt in (False, True):
+        nplan = (10, 4, (4,), 8, has_dpt)
+        heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
+        dims = t_dims + (h_dims if has_dpt else h_dims[:4])
+        pts4, views = n_inputs(K5_ROWS + RAGGED)
+        gs = [torch.randn(K5_ROWS + RAGGED, k, generator=gen).to(device)
+              for k in ((1, 3, 96) if has_dpt else (1, 3))]
+        errs.append(_compare_bwd(f"nerf_bwd(has_dpt={has_dpt})", *(flat(x) for x in _bwd_runs(
+            fused_mlp._nerf_bwd_launch, fused_mlp.nerf_bwd_plain,
+            (nplan, pts4, views, tw, tb, *heads, *gs)))))
+        pts4, views = (x[:K5_ROWS].contiguous() for x in (pts4, views))
+        gs = [x[:K5_ROWS].contiguous() for x in gs]
+        nargs = (nplan, pts4, views, tw, tb, *heads)
+        flops_row = 3 * 2 * sum(k * n for k, n in dims)
+        wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + heads[0], tb + heads[1]))
+        b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + (96 if has_dpt else 0) + 4 + 3) * 4,
+                           wbytes, PEAK_BF16_S)
+        k5_packed = fused_mlp._nerf_pack(nplan, 4, tw, tb, *heads, device)
+        sc = fused_mlp._BwdScratch(K5_ROWS, k5_packed[2], device)
+        if not has_dpt:
+            sc5 = sc  # the contraction below is held on womsk_white_tpu's K5 scratch
+        outs = [torch.empty_like(pts4), torch.empty_like(views)]
+        # without the dpt head the kernel never reads the g_dpt slot
+        tile_ins = (pts4, views, *gs) if has_dpt else (pts4, views, *gs, gs[1])
+
+        def k5_launches():
+            fused_mlp._nerf_bwd_tile(tile_ins, outs, k5_packed, sc)
+            sc.contract()
 
         shapes.append({
-            "rows": rows,
-            "ms": time_ms(lambda: fused_mlp._render_bwd_launch(plan, *inp, ws, bs, g)),
-            "kernel_ms": time_ms(k3_launches),
-            "plain_ms": time_ms(lambda: fused_mlp.render_net_bwd_plain(plan, *inp, ws, bs, g)),
-            "library_ms": _time_products(r_dims, rows, torch.bfloat16, device, backward=True),
+            "rows": K5_ROWS, "has_dpt": has_dpt,
+            "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
+            "kernel_ms": time_ms(k5_launches),
+            "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
+            "library_ms": _time_products(dims, K5_ROWS, torch.bfloat16, device, backward=True),
             "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "flops_row": flops_row,
         })
-    rec["render_bwd"] = {"max_abs_err": max(errs), "flops_row": flops_row, "shapes": shapes}
-
-    # K5: the background NeRF's backward at one training step's outside rows
-    nplan = (10, 4, (4,), 8, False)
-    pts4, views = n_inputs(K5_ROWS + RAGGED)
-    gs = [torch.randn(K5_ROWS + RAGGED, k, generator=gen).to(device) for k in (1, 3)]
-    nargs = (nplan, pts4, views, tw, tb, hw[:4], hb[:4])
-    err = _compare_bwd("nerf_bwd", *(flat(x) for x in _bwd_runs(
-        fused_mlp._nerf_bwd_launch, fused_mlp.nerf_bwd_plain, (*nargs, *gs))))
-    pts4, views = (x[:K5_ROWS].contiguous() for x in (pts4, views))
-    gs = [x[:K5_ROWS].contiguous() for x in gs]
-    nargs = (nplan, pts4, views, tw, tb, hw[:4], hb[:4])
-    flops_row = 3 * 2 * (sum(k * n for k, n in t_dims) + sum(k * n for k, n in h_dims[:4]))
-    wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + hw[:4], tb + hb[:4]))
-    b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + 4 + 3) * 4, wbytes, PEAK_BF16_S)
-    sc5 = fused_mlp._BwdScratch(K5_ROWS, packed[2], device)
-    outs = [torch.empty_like(pts4), torch.empty_like(views)]
-
-    def k5_launches():
-        # without the dpt head the kernel never reads the g_dpt slot
-        fused_mlp._nerf_bwd_tile((pts4, views, *gs, gs[1]), outs, packed, sc5)
-        sc5.contract()
-
-    rec["nerf_bwd"] = {"max_abs_err": err, "flops_row": flops_row, "shapes": [{
-        "rows": K5_ROWS,
-        "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
-        "kernel_ms": time_ms(k5_launches),
-        "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
-        "library_ms": _time_products(t_dims + h_dims[:4], K5_ROWS, torch.bfloat16, device,
-                                     backward=True),
-        "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
-        "bound_ms": b_ms, "bound_by": b_by,
-    }]}
+    rec["nerf_bwd"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
+                       "shapes": shapes}
 
     # the dW contraction alone (dw_kernel + the two fixed-order reductions), on
-    # the scratch the timed K3 and K5 launches left
+    # the scratch the timed K3 (colour and depth head) and K5 launches left
     errs, shapes = [], []
-    for rows, sc in ((CORE_ROWS[0], sc3[CORE_ROWS[0]]), (K5_ROWS, sc5)):
+    for rows, sc in ((CORE_ROWS[0], sc3[(CORE_ROWS[0], 3)]), (CORE_ROWS[0], sc3[(CORE_ROWS[0], 96)]),
+                     (K5_ROWS, sc5)):
         errs.append(_check_contraction(sc, rows))
         shapes.append(_time_contraction(sc, rows))
     rec["dw_contract"] = {"max_abs_err": max(errs), "flops_row": shapes[0]["flops_row"],
@@ -721,11 +754,32 @@ TRAIN_KEYS = {"end_iter": 40, "resample_from": 20, "save_freq": 20, "val_freq": 
 TIMED_STEPS = 5
 # the background NeRF's kernels; the masked recipe (n_outside = 0) runs none
 BACKGROUND = ("nerf_fwd", "nerf_bwd")
+# the wdepth recipe, cut in depth only: distillation from step 10 (not 5,000),
+# so 29 of the 40 steps train the depth head
+WDEPTH = "womsk_white_wdepth_tpu"
+WDEPTH_KEYS = {**TRAIN_KEYS, "depth_start_iter": 10}
+# the recipe's teacher features: 96 channels per view at half the image size
+# (the store upsamples them), from the seed
+FEAT_C, FEAT_SEED = 96, 0
 
 
-def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
-    """--mode train of confs/<name>.conf through the port's CLI on the card,
-    then valimg_40 from its last checkpoint."""
+def write_features(data_dir: str, depth_dir: str) -> None:
+    """One [96, 150, 200] f32 .npy of seeded features per view under
+    <data_dir>/image/<depth_dir>, as the wdepth conf reads them."""
+    import numpy as np
+
+    out = os.path.join(data_dir, "image", depth_dir)
+    os.makedirs(out, exist_ok=True)
+    rng = np.random.default_rng(FEAT_SEED)
+    for i in range(SCENE_VIEWS):
+        f = rng.normal(size=(FEAT_C, SCENE_H // 2, SCENE_W // 2)).astype(np.float32)
+        np.save(os.path.join(out, f"{i:03d}.npy"), f)
+
+
+def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS) -> dict:
+    """--mode train of confs/<name>.conf (with the ``keys`` of its train
+    block rewritten) through the port's CLI on the card, then valimg_40 from
+    its last checkpoint."""
     import torch
 
     from vdnerf_tpu_torch import cli
@@ -736,11 +790,12 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
     from vdnerf_tpu_torch.utils.hocon import load_conf
 
     case, tag = "sphere", f"[train {name}]"
-    conf_path = write_conf(tmp, "exp_train", TRAIN_KEYS, name)
+    conf_path = write_conf(tmp, "exp_train", keys, name)
     conf = load_conf(conf_path, case)
     exp_dir = conf.get_string("general.base_exp_dir")
     base = ["--conf", conf_path, "--case", case]
     masked = conf.get_int("model.neus_renderer.n_outside") == 0
+    wdepth = conf.get_bool("train.extract_depth")
 
     # the cadence's meshes, each with the launches it made
     meshes, validate_mesh = [], Runner.validate_mesh
@@ -770,6 +825,14 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
         raise SystemExit(f"the training path launched no {missing}")
     if masked and any(launches[k] for k in BACKGROUND):
         raise SystemExit(f"the masked path launched the background NeRF: {launches}")
+    if wdepth:
+        # K3 once a step for the colour head and once for the depth head from
+        # the step past depth_start_iter on (the Trainer's 0-based step), K5
+        # once a step with the dpt head
+        n, start = keys["end_iter"], keys["depth_start_iter"]
+        want = {"render_bwd": n + (n - start - 1), "nerf_bwd": n}
+        if any(launches[k] != v for k, v in want.items()):
+            raise SystemExit(f"{tag} backward launches {launches}, expected {want}")
 
     # 128^3 = 8 chunks of 64^3 through K1 per mesh, and nothing else
     for m in meshes:
@@ -789,10 +852,15 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
         recs = [json.loads(line) for line in f]
     losses = {r["step"]: r["loss"] for r in recs}
     mask_losses = {r["step"]: r["mask_loss"] for r in recs}
-    print(f"{tag} logged loss by step: {losses}; mask_loss: {mask_losses}")
+    depth_losses = {r["step"]: r["depth_loss"] for r in recs if "depth_loss" in r}
+    print(f"{tag} logged loss by step: {losses}; mask_loss: {mask_losses}"
+          + (f"; depth_loss: {depth_losses}" if wdepth else ""))
     if sorted(losses) != [1, 10, 20, 30, 40] or not all(
-            map(math.isfinite, [*losses.values(), *mask_losses.values()])):
+            map(math.isfinite, [*losses.values(), *mask_losses.values(),
+                                *depth_losses.values()])):
         raise SystemExit(f"logged losses: {losses}, mask losses {mask_losses}")
+    if wdepth and sorted(depth_losses) != sorted(losses):
+        raise SystemExit(f"{tag} the run logged no depth loss: {depth_losses}")
     if masked and not all(v > 0 for v in mask_losses.values()):
         raise SystemExit(f"the masked run logged no mask BCE: {mask_losses}")
     ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
@@ -800,11 +868,11 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
         raise SystemExit(f"checkpoints written: {ckpts}")
     trained = torch.load(os.path.join(exp_dir, "checkpoints", "ckpt_000040.pth"),
                          map_location="cpu", weights_only=True)
-    fresh = build_model(conf, build_networks(conf), seed=0)
+    fresh = build_model(conf, build_networks(conf, wdepth), seed=0)
     moved = {net: max(float((trained[net][k] - v).abs().max())
                       for k, v in getattr(fresh, net).state_dict().items())
              for net in ("nerf", "sdf_network_fine", "variance_network_fine",
-                         "color_network_fine")}
+                         "color_network_fine") + (("depth_network_fine",) if wdepth else ())}
     print(f"{tag} largest parameter change per network after 40 steps: {moved}")
     # with no outside samples the background NeRF gets a zero gradient, and
     # Adam leaves it as it was
@@ -820,20 +888,23 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu") -> dict:
     if set(served) != set(summary) or not diff <= 1e-6:
         raise SystemExit("valimg_40 disagrees with the training run's closing validation")
     return {"launches": launches, "summary": summary, "wall_s": wall, "losses": losses,
-            "mask_losses": mask_losses, "meshes": meshes, "conf": conf,
-            "conf_path": conf_path, "case": case}
+            "mask_losses": mask_losses, "depth_losses": depth_losses, "meshes": meshes,
+            "conf": conf, "conf_path": conf_path, "case": case}
 
 
 def time_train_steps(conf_path: str) -> dict:
     """Steady-state ms/step and rays/s per core width (the faithful core, and
     the resampled one after resample_from): TIMED_STEPS steps between
     torch.cuda.synchronize() calls after 2 warm-up steps, without the loop's
-    validations and meshes."""
+    validations and meshes; on a wdepth conf the steps come after
+    depth_start_iter, so they train the depth head. Also each kernel's
+    launches per timed step."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from vdnerf_tpu_torch.ops.kernels import build
     from vdnerf_tpu_torch.runner import Runner
 
     runner = Runner(conf_path, case="sphere", mode="train")
@@ -844,7 +915,7 @@ def time_train_steps(conf_path: str) -> dict:
     out = {}
     for name, nets in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
                        (f"core_{rcfg.n_render_samples}", runner.nets)):
-        step = 0
+        step = runner.tcfg.depth_start_iter + 1 if runner.tcfg.extract_depth else 0
 
         def run(n):
             nonlocal step
@@ -856,14 +927,17 @@ def time_train_steps(conf_path: str) -> dict:
 
         run(2)
         torch.cuda.synchronize()
+        build.reset_launches()
         t0 = time.perf_counter()
         run(TIMED_STEPS)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-        out[name] = {"ms_per_step": ms, "rays_per_s": runner.tcfg.batch_size * 1e3 / ms}
+        per_step = {k: v / TIMED_STEPS for k, v in build.LAUNCHES.items()}
+        out[name] = {"ms_per_step": ms, "rays_per_s": runner.tcfg.batch_size * 1e3 / ms,
+                     "launches_per_step": per_step}
         print(f"[train {os.path.basename(conf_path)}] {name}: {ms:.2f} ms/step, "
               f"{out[name]['rays_per_s']:.1f} rays/s (batch {runner.tcfg.batch_size}, "
-              f"{TIMED_STEPS} steps after 2 warm-up)")
+              f"{TIMED_STEPS} steps after 2 warm-up); launches per step {per_step}")
     return out
 
 
@@ -964,10 +1038,13 @@ def mesh_phase(train: dict, device) -> dict:
     return res
 
 
-def gradient_check(conf, device, name: str = "womsk_white_tpu") -> dict:
+def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000) -> dict:
     """One step's loss and gradients at full width on 128 rays (perturb 0):
     the kernels on the card against the plain versions on the CPU. Loss within
     1e-3 relative; each parameter's gradient within 2^-6 relative L2 error.
+    On a wdepth conf ``step`` lies past depth_start_iter + depth_ramp_iters, so
+    the distillation ramp is ~1 and the depth head's and the NeRF's dpt
+    head's gradients are held too.
     Both sides round the fused MLPs' operands to bf16, but in another
     summation order, and a relu kink or a bf16 rounding boundary taken the
     other way moves single rows by a few percent (see the kernel phase); the
@@ -983,30 +1060,82 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu") -> dict:
     from vdnerf_tpu_torch.train.config import TrainConfig
     from vdnerf_tpu_torch.train.step import Trainer
 
-    nets = build_networks(conf)
-    nets = dataclasses.replace(nets, renderer=dataclasses.replace(nets.renderer, perturb=0.0))
     tcfg = TrainConfig.from_conf(conf)
+    nets = build_networks(conf, tcfg.extract_depth)
+    nets = dataclasses.replace(nets, renderer=dataclasses.replace(nets.renderer, perturb=0.0))
     scene = SceneData(conf["dataset"])
-    batch = RayStore(scene.images_lis, scene.masks_lis).sample_pixels(
-        2, 128, np.random.default_rng(5))
+    batch = RayStore(scene.images_lis, scene.masks_lis, scene.depth_lis,
+                     with_depth=tcfg.extract_depth).sample_pixels(2, 128, np.random.default_rng(5))
     res = {}
     for key, dev in (("card", device), ("plain", torch.device("cpu"))):
         model = build_model(conf, nets, seed=0).to(dev)
         cams = {"pose_all": torch.as_tensor(scene.pose_all, device=dev),
                 "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=dev)}
-        metrics = Trainer(tcfg, model, cams, None).gradients(nets, batch, 1000)
+        metrics = Trainer(tcfg, model, cams, None).gradients(nets, batch, step)
         res[key] = (float(metrics["loss"]),
                     {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
     loss_err = abs(res["card"][0] - res["plain"][0]) / abs(res["plain"][0])
     rel = {n: float((g - res["plain"][1][n]).norm() / res["plain"][1][n].norm().clamp_min(1e-30))
            for n, g in res["card"][1].items()}
     worst = max(rel, key=rel.get)
-    print(f"[grad {name}] 128-ray full-width step, card vs plain on the CPU: loss {res['card'][0]:.6f} "
-          f"vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol 1e-3); worst gradient rel L2 "
-          f"error {rel[worst]:.3e} ({worst}, tol {2.0**-6:.3e}) over {len(rel)} tensors")
+    print(f"[grad {name}] 128-ray full-width step {step}, card vs plain on the CPU: loss "
+          f"{res['card'][0]:.6f} vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol 1e-3); "
+          f"worst gradient rel L2 error {rel[worst]:.3e} ({worst}, tol {2.0**-6:.3e}) over "
+          f"{len(rel)} tensors")
     if not loss_err <= 1e-3 or not rel[worst] <= 2.0**-6:
         raise SystemExit("the training step through the kernels disagrees with the plain step")
-    return {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst}
+    out = {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst}
+    if tcfg.extract_depth:
+        from vdnerf_tpu_torch.train.step import depth_ramp_weight
+
+        ramp = depth_ramp_weight(step - tcfg.depth_start_iter - 1, tcfg.depth_ramp_iters)
+        heads = {n: v for n, v in rel.items()
+                 if n.startswith("depth_network_fine.") or n.startswith("nerf.dpt_linear.")}
+        live = all(float(res["plain"][1][n].abs().max()) > 0 for n in heads)
+        print(f"[grad {name}] distillation ramp {ramp:.6f}; depth head and dpt head: worst "
+              f"rel L2 {max(heads.values()):.3e} over {len(heads)} tensors, all nonzero: {live}")
+        if not ramp > 0.99 or not live or not {"nerf.dpt_linear.weight",
+                                                "depth_network_fine.lin4.weight_v"} <= set(heads):
+            raise SystemExit("the wdepth gradient check did not reach the depth heads")
+        out["depth_heads_worst_rel_l2"] = max(heads.values())
+    return out
+
+
+def serve_wdepth(train: dict) -> dict:
+    """getfeats_40 through the port's CLI from the wdepth run's checkpoint,
+    with the launch counts set to 0 just before and read just after: each
+    chunk runs K2 twice (the depth head, then the colour head) and K4 once
+    with its dpt head, and no backward."""
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.ops.kernels import build
+
+    argv = ["--conf", train["conf_path"], "--case", train["case"], "--mode", "getfeats_40"]
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    rays = SCENE_VIEWS * SCENE_H * SCENE_W
+    print(f"[serve {WDEPTH}] getfeats_40: {summary} rays={rays} wall_s={wall:.3f} "
+          f"rays/s={rays / wall:.1f}; launches {launches}")
+    if not all(math.isfinite(v) for v in summary.values()):
+        raise SystemExit(f"getfeats_40: non-finite summary {summary}")
+    if launches["nerf_fwd"] == 0 or launches["sdf_fwd"] == 0 \
+            or launches["render_fwd"] != 2 * launches["nerf_fwd"] \
+            or launches["render_bwd"] or launches["nerf_bwd"]:
+        raise SystemExit(f"getfeats_40 on the wdepth checkpoint launched {launches}")
+    depth_dir = os.path.join(train["conf"].get_string("dataset.data_dir"), "image",
+                             "depth_from_sdf")
+    for i in range(SCENE_VIEWS):
+        depth = np.load(os.path.join(depth_dir, f"sdf_{i:03d}.npy"))
+        if depth.shape != (SCENE_H, SCENE_W, 1) or not np.isfinite(depth).all():
+            raise SystemExit(f"getfeats_40 wrote a depth of shape {depth.shape}")
+    return {"launches": launches, "summary": summary, "rays_per_s": rays / wall}
 
 
 def main() -> int:
@@ -1017,6 +1146,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.train.config import TrainConfig
     from vdnerf_tpu_torch.utils.device import configure_numerics
 
     device = torch.device("cuda:0")
@@ -1038,12 +1168,28 @@ def main() -> int:
         masked = train_phase(tmp, "wmask_tpu")
         masked_steps = time_train_steps(masked["conf_path"])
         gradient_check(masked["conf"], device, "wmask_tpu")
+        write_features(os.path.join(tmp, "depth_data", "sphere"), "wavelet_feats/0")
+        wdepth = train_phase(tmp, WDEPTH, WDEPTH_KEYS)
+        wdepth_steps = time_train_steps(wdepth["conf_path"])
+        for core, rec in wdepth_steps.items():
+            per_step = rec["launches_per_step"]
+            if (per_step["render_fwd"], per_step["render_bwd"], per_step["nerf_fwd"],
+                    per_step["nerf_bwd"]) != (2, 2, 1, 1):
+                raise SystemExit(f"{WDEPTH} {core}: launches per step {per_step}, expected K2 "
+                                 "and K3 twice, K4 and K5 once")
+        wdepth_tcfg = TrainConfig.from_conf(wdepth["conf"])
+        wdepth_grad = gradient_check(
+            wdepth["conf"], device, WDEPTH,
+            step=wdepth_tcfg.depth_start_iter + wdepth_tcfg.depth_ramp_iters + 1000)
+        wdepth_serve = serve_wdepth(wdepth)
 
     kernels = []
     for name, r in kern.items():
         main_shape = r["shapes"][0]
         by_path = {"serve": res["launches"][name], "train": train["launches"][name],
-                   "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name]}
+                   "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name],
+                   "train_wdepth": wdepth["launches"][name],
+                   "serve_wdepth": wdepth_serve["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1058,6 +1204,11 @@ def main() -> int:
                                 "wall_s": train["wall_s"]},
                       "train_wmask": {"steps": masked_steps, "summary": masked["summary"],
                                       "wall_s": masked["wall_s"]},
+                      "train_wdepth": {"steps": wdepth_steps, "summary": wdepth["summary"],
+                                       "wall_s": wdepth["wall_s"],
+                                       "depth_losses": wdepth["depth_losses"],
+                                       "gradient_check": wdepth_grad},
+                      "serve_wdepth": {k: v for k, v in wdepth_serve.items() if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

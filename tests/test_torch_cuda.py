@@ -465,3 +465,100 @@ def test_masked_render_launches_no_background_kernel(card):
     assert launches["cuda"]["nerf_fwd"] == launches["cuda"]["nerf_bwd"] == 0
     assert not any(launches["cpu"].values())
     torch.testing.assert_close(colors["cuda"], colors["cpu"], atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("n", [63, 8192, 49152 + 37])
+def test_depth_head_bwd_full_width(card, n):
+    """K3 at the wdepth recipe's depth head (289 -> 256 x4 -> 96: the output
+    layer two 64-column chunks, a 256 x 96 dW in the contraction) at few
+    rows, the ladder's 8,192 and a resampled core's 49,152 with a ragged
+    tail: each output within 2^-6 relative L2 of render_net_bwd_plain, two
+    launches bit-identical."""
+    rng = np.random.default_rng(41)
+    plan, x, ws, bs = _render_full_width(rng, n, 96, card)
+    g = torch.tensor(rng.normal(size=(n, 96)), dtype=torch.float32, device=card)
+    args = (plan, *x, ws, bs, g)
+    flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
+    before = build.LAUNCHES["render_bwd"]
+    got, again = flat(fused_mlp._render_bwd_launch(*args)), flat(fused_mlp._render_bwd_launch(*args))
+    assert build.LAUNCHES["render_bwd"] == before + 2
+    want = flat(fused_mlp.render_net_bwd_plain(*args))
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
+    assert tuple(got[4 + 4].shape) == (256, 96)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _rel_l2_close(a, w)
+
+
+def test_depth_head_through_autograd(card):
+    """The depth head at full width through torch.autograd: K2 once, then K3
+    once on K2's pack, its gradients bit for bit K3's on that pack and within
+    2^-6 relative L2 of the plain backward."""
+    rng = np.random.default_rng(42)
+    n = 4096 + 37
+    plan, x, ws, bs = _render_full_width(rng, n, 96, card)
+    leaves = [t.clone().requires_grad_(True) for t in ws + bs]
+    g = torch.tensor(rng.normal(size=(n, 96)), dtype=torch.float32, device=card)
+    before = dict(build.LAUNCHES)
+    out = fused_mlp.render_net(plan, *x, leaves[:5], leaves[5:])
+    grads = torch.autograd.grad(out, leaves, g)
+    assert build.LAUNCHES["render_fwd"] == before["render_fwd"] + 1
+    assert build.LAUNCHES["render_bwd"] == before["render_bwd"] + 1
+    _bf16_close(out.detach(), fused_mlp.render_net_plain(plan, *x, ws, bs))
+    _, packed = fused_mlp._render_launch(plan, *x, ws, bs)
+    on_pack = fused_mlp._render_bwd_launch(plan, *x, ws, bs, g, packed=packed)
+    plain = fused_mlp.render_net_bwd_plain(plan, *x, ws, bs, g)
+    for got, k3, w in zip(grads, [*on_pack[4], *on_pack[5]], [*plain[4], *plain[5]]):
+        assert torch.equal(got, k3)
+        _rel_l2_close(got, w)
+
+
+def test_wdepth_render_launches_both_heads(card):
+    """A wdepth renderer at small widths (depth head d_out 8, the NeRF's dpt
+    head, skip_bg_inside), forward and backward of a loss on the colour and
+    the depth features: K2 and K3 launch twice (the depth head and the colour
+    head), K4 and K5 once, twice the colour head's K2/K3 launches of the same
+    renderer without a depth head; colour and render_feats within 5e-3 of
+    the plain versions on the CPU."""
+    import dataclasses
+
+    from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
+    from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
+    from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig, render
+
+    base = NeuSNetworks(
+        sdf=SDFConfig(d_out=65, d_hidden=64, n_layers=4, skip_in=(2,)),
+        color=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4),
+        nerf=NeRFConfig(D=4, W=64, skips=(2,), multires=6, multires_view=2,
+                        gen_depth_feats=True, dpt_dim=8),
+        renderer=RendererConfig(n_samples=16, n_importance=16, n_outside=8, perturb=0.0,
+                                skip_bg_inside=True))
+    wdepth = dataclasses.replace(base, depth=RenderConfig(d_feature=64, d_hidden=64, n_layers=2,
+                                                          multires_view=4, d_out=8))
+    rng = np.random.default_rng(43)
+    o = rng.normal(size=(256, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-0.6, 0.6, size=(256, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    outs, launches = {}, {}
+    for key, nets, dev in (("base", base, card), ("card", wdepth, card),
+                           ("cpu", wdepth, torch.device("cpu"))):
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
+        build.reset_launches()
+        out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd),
+                     background_rgb=torch.ones(1, 3, device=dev))
+        loss = out["color_fine"].square().sum()
+        if "render_feats" in out:
+            loss = loss + out["render_feats"].square().sum()
+        loss.backward()
+        outs[key] = {k: out[k].detach().cpu() for k in ("color_fine", "render_feats") if k in out}
+        launches[key] = dict(build.LAUNCHES)
+    assert launches["base"]["render_fwd"] == launches["base"]["render_bwd"] == 1
+    for k in ("render_fwd", "render_bwd"):
+        assert launches["card"][k] == 2 * launches["base"][k] == 2, k
+    assert launches["card"]["nerf_fwd"] == launches["card"]["nerf_bwd"] == 1
+    assert not any(launches["cpu"].values())
+    assert outs["card"]["render_feats"].shape == (256, 8)
+    for k in ("color_fine", "render_feats"):
+        torch.testing.assert_close(outs["card"][k], outs["cpu"][k], atol=5e-3, rtol=0)

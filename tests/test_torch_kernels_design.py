@@ -167,6 +167,8 @@ def test_k1_pack_weights(dims):
 
 K3_LAYERS = [(289, 256, 304, 256), (256, 256, 256, 256), (256, 256, 256, 256),
              (256, 256, 256, 256), (256, 3, 256, 16)]
+# the wdepth recipe's depth head: the same net with 96 outputs
+K3_DEPTH_LAYERS = K3_LAYERS[:4] + [(256, 96, 256, 96)]
 K5_LAYERS = ([(84, 256, 96, 256)] + [(256, 256, 256, 256)] * 4 + [(340, 256, 352, 256)]
              + [(256, 256, 256, 256)] * 2 + [(256, 257, 256, 272), (283, 128, 288, 128),
                                              (128, 3, 128, 16)])
@@ -180,7 +182,8 @@ def _layers(dims):
     return out
 
 
-@pytest.mark.parametrize("dims", [K3_LAYERS, K5_LAYERS, [(70, 48, 80, 48), (48, 3, 48, 16)]])
+@pytest.mark.parametrize("dims", [K3_LAYERS, K5_LAYERS, [(70, 48, 80, 48), (48, 3, 48, 16)],
+                                  K3_DEPTH_LAYERS])
 @pytest.mark.parametrize("n", [1, 63, 64, 141, 8192, 16896, 49152, 65536, 65537])
 def test_dw_plan_covers_every_padded_row_once(dims, n):
     sms = 132
@@ -203,9 +206,42 @@ def test_dw_plan_fills_the_card_at_the_training_shapes():
     # rows: 42 tiles x 6 splits -- about two CTAs per SM, one wave
     assert fused_mlp.dw_plan(65536, _layers(K3_LAYERS), 132) == (13, 5056)
     assert fused_mlp.dw_plan(16896, _layers(K5_LAYERS), 132) == (6, 2816)
+    # the depth head's 256 x 96 output layer is two 128x128 tiles, as the
+    # colour head's 256 x 16: the same 20 tiles x 13 splits at 65,536 rows,
+    # and at the resampled core's 49,152
+    assert fused_mlp.dw_plan(65536, _layers(K3_DEPTH_LAYERS), 132) == (13, 5056)
+    assert fused_mlp.dw_plan(49152, _layers(K3_DEPTH_LAYERS), 132) == (13, 3840)
 
 
-@pytest.mark.parametrize("dims", [K3_LAYERS[:2], [(70, 48, 80, 48), (48, 3, 48, 16)]])
+@pytest.mark.parametrize("d_out", [3, 96])
+def test_bwd_scratch_at_full_width(monkeypatch, d_out):
+    """K3's scratch as _BwdScratch sizes it from the packed colour head
+    (d_out 3) and depth head (d_out 96): acts [n_pad, sum Kp], dels and the
+    db partials [., sum Np] with the output layer at its padded width (16 or
+    96 columns, not a 64-column chunk), dW [sum Kp Np]; the gradients come
+    back at each layer's [K, N]."""
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props)
+    rng = np.random.default_rng(8)
+    dims = [(289, 256)] + [(256, 256)] * 3 + [(256, d_out)]
+    ws = [torch.from_numpy(rng.normal(size=d).astype(np.float32)) for d in dims]
+    bs = [torch.zeros(d[1]) for d in dims]
+    meta = fused_mlp._render_meta(("idr", 4, True), torch.zeros(1, 256), ws, bs,
+                                  torch.device("cpu"))[2]
+    sc = fused_mlp._BwdScratch(1000, meta, torch.device("cpu"))
+    np_out = 16 if d_out == 3 else 96
+    assert sc.acts.shape == (1024, 304 + 4 * 256) and sc.dels.shape == (1024, 4 * 256 + np_out)
+    assert sc.dbpart.shape == (16, 4 * 256 + np_out)
+    assert sc.dW.numel() == 304 * 256 + 3 * 256 * 256 + 256 * np_out
+    assert (sc.splits, sc.rows_per_split) == fused_mlp.dw_plan(1000, sc.layers, 132)
+    assert [tuple(dw.shape) for dw, _ in sc.grads()] == dims
+    assert [tuple(db.shape) for _, db in sc.grads()] == [(n,) for _, n in dims]
+
+
+@pytest.mark.parametrize("dims", [K3_LAYERS[:2], [(70, 48, 80, 48), (48, 3, 48, 16)],
+                                  K3_DEPTH_LAYERS[3:]])
 def test_k3_packed_weights_serve_both_products(dims):
     """K3 reads one packed copy of each layer: [Kp, Np] row-major bf16, zero
     padded, at offsets whose 16-byte chunks are aligned; the forward reads it

@@ -172,13 +172,11 @@ def test_render_launch_plan_without_hidden_layers():
     assert fused_mlp.render_launch_plan(meta, 300, 132) == (128, 3, 2 * (5 * 8192 + 128 * 48) + 64)
 
 
-def test_k3_takes_k2s_pack(monkeypatch):
-    """Through the autograd Function on the card's path, the colour head is
-    packed once per step: K3's tile kernel is launched on the W that K2's
-    pack made. The launches are stubbed here (no card): K2's by the plain
-    forward, K3's tile kernel and contraction by recorders."""
-    plan, x, ws, bs = _case("idr", 3, n=9, width=32, d_feat=16)
-    packs, seen = [], {}
+def _stub_launches(monkeypatch, packs, seen):
+    """The card's path of the autograd Function with its launches stubbed (no
+    card here): K2's by the plain forward, K3's tile kernel and contraction
+    by recorders. ``packs`` gets each packed W in order, ``seen`` the (W,
+    layer list) of each launch of K3's tile kernel."""
     pack = fused_mlp._pack
 
     def counting_pack(*args, **kw):
@@ -197,17 +195,73 @@ def test_k3_takes_k2s_pack(monkeypatch):
             return [(torch.zeros(K, N), torch.zeros(N)) for K, N, *_ in self.layers]
 
     def tile(ins, outs, W, B, meta, scratch):
-        seen["W"] = W
+        seen.append((W, fused_mlp._layers_of(meta)))
         for t in outs:
             t.zero_()
 
+    def fwd_run(pts, normals, dirs, feat, packed):
+        K, N = fused_mlp._layers_of(packed[2])[-1][:2]
+        return torch.full((pts.shape[0], N), 0.5)
+
     monkeypatch.setattr(fused_mlp, "_on", lambda t, name: "cuda")
     monkeypatch.setattr(fused_mlp, "_pack", counting_pack)
-    monkeypatch.setattr(fused_mlp, "_render_fwd_run",
-                        lambda *a: fused_mlp.render_net_plain(plan, *x, ws, bs))
+    monkeypatch.setattr(fused_mlp, "_render_fwd_run", fwd_run)
     monkeypatch.setattr(fused_mlp, "_BwdScratch", Scratch)
     monkeypatch.setattr(fused_mlp, "_render_bwd_tile", tile)
+
+
+def test_k3_takes_k2s_pack(monkeypatch):
+    """Through the autograd Function on the card's path, the colour head is
+    packed once per step: K3's tile kernel is launched on the W that K2's
+    pack made (the launches stubbed, no card here)."""
+    plan, x, ws, bs = _case("idr", 3, n=9, width=32, d_feat=16)
+    packs, seen = [], []
+    _stub_launches(monkeypatch, packs, seen)
     leaves = [t.clone().requires_grad_(True) for t in ws + bs]
     out = fused_mlp.render_net(plan, *x, leaves[:len(ws)], leaves[len(ws):])
     torch.autograd.grad(out.sum(), leaves)
-    assert len(packs) == 1 and seen["W"] is packs[0]
+    assert len(packs) == 1 and len(seen) == 1 and seen[0][0] is packs[0]
+
+
+def test_each_head_hands_k3_its_own_pack(monkeypatch):
+    """A wdepth step runs K2 twice (the depth head, then the colour head) and
+    K3 twice: each head is packed once, and each K3 launch reads the pack of
+    its own head's K2, whatever order autograd runs the two backwards in."""
+    plan, x, ws, bs = _case("idr", 96, n=9, width=32, d_feat=16)
+    _, _, cws, cbs = _case("idr", 3, n=9, width=32, d_feat=16, seed=42)
+    packs, seen = [], []
+    _stub_launches(monkeypatch, packs, seen)
+    depth_leaves = [t.clone().requires_grad_(True) for t in ws + bs]
+    color_leaves = [t.clone().requires_grad_(True) for t in cws + cbs]
+    feats = fused_mlp.render_net(plan, *x, depth_leaves[:5], depth_leaves[5:])
+    rgb = fused_mlp.render_net(plan, *x, color_leaves[:5], color_leaves[5:])
+    torch.autograd.grad(feats.sum() + rgb.sum(), depth_leaves + color_leaves)
+    assert len(packs) == 2 and len(seen) == 2
+    assert {id(w) for w, _ in seen} == {id(w) for w in packs}
+    for w, layers in seen:  # the depth head's pack came first, with 96 outputs
+        assert (w is packs[0]) == (layers[-1][1] == 96)
+
+
+def test_depth_before_color_is_refused_before_launch(monkeypatch):
+    """At full width, ``depth_before_color`` widens the colour head's input to
+    289 + 96 = 385 (400 padded): K2's plan would need 249,920 bytes of shared
+    memory, past the 232,448 a block has. The wrapper refuses it with a
+    ValueError before any launch, and never falls back to the plain
+    version."""
+    plan, x, ws, bs = _case("idr", 3, n=5, d_feat=256 + 96)
+    meta = fused_mlp._render_meta(plan, x[3], ws, bs, CPU)[2]
+    with pytest.raises(ValueError, match=r"385 inputs \(padded to 400\) needs 249920 bytes.*232448"):
+        fused_mlp.render_launch_plan(meta, 5, 132)
+    calls = []
+    monkeypatch.setattr(fused_mlp, "_on", lambda t, name: "cuda")
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: type("P", (), {"multi_processor_count": 132}))
+    monkeypatch.setattr(fused_mlp.build, "library", lambda name: calls.append(name))
+    monkeypatch.setattr(fused_mlp, "render_net_plain", lambda *a: calls.append("plain"))
+    with pytest.raises(ValueError, match="depth_before_color"):
+        fused_mlp.render_net(plan, *x, ws, bs)
+    assert calls == []
+    # the widest first layer K2 takes: 320 padded inputs
+    plan, x, ws, bs = _case("idr", 3, n=5, d_feat=320 - 33)
+    meta = fused_mlp._render_meta(plan, x[3], ws, bs, CPU)[2]
+    assert fused_mlp.render_launch_plan(meta, 5, 132)[2] == 229_440

@@ -263,3 +263,21 @@ def test_train_config_matches_jax_for_every_conf(conf):
 def test_train_config_auto_split_matches_jax(batch_size, grad_accum):
     kw = dict(batch_size=batch_size, grad_accum=grad_accum)
     assert TTrainConfig(**kw).grad_accum == JTrainConfig(**kw).grad_accum
+
+
+def test_train_config_refuses_bf16(tmp_path):
+    """``train.bf16 = true`` runs the JAX package's SDF block in bf16; the port
+    has only the f32 block, so it refuses the conf rather than train another
+    recipe without a word."""
+    with open(os.path.join(ROOT, "confs", "womsk_white_tpu.conf")) as f:
+        text = f.read().replace("train {", "train {\n    bf16 = true", 1)
+    path = os.path.join(tmp_path, "bf16.conf")
+    with open(path, "w") as f:
+        f.write(text)
+    assert jload_conf(path, "x").get_bool("train.bf16")  # the JAX package reads the key
+    with pytest.raises(NotImplementedError, match="train.bf16"):
+        TTrainConfig.from_conf(tload_conf(path, "x"))
+    # false, or absent, is the f32 block
+    with open(path, "w") as f:
+        f.write(text.replace("bf16 = true", "bf16 = false"))
+    assert TTrainConfig.from_conf(tload_conf(path, "x")).extract_depth is False

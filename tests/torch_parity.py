@@ -38,6 +38,7 @@ def port_nets(nets: jr.NeuSNetworks) -> tr.NeuSNetworks:
     return tr.NeuSNetworks(
         sdf=conv(tf.SDFConfig, nets.sdf), color=conv(tf.RenderConfig, nets.color),
         nerf=conv(tf.NeRFConfig, nets.nerf), renderer=conv(tr.RendererConfig, nets.renderer),
+        depth=None if nets.depth is None else conv(tf.RenderConfig, nets.depth),
     )
 
 

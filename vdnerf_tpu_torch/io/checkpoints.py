@@ -7,8 +7,9 @@ Reads two formats into a :class:`NeuSModel`:
   numpy alone);
 - a reference ``ckpt_<iter:06d>.pth``: one ``state_dict`` per network under
   ``nerf`` / ``sdf_network_fine`` / ``variance_network_fine`` /
-  ``color_network_fine``, plus ``iter_step`` and, from training, ``optimizer``
-  (the torch Adam ``state_dict``, parameters in that network order).
+  ``color_network_fine`` (/ ``depth_network_fine`` for the wdepth confs),
+  plus ``iter_step`` and, from training, ``optimizer`` (the torch Adam
+  ``state_dict``, parameters in that network order).
 
 Training writes the second format (:func:`save_training_checkpoint`); the JAX
 package's ``import_torch_checkpoint(..., with_optimizer=True)`` reads its
@@ -26,7 +27,13 @@ from typing import Any
 import numpy as np
 import torch
 
-NETS = ("nerf", "sdf_network_fine", "variance_network_fine", "color_network_fine")
+NETS = ("nerf", "sdf_network_fine", "variance_network_fine", "color_network_fine",
+        "depth_network_fine")
+
+
+def _nets_of(model: torch.nn.Module) -> list[str]:
+    """The networks of NETS the model has (the depth head only with one)."""
+    return [name for name in NETS if hasattr(model, name)]
 
 
 def _tensor(x) -> torch.Tensor:
@@ -51,6 +58,8 @@ def from_jax_params(params_np: dict) -> dict[str, torch.Tensor]:
         sd.update(linear_state(f"sdf_network_fine.lin{l}", p))
     for l, p in enumerate(params_np["color"]["layers"]):
         sd.update(linear_state(f"color_network_fine.lin{l}", p))
+    for l, p in enumerate(params_np.get("depth", {}).get("layers", [])):
+        sd.update(linear_state(f"depth_network_fine.lin{l}", p))
     nerf = params_np["nerf"]
     for i, p in enumerate(nerf["pts_linears"]):
         sd.update(linear_state(f"nerf.pts_linears.{i}", p))
@@ -105,7 +114,7 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
                               optimizer: torch.optim.Optimizer | None = None) -> int:
     """Load the networks (and, when given, the optimizer) -> iter_step."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    for name in NETS:
+    for name in _nets_of(model):
         getattr(model, name).load_state_dict(ckpt[name])
     if optimizer is not None:
         optimizer.load_state_dict(ckpt["optimizer"])
@@ -114,10 +123,10 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
 
 def save_training_checkpoint(path: str, model: torch.nn.Module, iter_step: int,
                              optimizer: torch.optim.Optimizer | None = None) -> None:
-    """Write the four networks in the reference ``ckpt_*.pth`` layout, plus
-    the optimizer when given, atomically (``.tmp`` then ``os.replace``)."""
+    """Write the networks in the reference ``ckpt_*.pth`` layout, plus the
+    optimizer when given, atomically (``.tmp`` then ``os.replace``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    ckpt = {name: getattr(model, name).state_dict() for name in NETS}
+    ckpt = {name: getattr(model, name).state_dict() for name in _nets_of(model)}
     if optimizer is not None:
         ckpt["optimizer"] = optimizer.state_dict()
     ckpt["iter_step"] = iter_step

@@ -198,7 +198,8 @@ class SDFNetwork(nn.Module):
 
 
 class RenderingNetwork(nn.Module):
-    """IDR colour head over [pts, embedded view dirs, normals, features]."""
+    """IDR head over [pts, embedded view dirs, normals, features]: the colour
+    head, and the wdepth confs' depth-feature head (96 outputs)."""
 
     def __init__(self, cfg: RenderConfig, generator: torch.Generator):
         super().__init__()

@@ -350,6 +350,8 @@ _K2_RING_STAGES = 5
 _KS = 32
 _MAX_OUT = 256
 _THREADS = 256
+# dynamic shared memory a block may use on the H100 (sm_90)
+_SMEM_MAX = 232_448
 
 
 def render_launch_plan(meta, n: int, sms: int) -> tuple[int, int, int]:
@@ -361,12 +363,24 @@ def render_launch_plan(meta, n: int, sms: int) -> tuple[int, int, int]:
     layer 0's input [rows, Kp0] and the hidden layers' [rows, max Kp of the
     later layers], then an mbarrier per ring stage and the two that hand the
     input tile from the producer warpgroup to the product warpgroups (the
-    bytes rounded up to 16). The launcher takes both as given."""
+    bytes rounded up to 16). The launcher takes both as given.
+
+    A first layer wider than 320 inputs (padded) does not fit: the colour head
+    under ``depth_before_color`` (289 + the depth head's 96 = 385 inputs at
+    full width) is refused here, before any launch, with a ValueError."""
     layers = _layers_of(meta)
     rows = 128
     ldh = max((Kp for _, _, Kp, _, _, _ in layers[1:]), default=0)
     smem = 2 * (_K2_RING_STAGES * _KS * _MAX_OUT + rows * (layers[0][2] + ldh))
-    return rows, min(-(-n // rows), sms), smem + -(-8 * (_K2_RING_STAGES + 2) // 16) * 16
+    smem += -(-8 * (_K2_RING_STAGES + 2) // 16) * 16
+    if smem > _SMEM_MAX:
+        K0, _, Kp0 = layers[0][:3]
+        raise ValueError(
+            f"render_fwd: a first layer of {K0} inputs (padded to {Kp0}) needs {smem} bytes of "
+            f"shared memory, more than the {_SMEM_MAX} a block has; K2 takes at most 320 "
+            "padded inputs beside 256-wide hidden layers (depth_before_color, which widens the "
+            "colour head's input by the depth features, does not run on the card)")
+    return rows, min(-(-n // rows), sms), smem
 
 
 def render_schedule(meta):

@@ -2,9 +2,14 @@
 
 Counterpart of ``vdnerf_tpu/ops/renderer.py``: the SDF-guided up-sample
 ladder (K1 for its value-only SDF queries), the optional importance-resampled
-core, the background NeRF over the outside block (K4, backward K5), and the
-render core (SDF value + gradient + feature by autograd, colour head through
-K2, backward K3, logistic-CDF alpha, transmittance composite).
+core, the background NeRF over the outside block (K4, backward K5; with the
+dpt head it also gives each sample's depth features), and the render core (SDF
+value + gradient + feature by autograd, colour head through K2, backward K3,
+logistic-CDF alpha, transmittance composite). With a depth head (wdepth
+confs) the core also runs it through K2/K3 on the same inputs, blends its
+features with the background NeRF's outside the unit sphere and composites
+them with the colour weights into ``render_feats``; ``depth_before_color``
+appends those features to the colour head's feature input.
 
 Serving runs it under ``torch.no_grad()`` (the render core switches grad mode
 on locally for the SDF gradient). Training runs it with grad mode on: the
@@ -61,10 +66,14 @@ class NeuSNetworks:
     color: RenderConfig
     nerf: NeRFConfig
     renderer: RendererConfig
+    depth: RenderConfig | None = None
 
 
 class NeuSModel(nn.Module):
-    """The four networks under the reference checkpoint's names."""
+    """The networks under the reference checkpoint's names, registered (and
+    drawn from ``generator``) in the reference's ``params_to_train`` order:
+    nerf, sdf, variance, colour, then the depth head when ``nets.depth`` is
+    set."""
 
     def __init__(self, nets: NeuSNetworks, variance_init: float, generator: torch.Generator):
         super().__init__()
@@ -72,6 +81,8 @@ class NeuSModel(nn.Module):
         self.sdf_network_fine = SDFNetwork(nets.sdf, generator)
         self.variance_network_fine = SingleVarianceNetwork(variance_init)
         self.color_network_fine = RenderingNetwork(nets.color, generator)
+        if nets.depth is not None:
+            self.depth_network_fine = RenderingNetwork(nets.depth, generator)
 
 
 def render_core_outside(
@@ -83,8 +94,10 @@ def render_core_outside(
     sample_dist: float,
     eval_tail: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Background NeRF over inverted-sphere coordinates. ``eval_tail``:
-    evaluate only the last that many samples; the skipped ones get alpha
+    """Background NeRF over inverted-sphere coordinates -> each sample's
+    colour, alpha, mid z and, with the dpt head, depth features
+    (``sampled_feat``, else None). ``eval_tail``: evaluate only the last that
+    many samples; the skipped ones get colour and features 0 and alpha
     exactly 0 (the ``skip_bg_inside`` path)."""
     batch_size, n_samples = z_vals.shape
     dists = z_vals[..., 1:] - z_vals[..., :-1]
@@ -100,17 +113,22 @@ def render_core_outside(
     n_skip = 0
     if eval_tail is not None and eval_tail < n_samples:
         n_skip = n_samples - eval_tail
-    density, color, _ = model.nerf(
+    density, color, feat = model.nerf(
         pts4[:, n_skip:].reshape(-1, d_in), dirs[:, n_skip:].reshape(-1, 3)
     )
     n_eval = n_samples - n_skip
-    color = color.reshape(batch_size, n_eval, -1)
     alpha = 1.0 - torch.exp(-F.softplus(density.reshape(batch_size, n_eval)) * dists[:, n_skip:])
+
+    def fill(t):
+        t = t.reshape(batch_size, n_eval, -1)
+        if not n_skip:
+            return t
+        return torch.cat([t.new_zeros(batch_size, n_skip, t.shape[-1]), t], dim=1)
+
     if n_skip:
-        # the skipped block gets colour 0 and alpha exactly 0
-        color = torch.cat([color.new_zeros(batch_size, n_skip, color.shape[-1]), color], dim=1)
         alpha = torch.cat([alpha.new_zeros(batch_size, n_skip), alpha], dim=1)
-    return {"sampled_color": color, "alpha": alpha, "z_vals": mid_z_vals}
+    return {"sampled_color": fill(color), "sampled_feat": None if feat is None else fill(feat),
+            "alpha": alpha, "z_vals": mid_z_vals}
 
 
 def render_core(
@@ -125,9 +143,13 @@ def render_core(
     background_rgb: torch.Tensor | None = None,
     cos_anneal_ratio: float | torch.Tensor = 0.0,
     est_dist_cap: float | None = None,
+    depth_before_color: bool = False,
+    background_sampled_feat: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """SDF-based alpha compositing core. ``est_dist_cap`` bounds the
-    section-alpha estimator's half-width (resampled core only)."""
+    section-alpha estimator's half-width (resampled core only). With a depth
+    head, ``d_feats`` is the composite of its features (blended with
+    ``background_sampled_feat`` outside the unit sphere), else None."""
     batch_size, n_samples = z_vals.shape
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], sample_dist)], dim=-1)
@@ -139,6 +161,12 @@ def render_core(
     dirs_flat = dirs.reshape(-1, 3)
 
     sdf, gradients, feature_vector = model.sdf_network_fine.sdf_value_grad_feat(pts_flat)
+    sampled_feat = None
+    if nets.depth is not None:
+        feat_flat = model.depth_network_fine(pts_flat, gradients, dirs_flat, feature_vector)
+        if depth_before_color:
+            feature_vector = torch.cat([feature_vector, feat_flat], dim=-1)
+        sampled_feat = feat_flat.reshape(batch_size, n_samples, -1)
     sampled_color = model.color_network_fine(
         pts_flat, gradients, dirs_flat, feature_vector
     ).reshape(batch_size, n_samples, -1)
@@ -174,10 +202,21 @@ def render_core(
         sampled_color = torch.cat(
             [sampled_color, background_sampled_color[:, n_samples:]], dim=1
         )
+        if sampled_feat is not None:
+            sampled_feat = (
+                sampled_feat * inside_sphere[:, :, None]
+                + background_sampled_feat[:, :n_samples] * (1.0 - inside_sphere)[:, :, None]
+            )
+            sampled_feat = torch.cat(
+                [sampled_feat, background_sampled_feat[:, n_samples:]], dim=1
+            )
 
     weights = alpha * transmittance(alpha)
     weights_sum = torch.sum(weights, dim=-1, keepdim=True)
     color = torch.sum(sampled_color * weights[:, :, None], dim=1)
+    d_feats = None
+    if sampled_feat is not None:
+        d_feats = torch.sum(sampled_feat * weights[:, :, None], dim=1)
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)
 
@@ -190,6 +229,7 @@ def render_core(
         "gradient_error_num": gradient_error_num,
         "gradient_error_den": gradient_error_den,
         "color": color,
+        "d_feats": d_feats,
         "sdf": sdf,
         "gradients": gradients.reshape(batch_size, n_samples, 3),
         "s_val": 1.0 / inv_s,
@@ -257,10 +297,12 @@ def render(
     perturb_overwrite: int = -1,
     background_rgb: torch.Tensor | None = None,
     cos_anneal_ratio: float | torch.Tensor = 0.0,
+    depth_before_color: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Full NeuS render of a ray batch. rays_o/rays_d: [N, 3]; near/far:
     [N, 1]. ``generator`` drives the jitter and the stratified resample when
-    perturb > 0."""
+    perturb > 0. With a depth head the result also holds ``render_feats``
+    [N, c], its features' composite."""
     rcfg = nets.renderer
     dev = rays_o.device
     batch_size = rays_o.shape[0]
@@ -302,7 +344,8 @@ def render(
         with torch.no_grad():
             z_vals = _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator)
 
-    background_alpha = background_sampled_color = background_zvals = None
+    background_alpha = background_sampled_color = background_sampled_feat = None
+    background_zvals = None
     if rcfg.n_outside > 0:
         z_vals_feed, _ = merge_z_vals(z_vals, z_vals_outside, None, None)
         ret_outside = render_core_outside(
@@ -310,6 +353,7 @@ def render(
             eval_tail=rcfg.n_outside + 1 if rcfg.skip_bg_inside else None,
         )
         background_sampled_color = ret_outside["sampled_color"]
+        background_sampled_feat = ret_outside["sampled_feat"]
         background_alpha = ret_outside["alpha"]
         background_zvals = ret_outside["z_vals"]
 
@@ -320,9 +364,11 @@ def render(
         background_rgb=background_rgb,
         cos_anneal_ratio=cos_anneal_ratio,
         est_dist_cap=sample_dist if resample else None,
+        depth_before_color=depth_before_color,
+        background_sampled_feat=background_sampled_feat,
     )
     weights = ret_fine["weights"]
-    return {
+    out = {
         "color_fine": ret_fine["color"],
         "gradient_error_num": ret_fine["gradient_error_num"],
         "gradient_error_den": ret_fine["gradient_error_den"],
@@ -335,3 +381,6 @@ def render(
         "z_vals": ret_fine["mid_z_vals"] if background_zvals is None else background_zvals,
         "inside_sphere": ret_fine["inside_sphere"],
     }
+    if ret_fine["d_feats"] is not None:
+        out["render_feats"] = ret_fine["d_feats"]
+    return out

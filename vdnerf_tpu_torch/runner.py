@@ -18,6 +18,11 @@ Counterpart of ``vdnerf_tpu/runner.py`` for fixed cameras:
   ``val_mesh_freq``-th step (128^3, 256^3 at every 50,000th, 512^3 in world
   space at every 150,000th).
 
+The wdepth confs (``train.extract_depth``) add the depth head and the
+depth-feature store (``<data_dir>/<img_dir>/<depth_dir>/<stem>.npy``), which
+every mode but the mesh modes loads, as the JAX runner does; ``only_depth`` and
+``depth_weight`` are parsed and change nothing, and ``c_cat_d`` is not read,
+as there.
 Checkpoints load from the JAX package's ``ckpt_<it>.npz`` or a reference
 ``ckpt_<it>.pth``; training writes the latter. The runner runs on
 ``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
@@ -99,7 +104,8 @@ class Runner:
         self.iter_step = 0
         self.store = None
         if "mesh" not in mode:
-            self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis)
+            self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis,
+                                  self.scene_data.depth_lis, with_depth=self.tcfg.extract_depth)
         self.renderer = ImageRenderer(self.nets, self.tcfg, self.scene_data.H, self.scene_data.W)
         self.rng = np.random.default_rng(seed)
 

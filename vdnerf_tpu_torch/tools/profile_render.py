@@ -12,7 +12,9 @@ training step of ``train/step.py`` (render with the conf's perturbation,
 loss, backward, Adam) on a batch of ``train.batch_size`` pixels of a camera
 3 units from the sphere, once on the faithful core (128 samples in the
 shipped confs) and once on the conf's resampled core (96 in
-``womsk_white_tpu``, 64 in ``wmask_tpu``). For each it reports:
+``womsk_white_tpu`` and ``womsk_white_wdepth_tpu``, 64 in ``wmask_tpu``). On
+a wdepth conf the batch carries random teacher features and the steps come
+after ``depth_start_iter``, so the depth head trains. For each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
@@ -21,7 +23,12 @@ shipped confs) and once on the conf's resampled core (96 in
   ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
   autograd SDF value+gradient+feature block and its backward), and the rest
   (elementwise, reductions, sort, copies);
-- the device's busy and idle share of the profiled window.
+- the device's busy and idle share of the profiled window;
+- with ``--train``, each kernel's launches per step, and per head
+  (``color_network_fine``, and ``depth_network_fine`` on a wdepth conf) its
+  rows, outputs and the CUDA-event times of its K2 and K3 alone at that
+  step's inputs: the profiler names both heads' launches
+  ``render_fwd_kernel`` / ``render_bwd_kernel``, and this tells them apart.
 
 Prints one JSON line, with the card's name and power limit. Needs a CUDA
 device; with none it exits non-zero.
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
+from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
 from vdnerf_tpu_torch.ops.renderer import render
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
@@ -63,8 +71,8 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _profile(fn, iters: int, trace: str) -> dict:
-    """Steady-state ms of fn by CUDA events, then one profiled call."""
+def _event_ms(fn, iters: int = 10) -> float:
+    """Steady-state ms of fn by CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -73,7 +81,12 @@ def _profile(fn, iters: int, trace: str) -> dict:
         fn()
     stop.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / iters
+
+
+def _profile(fn, iters: int, trace: str) -> dict:
+    """Steady-state ms of fn by CUDA events, then one profiled call."""
+    ms = _event_ms(fn, iters)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,6 +118,37 @@ def _profile(fn, iters: int, trace: str) -> dict:
     }
 
 
+def _heads(model, run_step) -> dict:
+    """Each IDR head's K2 and K3 alone, at the inputs one training step gives
+    it (captured by a forward hook), timed by CUDA events: the wrapper's K2
+    (packing included) and K3 on that pack with a random cotangent."""
+    seen, hooks = {}, []
+    for name in ("color_network_fine", "depth_network_fine"):
+        if hasattr(model, name):
+            def keep(module, args, out, name=name):
+                seen[name] = (module, [a.detach().float().contiguous() for a in args])
+            hooks.append(getattr(model, name).register_forward_hook(keep))
+    try:
+        run_step()
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for name, (module, args) in seen.items():
+        ws, bs = (list(t) for t in module.weights())
+        ws, bs = [w.detach() for w in ws], [b.detach() for b in bs]
+        plan = (module.cfg.mode, module.cfg.multires_view, module.cfg.squeeze_out)
+        _, packed = fused_mlp._render_launch(plan, *args, ws, bs)
+        g = torch.randn(args[0].shape[0], ws[-1].shape[1], device=args[0].device)
+        out[name] = {
+            "rows": args[0].shape[0], "d_out": ws[-1].shape[1],
+            "render_fwd_ms": _event_ms(lambda: fused_mlp._render_launch(plan, *args, ws, bs)),
+            "render_bwd_ms": _event_ms(
+                lambda: fused_mlp._render_bwd_launch(plan, *args, ws, bs, g, packed=packed)),
+        }
+    return out
+
+
 def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
     """One training step per core width on a synthetic camera's pixels."""
     tcfg = TrainConfig.from_conf(conf)
@@ -120,7 +164,10 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
         "pixels_y": rng.integers(0, H, size=tcfg.batch_size).astype(np.int32),
         "color": rng.uniform(0, 1, size=(tcfg.batch_size, 3)).astype(np.float32),
         "mask": np.ones((tcfg.batch_size, 1), np.float32),
+        "feats": rng.uniform(0, 1, size=(tcfg.batch_size, nets.depth.d_out if nets.depth else 1))
+                 .astype(np.float32),
     }
+    first = tcfg.depth_start_iter + 1 if tcfg.extract_depth else 0
     rcfg = nets.renderer
     faithful = dataclasses.replace(nets, renderer=dataclasses.replace(rcfg, n_render_samples=0))
     out = {}
@@ -128,10 +175,14 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
                        (f"core_{rcfg.n_render_samples}", nets)):
         model = build_model(conf, nets, seed=0).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
-        step = iter(range(10**9))
+        step = iter(range(first, 10**9))
         rec = _profile(lambda: trainer.step(core, batch, next(step)), iters,
                        trace.replace(".json", f"_{name}.json") if trace else "")
         rec["rays_per_s"] = tcfg.batch_size / rec["ms"] * 1e3
+        build.reset_launches()
+        trainer.step(core, batch, next(step))
+        rec["launches_per_step"] = dict(build.LAUNCHES)
+        rec["heads"] = _heads(model, lambda: trainer.step(core, batch, next(step)))
         out[name] = rec
     return out
 
@@ -151,7 +202,7 @@ def main(argv=None) -> int:
     configure_numerics()
     dev = torch.device("cuda:0")
     conf = load_conf(args.conf, "profile")
-    nets = build_networks(conf)
+    nets = build_networks(conf, TrainConfig.from_conf(conf).extract_depth)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,

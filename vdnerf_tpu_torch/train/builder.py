@@ -1,8 +1,10 @@
 """Build network configs and the model from a HOCON model config.
 
 Counterpart of ``vdnerf_tpu/train/builder.py``: maps ``model.{nerf,
-sdf_network,rendering_network,neus_renderer}`` onto the config dataclasses,
-and builds the :class:`NeuSModel` with a seeded ``torch.Generator``.
+sdf_network,rendering_network,neus_renderer}`` and, for the wdepth confs
+(``extract_depth``), ``model.depth_extract_network`` onto the config
+dataclasses, and builds the :class:`NeuSModel` with a seeded
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,19 +29,21 @@ def _kwargs(block: Config, cls) -> dict[str, Any]:
 
 
 def build_networks(conf: Config, extract_depth: bool = False) -> NeuSNetworks:
+    depth = None
     if extract_depth:
-        raise NotImplementedError(
-            "the depth-feature head (wdepth confs) is not ported yet"
-        )
+        depth = RenderConfig(**_kwargs(conf["model.depth_extract_network"], RenderConfig))
     return NeuSNetworks(
         sdf=SDFConfig(**_kwargs(conf["model.sdf_network"], SDFConfig)),
         color=RenderConfig(**_kwargs(conf["model.rendering_network"], RenderConfig)),
         nerf=NeRFConfig(**_kwargs(conf["model.nerf"], NeRFConfig)),
         renderer=RendererConfig(**_kwargs(conf["model.neus_renderer"], RendererConfig)),
+        depth=depth,
     )
 
 
 def build_model(conf: Config, nets: NeuSNetworks, seed: int = 0) -> NeuSModel:
-    """A freshly initialised model (geometric-init SDF), on the CPU."""
+    """A freshly initialised model (geometric-init SDF), on the CPU. One
+    generator seeded with ``seed`` draws the networks' weights in the order
+    nerf, sdf, colour, depth head."""
     gen = torch.Generator().manual_seed(seed)
     return NeuSModel(nets, conf.get_float("model.variance_network.init_val"), gen)

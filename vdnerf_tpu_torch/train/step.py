@@ -3,7 +3,8 @@
 Counterpart of ``vdnerf_tpu/train/step.py`` for fixed cameras: rays of the
 batch's pixels, near/far on the unit sphere, the render (jitter and
 stratified resample drawn from a ``torch.Generator``), the L1 colour +
-eikonal + mask-BCE loss, and Adam with ``neus_lr_schedule``.
+eikonal + mask-BCE loss (plus, for the wdepth confs, the sigmoid-ramped
+depth-feature distillation loss), and Adam with ``neus_lr_schedule``.
 
 Every normaliser of the loss is a global sum over the batch, taken through
 :func:`_global_sum`: a data-parallel version all-reduces there, and the
@@ -24,6 +25,14 @@ from vdnerf_tpu_torch.train.schedules import neus_lr_schedule
 def _global_sum(x: torch.Tensor) -> torch.Tensor:
     """A sum over this process's rays; across ranks, the place to all-reduce."""
     return x
+
+
+def depth_ramp_weight(depth_iter: int, total_iter: int = 5000) -> float:
+    """Sigmoid ramp of the distillation loss, in f32 as the JAX package."""
+    d = np.float32(depth_iter)
+    return float(np.float32(1.0) / (np.exp(np.float32(-10.0) * (d / np.float32(total_iter)
+                                                                - np.float32(0.5)))
+                                    + np.float32(1.0)))
 
 
 def cos_anneal_ratio(step: int, anneal_end: int) -> float:
@@ -59,7 +68,8 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
 
     out = render(nets, model, rays_o, rays_d, near, far, generator=generator,
                  background_rgb=background_rgb,
-                 cos_anneal_ratio=cos_anneal_ratio(step, tcfg.anneal_end))
+                 cos_anneal_ratio=cos_anneal_ratio(step, tcfg.anneal_end),
+                 depth_before_color=tcfg.depth_before_color)
     color_fine = out["color_fine"]
 
     color_error = (color_fine - true_rgb) * mask
@@ -87,14 +97,27 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
         "cdf": _global_sum((out["cdf_fine"][:, :1] * mask).sum()) / mask_sum,
         "weight_max": _global_sum((out["weight_max"] * mask).sum()) / mask_sum,
     }
+
+    if tcfg.extract_depth:
+        gt_feats = torch.as_tensor(batch["feats"], device=dev)
+        feats = out["render_feats"]
+        depth_fine_loss = _global_sum(((feats - gt_feats) * mask).abs().sum()) / mask_sum
+        dsq = _global_sum(((feats - gt_feats) ** 2 * mask).sum())
+        # mask_sum * 3 whatever the channel count, as the JAX package
+        psnr_dfeat = 20.0 * torch.log10(1.0 / torch.sqrt(dsq / (mask_sum * 3.0)))
+        if step > tcfg.depth_start_iter:
+            ramp = depth_ramp_weight(max(step - tcfg.depth_start_iter - 1, 0),
+                                     tcfg.depth_ramp_iters)
+            loss = loss + ramp * tcfg.depth_loss_scale * depth_fine_loss
+        metrics.update(loss=loss, depth_loss=depth_fine_loss, psnr_dfeat=psnr_dfeat)
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
 class Trainer:
     """One optimizer step per :meth:`step`: gradients of the loss (averaged
     over ``grad_accum`` microbatches), then ``torch.optim.Adam`` over
-    ``model.parameters()`` (nerf, sdf, variance, colour: the reference's
-    order) with the learning rate ``neus_lr_schedule(step)`` set before the
+    ``model.parameters()`` (nerf, sdf, variance, colour[, depth head]: the
+    reference's order) with the learning rate ``neus_lr_schedule(step)`` set before the
     update, ``step`` counting updates from 0 as optax's ``count`` does (so
     the first update under warm-up moves nothing)."""
 

@@ -42,7 +42,7 @@ class ImageRenderer:
         out = render(
             self.nets, model, rays_o, rays_d, near, far,
             perturb_overwrite=0, background_rgb=background_rgb,
-            cos_anneal_ratio=anneal,
+            cos_anneal_ratio=anneal, depth_before_color=self.tcfg.depth_before_color,
         )
         inside = out["inside_sphere"]
         n_total = inside.shape[1]
