@@ -38,12 +38,21 @@
    same render through the plain versions on the CPU.
 6. Training phase: ``--mode train`` through the CLI at full width, 40 steps
    across ``resample_from`` (only the paths and five ``train`` keys
-   rewritten, ``val_mesh_freq`` 20), launch counts set to 0 before and read
-   after (fails unless all five kernels ran); checks that the loop's cadence
-   wrote a 128^3 mesh at steps 20 and 40 with 8 K1 launches each, finite
-   logged losses, the checkpoints, that every network moved, and that
-   ``valimg_40`` from the last checkpoint gives the run's closing summary.
-   Then times steps per core width.
+   rewritten, ``val_mesh_freq`` 20) in windows of the conf's
+   ``steps_per_call`` (10: the gcd rule leaves it whole), each step a replay
+   of the captured step after each program's 3 eager warm-up steps, launch
+   counts set to 0 before and read after (fails unless all five kernels ran;
+   a replay adds its program's launches as recorded at capture); checks that
+   the loop's cadence wrote a 128^3 mesh at steps 20 and 40 with 8 K1
+   launches each, finite logged losses, the checkpoints, that every network
+   moved, and that ``valimg_40`` from the last checkpoint gives the run's
+   closing summary. Then the dispatch check: the same 40 steps again with the
+   window's per-step call patched to the eager card step; the logged steps,
+   checkpoints, meshes and launch counts must be the same, every logged loss
+   within 1e-5 relative and every parameter within 1e-5 relative L2 (the
+   differences are printed; both run the same kernels on the same inputs).
+   Then times steps per core width, replayed and eager in turns, with the
+   device's idle share of one profiled window of each.
 7. Gradient check: one full-width step on 128 rays through the kernels on the
    card against the plain versions on the CPU.
 8. Mesh phase: ``validate_mesh_40`` through the CLI (512^3, world space,
@@ -53,17 +62,19 @@
    counts within 0.1%, and their Chamfer within 1e-3 of the plain mesh's
    against itself, the floor of its 100,000-point sampling); ``geometry_qc``
    at 512^3 against the scene's radius-0.5 sphere, reported only.
-9. Masked phase: phases 6 and 7 again on ``confs/wmask_tpu.conf`` (no outside
-   samples, a 64-of-128 resampled core at frac 0.25, the mask BCE): K1-K3
-   must run and K4/K5 never; the background NeRF must not move; the mask
-   loss is logged finite.
+9. Masked phase: phases 6 (without the dispatch check) and 7 again on
+   ``confs/wmask_tpu.conf`` (no outside samples, a 64-of-128 resampled core
+   at frac 0.25, the mask BCE): K1-K3 must run and K4/K5 never; the
+   background NeRF must not move; the mask loss is logged finite.
 10. wdepth phase: seeded 96-channel features at half the image size per view
     (``image/wavelet_feats/0/<stem>.npy``), then phase 6 on
     ``confs/womsk_white_wdepth_tpu.conf`` at full width (the depth head
     4x256 -> 96, the NeRF's dpt head) with ``depth_start_iter`` 10: K3 must
     run once a step for the colour head and once more from step 11 on, K5
-    once a step; the depth loss is logged finite and the depth head moves.
-    Its timed steps (after depth_start_iter) must launch K2 and K3 twice and
+    once a step (three programs: the faithful core without and with the
+    distillation term, the resampled core with it); the depth loss is logged
+    finite and the depth head moves. Its timed steps (after
+    depth_start_iter) must launch K2 and K3 twice and
     K4/K5 once each; the gradient check runs past the distillation ramp
     (ramp > 0.99) and holds the depth and dpt heads' gradients too;
     ``getfeats_40`` from the run's checkpoint launches K2 twice per K4
@@ -751,7 +762,7 @@ def reference_check(conf, device) -> dict:
 # and 40 through the loop's cadence
 TRAIN_KEYS = {"end_iter": 40, "resample_from": 20, "save_freq": 20, "val_freq": 20,
               "val_mesh_freq": 20}
-TIMED_STEPS = 5
+TIMED_STEPS = 10
 # the background NeRF's kernels; the masked recipe (n_outside = 0) runs none
 BACKGROUND = ("nerf_fwd", "nerf_bwd")
 # the wdepth recipe, cut in depth only: distillation from step 10 (not 5,000),
@@ -893,12 +904,15 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
 
 
 def time_train_steps(conf_path: str) -> dict:
-    """Steady-state ms/step and rays/s per core width (the faithful core, and
-    the resampled one after resample_from): TIMED_STEPS steps between
-    torch.cuda.synchronize() calls after 2 warm-up steps, without the loop's
-    validations and meshes; on a wdepth conf the steps come after
-    depth_start_iter, so they train the depth head. Also each kernel's
-    launches per timed step."""
+    """Steady-state ms/step, rays/s and device idle share per core width (the
+    faithful core, and the resampled one after resample_from), the captured
+    step replayed against the same step launched eagerly, in turns (replay,
+    eager, replay, eager), each a window of TIMED_STEPS steps through
+    ``StepDispatch`` between torch.cuda.synchronize() calls, without the
+    loop's validations and meshes, after the program's warm-up and capture;
+    then one profiled window of each for the device's busy and idle share. On
+    a wdepth conf the steps come after depth_start_iter, so they train the
+    depth head. Also each kernel's launches per timed step."""
     import dataclasses
 
     import numpy as np
@@ -906,39 +920,144 @@ def time_train_steps(conf_path: str) -> dict:
 
     from vdnerf_tpu_torch.ops.kernels import build
     from vdnerf_tpu_torch.runner import Runner
+    from vdnerf_tpu_torch.tools.profile_render import profile_window
+    from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
 
     runner = Runner(conf_path, case="sphere", mode="train")
     rcfg = runner.nets.renderer
     faithful = dataclasses.replace(runner.nets, renderer=dataclasses.replace(rcfg,
                                                                              n_render_samples=0))
+    # one trainer, two per-step calls: a replay, and the eager step
+    dispatch = {"replay": StepDispatch(runner.trainer), "eager": StepDispatch(runner.trainer)}
+    dispatch["eager"].step = dispatch["eager"].eager_step
     rng = np.random.default_rng(0)
+    tag = f"[train {os.path.basename(conf_path)}]"
     out = {}
     for name, nets in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
                        (f"core_{rcfg.n_render_samples}", runner.nets)):
         step = runner.tcfg.depth_start_iter + 1 if runner.tcfg.extract_depth else 0
 
-        def run(n):
-            nonlocal step
-            for _ in range(n):
-                batch = runner.store.sample_pixels(step % runner.scene_data.n_images,
-                                                   runner.tcfg.batch_size, rng)
-                runner.trainer.step(nets, batch, step)
-                step += 1
+        sampling_ms = []
 
-        run(2)
+        def window(mode, n=TIMED_STEPS):
+            nonlocal step
+            steps = range(step, step + n)
+            t0 = time.perf_counter()
+            batches = [runner.store.sample_pixels(s % runner.scene_data.n_images,
+                                                  runner.tcfg.batch_size, rng) for s in steps]
+            sampling_ms.append((time.perf_counter() - t0) * 1e3 / n)
+            step += n
+            dispatch[mode].run(steps, [nets] * n, batches)
+
+        window("replay", WARMUP_STEPS + 1)  # the program's warm-up steps, then its capture
+        window("eager", 2)
         torch.cuda.synchronize()
-        build.reset_launches()
-        t0 = time.perf_counter()
-        run(TIMED_STEPS)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-        per_step = {k: v / TIMED_STEPS for k, v in build.LAUNCHES.items()}
-        out[name] = {"ms_per_step": ms, "rays_per_s": runner.tcfg.batch_size * 1e3 / ms,
-                     "launches_per_step": per_step}
-        print(f"[train {os.path.basename(conf_path)}] {name}: {ms:.2f} ms/step, "
-              f"{out[name]['rays_per_s']:.1f} rays/s (batch {runner.tcfg.batch_size}, "
-              f"{TIMED_STEPS} steps after 2 warm-up); launches per step {per_step}")
+        rec = {"replay": {"ms_per_step": []}, "eager": {"ms_per_step": []}}
+        for mode in ("replay", "eager", "replay", "eager"):
+            build.reset_launches()
+            t0 = time.perf_counter()
+            window(mode)
+            torch.cuda.synchronize()
+            rec[mode]["ms_per_step"].append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+            rec[mode]["launches_per_step"] = {k: v / TIMED_STEPS for k, v in build.LAUNCHES.items()}
+        for mode, r in rec.items():
+            prof = profile_window(lambda: window(mode))
+            r.update(rays_per_s=[runner.tcfg.batch_size * 1e3 / ms for ms in r["ms_per_step"]],
+                     device_busy_ms_per_step=(prof["device_busy_ms"] or 0.0) / TIMED_STEPS,
+                     profiled_ms_per_step=prof["profiled_window_ms"] / TIMED_STEPS,
+                     device_events_per_step=prof["device_events"] / TIMED_STEPS,
+                     device_span_ms_per_step=(prof["device_span_ms"] or 0.0) / TIMED_STEPS,
+                     device_gaps_ms_per_step=(prof["device_gaps_ms"] or 0.0) / TIMED_STEPS,
+                     device_idle_share=prof["device_idle_share"])
+            print(f"{tag} {name} {mode}: ms/step {[round(v, 3) for v in r['ms_per_step']]}, "
+                  f"rays/s {[round(v, 1) for v in r['rays_per_s']]} (batch "
+                  f"{runner.tcfg.batch_size}, windows of {TIMED_STEPS} steps); profiled window "
+                  f"{r['profiled_ms_per_step']:.3f} ms/step, device busy "
+                  f"{r['device_busy_ms_per_step']:.3f} ms/step in "
+                  f"{r['device_events_per_step']:.0f} device events over a span of "
+                  f"{r['device_span_ms_per_step']:.3f} ms/step with "
+                  f"{r['device_gaps_ms_per_step']:.3f} ms/step of gaps, device idle share "
+                  f"{r['device_idle_share']}; launches per step {r['launches_per_step']}")
+            if not r["device_busy_ms_per_step"] > 0:
+                raise SystemExit(f"{tag} {name} {mode}: the profiler saw no device time")
+        # the host's sampling of a window's batches, before its first step
+        rec["host_sampling_ms_per_step"] = sampling_ms[-1]
+        print(f"{tag} {name}: host pixel sampling {sampling_ms[-1]:.3f} ms a step, done "
+              f"before a window's first step")
+        if rec["replay"]["launches_per_step"] != rec["eager"]["launches_per_step"]:
+            raise SystemExit(f"{tag} {name}: a replay counts other launches than an eager step")
+        out[name] = rec
     return out
+
+
+def dispatch_check(tmp: str, graphed: dict) -> dict:
+    """The womsk_white_tpu training phase's 40 steps again, with the window's
+    per-step call patched to the eager card step: the same logged steps,
+    checkpoints and meshes, every logged loss within 1e-5 relative of the
+    replayed run's and every parameter tensor of the last checkpoint within
+    1e-5 relative L2, the same launches (a replay adds its program's
+    recorded launches). Replays and eager steps run the same kernels on the
+    same inputs, so both differences are expected to be 0."""
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.train.dispatch import StepDispatch
+    from vdnerf_tpu_torch.utils.hocon import load_conf
+
+    case, tag = graphed["case"], "[dispatch]"
+    conf_path = write_conf(tmp, "exp_eager", TRAIN_KEYS)
+    dirs = {"replay": graphed["conf"].get_string("general.base_exp_dir"),
+            "eager": load_conf(conf_path, case).get_string("general.base_exp_dir")}
+    replay_step = StepDispatch.step
+    StepDispatch.step = StepDispatch.eager_step
+    try:
+        build.reset_launches()
+        cli.main(["--conf", conf_path, "--case", case, "--mode", "train"])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    finally:
+        StepDispatch.step = replay_step
+
+    def listing(sub):
+        return {k: sorted(os.listdir(os.path.join(d, sub))) for k, d in dirs.items()}
+
+    logs = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "logs", "metrics.jsonl")) as f:
+            logs[k] = [json.loads(line) for line in f]
+    steps = {k: [r["step"] for r in v] for k, v in logs.items()}
+    loss_keys = [k for k in logs["replay"][0] if k.endswith("loss")]
+    loss_err = max(abs(e[k] - r[k]) / max(abs(r[k]), 1e-30)
+                   for r, e in zip(logs["replay"], logs["eager"]) for k in loss_keys)
+    ckpts = {k: torch.load(os.path.join(d, "checkpoints", "ckpt_000040.pth"),
+                           map_location="cpu", weights_only=True) for k, d in dirs.items()}
+    param_err = max(_rel_l2(ckpts["replay"][net][name], ckpts["eager"][net][name])
+                    for net in ckpts["replay"] if isinstance(ckpts["replay"][net], dict)
+                    and net != "optimizer" for name in ckpts["replay"][net])
+    meshes_same = {}
+    for name in listing("meshes")["replay"]:
+        data = {}
+        for k, d in dirs.items():
+            with open(os.path.join(d, "meshes", name), "rb") as f:
+                data[k] = f.read()
+        meshes_same[name] = data["replay"] == data["eager"]
+    res = {"logged_loss_max_rel_err": loss_err, "param_max_rel_l2": param_err,
+           "logged_steps": steps["replay"], "meshes_byte_equal": meshes_same,
+           "launches_replay": graphed["launches"], "launches_eager": launches}
+    print(f"{tag} replayed vs eager 40-step womsk_white_tpu run: logged steps {steps}; "
+          f"logged losses {loss_keys} max rel err {loss_err:.3e} (tol 1e-5); parameters max rel "
+          f"L2 {param_err:.3e} (tol 1e-5) over ckpt_000040; meshes byte-equal {meshes_same}; "
+          f"launches replayed {graphed['launches']} eager {launches}")
+    if steps["replay"] != steps["eager"] or listing("checkpoints")["replay"] != \
+            listing("checkpoints")["eager"] or listing("meshes")["replay"] != \
+            listing("meshes")["eager"]:
+        raise SystemExit(f"{tag} the runs logged, saved or meshed other steps")
+    if not loss_err <= 1e-5 or not param_err <= 1e-5:
+        raise SystemExit(f"{tag} the replayed run disagrees with the eager run")
+    if launches != graphed["launches"]:
+        raise SystemExit(f"{tag} launch counts differ")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1162,6 +1281,7 @@ def main() -> int:
         res = slice_phase(tmp)
         reference_check(res["conf"], device)
         train = train_phase(tmp)
+        dispatch = dispatch_check(tmp, train)
         steps = time_train_steps(train["conf_path"])
         gradient_check(train["conf"], device)
         mesh = mesh_phase(train, device)
@@ -1172,7 +1292,7 @@ def main() -> int:
         wdepth = train_phase(tmp, WDEPTH, WDEPTH_KEYS)
         wdepth_steps = time_train_steps(wdepth["conf_path"])
         for core, rec in wdepth_steps.items():
-            per_step = rec["launches_per_step"]
+            per_step = rec["replay"]["launches_per_step"]
             if (per_step["render_fwd"], per_step["render_bwd"], per_step["nerf_fwd"],
                     per_step["nerf_bwd"]) != (2, 2, 1, 1):
                 raise SystemExit(f"{WDEPTH} {core}: launches per step {per_step}, expected K2 "
@@ -1201,7 +1321,7 @@ def main() -> int:
         })
     print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"],
                       "train": {"steps": steps, "summary": train["summary"],
-                                "wall_s": train["wall_s"]},
+                                "wall_s": train["wall_s"], "dispatch_check": dispatch},
                       "train_wmask": {"steps": masked_steps, "summary": masked["summary"],
                                       "wall_s": masked["wall_s"]},
                       "train_wdepth": {"steps": wdepth_steps, "summary": wdepth["summary"],

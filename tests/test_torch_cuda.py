@@ -562,3 +562,150 @@ def test_wdepth_render_launches_both_heads(card):
     assert outs["card"]["render_feats"].shape == (256, 8)
     for k in ("color_fine", "render_feats"):
         torch.testing.assert_close(outs["card"][k], outs["cpu"][k], atol=5e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the captured training step (train/dispatch.py)
+# ---------------------------------------------------------------------------
+
+
+def _small_trainer(card, **tcfg):
+    """A wdepth-shaped trainer at small widths on the card (depth head d_out
+    8, the NeRF's dpt head, a 16-of-32 resampled core, perturbation on),
+    seeded, with a camera 3 units from the sphere -> (trainer, core nets,
+    host batches)."""
+    import dataclasses
+
+    from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
+    from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig
+    from vdnerf_tpu_torch.train.config import TrainConfig
+    from vdnerf_tpu_torch.train.step import Trainer
+
+    nets = NeuSNetworks(
+        sdf=SDFConfig(d_out=65, d_hidden=64, n_layers=4, skip_in=(2,)),
+        color=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4),
+        nerf=NeRFConfig(D=4, W=64, skips=(2,), multires=6, multires_view=2,
+                        gen_depth_feats=True, dpt_dim=8),
+        renderer=RendererConfig(n_samples=16, n_importance=16, n_outside=8, perturb=1.0,
+                                skip_bg_inside=True, n_render_samples=16),
+        depth=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4, d_out=8))
+    faithful = dataclasses.replace(
+        nets, renderer=dataclasses.replace(nets.renderer, n_render_samples=0))
+    cfg = TrainConfig(**{**dict(batch_size=256, end_iter=100, warm_up_end=20, anneal_end=50,
+                                extract_depth=True, depth_start_iter=5, depth_loss_scale=10.0),
+                         **tcfg})
+    W, H, focal = 64, 48, 50.0
+    intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0],
+                           [0, 0, 0, 1]])
+    pose = torch.eye(4)
+    pose[2, 3] = -3.0
+    cams = {"pose_all": pose[None].to(card),
+            "intrin_inv_all": torch.linalg.inv(intrin)[None].to(card)}
+    rng = np.random.default_rng(61)
+    batches = [{
+        "img_idx": np.int32(0),
+        "pixels_x": rng.integers(0, W, size=cfg.batch_size).astype(np.int32),
+        "pixels_y": rng.integers(0, H, size=cfg.batch_size).astype(np.int32),
+        "color": rng.uniform(0, 1, size=(cfg.batch_size, 3)).astype(np.float32),
+        "mask": np.ones((cfg.batch_size, 1), np.float32),
+        "feats": rng.normal(size=(cfg.batch_size, 8)).astype(np.float32),
+    } for _ in range(12)]
+    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(card)
+    trainer = Trainer(cfg, model, cams, torch.Generator(device=card).manual_seed(0))
+    return trainer, faithful, nets, batches
+
+
+def test_captured_step_replays_the_eager_steps(card):
+    """12 steps in windows of 4 through StepDispatch (3 eager warm-up steps,
+    then replays, per program) across two program switches (distillation on
+    from step 6, the resampled core from step 8), against 12 eager card
+    steps of the same seeded trainer: every step's metrics and every final
+    parameter and Adam moment bit for bit equal, the generator at the same
+    offset; Adam's lr (Trainer.inputs[2]) holds the schedule's value at every
+    replay."""
+    from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
+
+    graphed, faithful, resampled, batches = _small_trainer(card)
+    eager = _small_trainer(card)[0]
+    cores = [faithful if s < 8 else resampled for s in range(12)]
+    dispatch = StepDispatch(graphed)
+    lrs, set_step = [], dispatch._set_step
+
+    def recorded(window, j):
+        set_step(window, j)
+        lrs.append((window.steps[j], float(graphed.inputs[2])))
+
+    dispatch._set_step = recorded
+    build.reset_launches()
+    got = []
+    for w in range(3):
+        steps = range(4 * w, 4 * w + 4)
+        got += dispatch.run(steps, cores[4 * w:4 * w + 4], batches[4 * w:4 * w + 4]).read()
+    replay_launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    want = [{k: float(v) for k, v in eager.step(cores[s], batches[s], s).items()}
+            for s in range(12)]
+    # the programs (faithful, no distill) 0-5, (faithful, distill) 6-7,
+    # (resampled, distill) 8-11, each replayed after its warm-up steps
+    programs = [range(0, 6), range(6, 8), range(8, 12)]
+    assert [s for s, _ in lrs] == [s for p in programs for s in p[WARMUP_STEPS:]]
+    assert len(dispatch.programs) == sum(len(p) > WARMUP_STEPS for p in programs) == 2
+    assert all(lr == graphed.schedule(s) and lr > 0 for s, lr in lrs)
+    assert graphed.optimizer.param_groups[0]["lr"].data_ptr() == graphed.inputs[2].data_ptr()
+    assert build.LAUNCHES == replay_launches
+    assert got == want
+    assert graphed.generator.get_offset() == eager.generator.get_offset()
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(graphed.optimizer.state[p][k], eager.optimizer.state[q][k]), name
+
+
+def test_replays_draw_new_jitter(card):
+    """With lr 0 (the parameters never move) and one batch for every step,
+    the replays of one program still give different losses: each draws the
+    next jitter and stratified numbers from the registered generator, as the
+    eager steps do (their losses equal bit for bit)."""
+    from vdnerf_tpu_torch.train.dispatch import StepDispatch
+
+    graphed, faithful, _, batches = _small_trainer(card, learning_rate=0.0, extract_depth=False)
+    eager = _small_trainer(card, learning_rate=0.0, extract_depth=False)[0]
+    dispatch = StepDispatch(graphed)
+    got = [m["loss"] for m in dispatch.run(range(6), [faithful] * 6, [batches[0]] * 6).read()]
+    want = [float(eager.step(faithful, batches[0], s)["loss"]) for s in range(6)]
+    assert len(dispatch.programs) == 1
+    assert got == want
+    assert len(set(got[3:])) == 3, got  # the replays
+
+
+def test_capturable_adam_resumes_from_a_reference_checkpoint(card, tmp_path):
+    """A card trainer's checkpoint holds Adam in the reference format (host
+    tensors, a float lr, capturable off); loaded into a fresh card trainer,
+    Adam is capturable again with its lr the trainer's input and its step
+    counts on the card, and the resumed trainer's next step (a replay)
+    equals the writer's next eager step bit for bit."""
+    from vdnerf_tpu_torch.io.checkpoints import load_reference_checkpoint, save_training_checkpoint
+    from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
+
+    writer, faithful, _, batches = _small_trainer(card, extract_depth=False)
+    for s in range(4):
+        writer.step(faithful, batches[s], s)
+    path = str(tmp_path / "ckpt_000004.pth")
+    save_training_checkpoint(path, writer.model, 4, writer.optimizer)
+    saved = torch.load(path, weights_only=True)["optimizer"]
+    assert all(type(g["lr"]) is float and g["capturable"] is False for g in saved["param_groups"])
+    assert all(t.device.type == "cpu" for st in saved["state"].values() for t in st.values()
+               if torch.is_tensor(t))
+
+    resumed, *_ = _small_trainer(card, extract_depth=False)
+    assert load_reference_checkpoint(path, resumed.model, resumed.optimizer) == 4
+    group = resumed.optimizer.param_groups[0]
+    assert group["capturable"] and group["lr"].data_ptr() == resumed.inputs[2].data_ptr()
+    assert all(st["step"].device.type == "cuda" for st in resumed.optimizer.state.values())
+    steps = range(4, 4 + WARMUP_STEPS + 1)  # the last one a replay
+    resumed.generator.set_state(writer.generator.get_state())
+    StepDispatch(resumed).run(steps, [faithful] * len(steps), batches[4:4 + len(steps)])
+    for s in steps:
+        writer.step(faithful, batches[s], s)
+    for p, q in zip(writer.model.parameters(), resumed.model.parameters()):
+        assert torch.equal(p, q)

@@ -11,9 +11,10 @@ Reads two formats into a :class:`NeuSModel`:
   plus ``iter_step`` and, from training, ``optimizer`` (the torch Adam
   ``state_dict``, parameters in that network order).
 
-Training writes the second format (:func:`save_training_checkpoint`); the JAX
-package's ``import_torch_checkpoint(..., with_optimizer=True)`` reads its
-parameters and Adam moments.
+Training writes the second format (:func:`save_training_checkpoint`), with the
+optimizer's state on the host whatever device trained; the JAX package's
+``import_torch_checkpoint(..., with_optimizer=True)`` reads its parameters and
+Adam moments.
 
 :func:`from_jax_params` carries a JAX parameter tree over: ``[in, out]``
 weights become ``[out, in]``, ``g`` becomes ``weight_g`` of shape ``[out, 1]``.
@@ -117,8 +118,30 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
     for name in _nets_of(model):
         getattr(model, name).load_state_dict(ckpt[name])
     if optimizer is not None:
+        # a capturable optimizer (the card's) keeps its lr tensor, which the
+        # captured step reads, and its step counts on the device
+        keep = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
         optimizer.load_state_dict(ckpt["optimizer"])
+        for group, (lr, capturable) in zip(optimizer.param_groups, keep):
+            if capturable:
+                group.update(lr=lr, capturable=True)
+                for p in group["params"]:
+                    if p in optimizer.state:
+                        state = optimizer.state[p]
+                        state["step"] = state["step"].to(p.device, torch.float32)
     return int(ckpt.get("iter_step", 0))
+
+
+def reference_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict`` in the reference format, whatever the
+    device: host tensors, a float learning rate, ``capturable`` off."""
+    sd = optimizer.state_dict()
+    return {
+        "state": {i: {k: v.detach().cpu() if torch.is_tensor(v) else v for k, v in st.items()}
+                  for i, st in sd["state"].items()},
+        "param_groups": [{**g, "lr": float(g["lr"]), "capturable": False}
+                         for g in sd["param_groups"]],
+    }
 
 
 def save_training_checkpoint(path: str, model: torch.nn.Module, iter_step: int,
@@ -128,7 +151,7 @@ def save_training_checkpoint(path: str, model: torch.nn.Module, iter_step: int,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ckpt = {name: getattr(model, name).state_dict() for name in _nets_of(model)}
     if optimizer is not None:
-        ckpt["optimizer"] = optimizer.state_dict()
+        ckpt["optimizer"] = reference_optimizer_state(optimizer)
     ckpt["iter_step"] = iter_step
     tmp = path + ".tmp"
     torch.save(ckpt, tmp)

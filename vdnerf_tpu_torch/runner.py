@@ -2,11 +2,12 @@
 
 Counterpart of ``vdnerf_tpu/runner.py`` for fixed cameras:
 
-- ``train``: the training loop with the faithful-then-resampled core switch
-  at ``train.resample_from``, metrics to ``logs/metrics.jsonl``, periodic
-  ``ckpt_<iter>.pth`` checkpoints and validation images, checkpoint-and-exit
-  on SIGTERM, resume from the latest checkpoint with ``is_continue``, and the
-  closing all-image evaluation;
+- ``train``: the training loop in windows of ``train.steps_per_call`` steps
+  (each step on the card a CUDA-graph replay, ``train/dispatch.py``) with the
+  faithful-then-resampled core switch at ``train.resample_from``, metrics to
+  ``logs/metrics.jsonl``, periodic ``ckpt_<iter>.pth`` checkpoints and
+  validation images, checkpoint-and-exit on SIGTERM, resume from the latest
+  checkpoint with ``is_continue``, and the closing all-image evaluation;
 - ``valimg_<it>``: masked and unmasked L1/PSNR over all images at
   resolution level 2;
 - ``getfeats_<it>``: per-image argmax-weight depth at full resolution,
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import signal
 import time
@@ -55,6 +57,7 @@ from vdnerf_tpu_torch.io import (
 from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
+from vdnerf_tpu_torch.train.dispatch import StepDispatch
 from vdnerf_tpu_torch.train.step import Trainer
 from vdnerf_tpu_torch.train.validate import ImageRenderer, export_depth_from_sdf, val_image_metrics
 from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
@@ -72,6 +75,20 @@ def mesh_resolution(step: int) -> tuple[int, bool]:
     if step % 50000 == 0:
         return 256, False
     return 128, False
+
+
+def window_size(tcfg: TrainConfig, res_step: int, iter_step: int,
+                resample_boundary: int) -> int:
+    """Steps per dispatch window: ``steps_per_call`` clipped by a gcd with
+    every cadence (metric writes every 10 steps, report, save, validation,
+    mesh), the steps left, the resume iteration and the core switch, as the
+    JAX runner clips it (a term of 0 imposes nothing)."""
+    k = max(1, tcfg.steps_per_call)
+    for m in (10, tcfg.report_freq, tcfg.save_freq, tcfg.val_freq, tcfg.val_mesh_freq,
+              res_step, iter_step, resample_boundary):
+        if m:
+            k = math.gcd(k, m)
+    return k
 
 
 class Runner:
@@ -147,7 +164,16 @@ class Runner:
 
     def train(self) -> dict | None:
         """Train to ``end_iter`` -> the closing ``val_all_imgs`` summary (None
-        when a SIGTERM stopped the run after its checkpoint)."""
+        when a SIGTERM stopped the run after its checkpoint).
+
+        Steps run in windows of K = ``train.steps_per_call`` (``StepDispatch``:
+        graph replays on the card), K clipped as the JAX runner clips it: it
+        divides every cadence (metric writes every 10 steps, report, save,
+        validation, mesh), the steps left, the resume iteration and
+        ``resample_from``, so that windows end on every event and the run is
+        the K = 1 run: the same pixel and jitter streams, the same logged
+        steps, checkpoints, validations and meshes. Metrics come back once
+        per window, and only when a step of it is due."""
         tcfg = self.tcfg
         writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
         # the faithful full-width core up to resample_from, the resampled core
@@ -157,8 +183,10 @@ class Runner:
             resample_boundary = min(tcfg.resample_from, tcfg.end_iter)
         faithful = dataclasses.replace(
             self.nets, renderer=dataclasses.replace(self.nets.renderer, n_render_samples=0))
+        res_step = tcfg.end_iter - self.iter_step
+        k = window_size(tcfg, res_step, self.iter_step, resample_boundary)
 
-        # SIGTERM asks for a checkpoint and a clean exit at the next step
+        # SIGTERM asks for a checkpoint and a clean exit at the next window
         # boundary; the previous handler comes back on every exit path
         self._preempt_signal = None
 
@@ -175,23 +203,36 @@ class Runner:
         image_perm = self.rng.permutation(n_images)
         perm_pos = 0
         throughput = Throughput(tcfg.batch_size)
+        dispatch = StepDispatch(self.trainer)
         try:
-            for _ in range(tcfg.end_iter - self.iter_step):
-                idx = int(image_perm[perm_pos % len(image_perm)])
-                batch = self.store.sample_pixels(idx, tcfg.batch_size, self.rng)
-                perm_pos += 1
-                if perm_pos % len(image_perm) == 0:
-                    image_perm = self.rng.permutation(n_images)
-                step = self.iter_step + 1
-                nets = self.nets if step > resample_boundary else faithful
-                metrics = self.trainer.step(nets, batch, self.iter_step)
-                self.iter_step = step
-                rays_ps = throughput.tick()
-                if step % 10 == 0 or step <= 1:
-                    writer.write(step, {**metrics, "rays_per_sec": rays_ps})
-                if step % tcfg.report_freq == 0:
-                    log.info("iter %d loss=%.5f psnr=%.3f rays/s=%.0f", step,
-                             float(metrics["loss"]), float(metrics["psnr"]), rays_ps)
+            for _ in range(res_step // k):
+                # image draw and pixel sampling interleave per step exactly as
+                # with K = 1 (the permutation refill can land mid-window)
+                batches = []
+                for _j in range(k):
+                    idx = int(image_perm[perm_pos % len(image_perm)])
+                    batches.append(self.store.sample_pixels(idx, tcfg.batch_size, self.rng))
+                    perm_pos += 1
+                    if perm_pos % len(image_perm) == 0:
+                        image_perm = self.rng.permutation(n_images)
+                first = self.iter_step + 1
+                steps = range(self.iter_step, self.iter_step + k)
+                window = dispatch.run(
+                    steps, [self.nets if s + 1 > resample_boundary else faithful for s in steps],
+                    batches)
+                self.iter_step = step = self.iter_step + k
+                rays_ps = throughput.tick(k)
+                due = [s for s in range(first, step + 1)
+                       if s % 10 == 0 or s <= 1 or s % tcfg.report_freq == 0]
+                if due:
+                    rows = window.read()
+                    for s in due:
+                        metrics = rows[s - first]
+                        if s % 10 == 0 or s <= 1:
+                            writer.write(s, {**metrics, "rays_per_sec": rays_ps})
+                        if s % tcfg.report_freq == 0:
+                            log.info("iter %d loss=%.5f psnr=%.3f rays/s=%.0f", s,
+                                     metrics["loss"], metrics["psnr"], rays_ps)
                 if self._preempt_signal is not None:
                     # before the periodic validations: the grace window is short
                     self.save_checkpoint()

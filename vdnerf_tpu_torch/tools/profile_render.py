@@ -12,18 +12,25 @@ training step of ``train/step.py`` (render with the conf's perturbation,
 loss, backward, Adam) on a batch of ``train.batch_size`` pixels of a camera
 3 units from the sphere, once on the faithful core (128 samples in the
 shipped confs) and once on the conf's resampled core (96 in
-``womsk_white_tpu`` and ``womsk_white_wdepth_tpu``, 64 in ``wmask_tpu``). On
-a wdepth conf the batch carries random teacher features and the steps come
-after ``depth_start_iter``, so the depth head trains. For each it reports:
+``womsk_white_tpu`` and ``womsk_white_wdepth_tpu``, 64 in ``wmask_tpu``), in
+windows of ``--iters`` steps through ``train/dispatch.py``: each step a
+replay of the captured step (``replay``, the path training takes), and each
+step launched op by op (``eager``). On a wdepth conf the batch carries random
+teacher features and the steps come after ``depth_start_iter``, so the depth
+head trains. For each it reports:
 
-- the steady-state time of one chunk or step (CUDA events over ``--iters``);
+- the steady-state time of one chunk or step (CUDA events over ``--iters``
+  chunks, or over two windows of ``--iters`` steps);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
   CUDA kernels (a backward is its tile kernel plus the dW contraction that
   K3 and K5 share: ``dw_kernel``, ``reduce_dw_kernel`` and
   ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
   autograd SDF value+gradient+feature block and its backward), and the rest
   (elementwise, reductions, sort, copies);
-- the device's busy and idle share of the profiled window;
+- the device's busy and idle share of the profiled window, the number of
+  device events (kernels and copies) in it, the span from the first event's
+  start to the last one's end and the gaps inside that span when no event
+  ran (idle time outside the span is the host's alone);
 - with ``--train``, each kernel's launches per step, and per head
   (``color_network_fine``, and ``depth_network_fine`` on a wdepth conf) its
   rows, outputs and the CUDA-event times of its K2 and K3 alone at that
@@ -52,6 +59,7 @@ from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
 from vdnerf_tpu_torch.ops.renderer import render
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
+from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
 from vdnerf_tpu_torch.train.step import Trainer
 from vdnerf_tpu_torch.utils.device import configure_numerics
 from vdnerf_tpu_torch.utils.hocon import load_conf
@@ -84,10 +92,10 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def _profile(fn, iters: int, trace: str) -> dict:
-    """Steady-state ms of fn by CUDA events, then one profiled call."""
-    ms = _event_ms(fn, iters)
-
+def profile_window(fn, trace: str = "") -> dict:
+    """One call of fn under ``torch.profiler``: its host-clock window (the
+    profiler's own host overhead included), the device time by group and
+    kernel, and the device's busy and idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -100,22 +108,39 @@ def _profile(fn, iters: int, trace: str) -> dict:
 
     groups: dict[str, float] = {}
     kernels: dict[str, float] = {}
+    spans = []
     for ev in prof.events():
         # a user annotation (Optimizer.step#...) spans kernels counted anyway
         if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
             continue
         us = ev.time_range.elapsed_us()
+        spans.append((ev.time_range.start, ev.time_range.end))
         kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
         groups[_group(ev.name)] = groups.get(_group(ev.name), 0.0) + us / 1e3
     busy_ms = sum(groups.values())
+    # the device's timeline: from its first event's start to its last one's
+    # end, and the time inside that span when no event ran
+    gaps_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is not None and start > reach:
+            gaps_us += start - reach
+        reach = end if reach is None else max(reach, end)
+    span_ms = (reach - min(spans)[0]) / 1e3 if spans else None
     return {
-        "ms": ms,
         "profiled_window_ms": window_ms,
+        "device_events": len(spans),
+        "device_span_ms": span_ms,
+        "device_gaps_ms": gaps_us / 1e3 if spans else None,
         "device_busy_ms": busy_ms if kernels else None,
         "device_idle_share": 1.0 - busy_ms / window_ms if kernels else None,
         "device_ms_by_group": groups,
         "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:15],
     }
+
+
+def _profile(fn, iters: int, trace: str) -> dict:
+    """Steady-state ms of fn by CUDA events, then one profiled call."""
+    return {"ms": _event_ms(fn, iters), **profile_window(fn, trace)}
 
 
 def _heads(model, run_step) -> dict:
@@ -150,7 +175,9 @@ def _heads(model, run_step) -> dict:
 
 
 def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
-    """One training step per core width on a synthetic camera's pixels."""
+    """Training steps per core width on a synthetic camera's pixels, in
+    windows of ``iters`` steps through ``StepDispatch``: replayed (the
+    training path) and eager (each step launched op by op), in turns."""
     tcfg = TrainConfig.from_conf(conf)
     W, H, focal = 400, 300, 300.0
     intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
@@ -175,13 +202,26 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
                        (f"core_{rcfg.n_render_samples}", nets)):
         model = build_model(conf, nets, seed=0).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
+        # one trainer, two per-step calls: a replay, and the eager step
+        dispatch = {"replay": StepDispatch(trainer), "eager": StepDispatch(trainer)}
+        dispatch["eager"].step = dispatch["eager"].eager_step
         step = iter(range(first, 10**9))
-        rec = _profile(lambda: trainer.step(core, batch, next(step)), iters,
-                       trace.replace(".json", f"_{name}.json") if trace else "")
-        rec["rays_per_s"] = tcfg.batch_size / rec["ms"] * 1e3
-        build.reset_launches()
-        trainer.step(core, batch, next(step))
-        rec["launches_per_step"] = dict(build.LAUNCHES)
+
+        def window(mode, n=iters):
+            steps = [next(step) for _ in range(n)]
+            dispatch[mode].run(steps, [core] * n, [batch] * n)
+
+        window("replay", WARMUP_STEPS + 1)  # the warm-up steps, then the capture
+        rec = {}
+        for mode in ("replay", "eager"):
+            r = _profile(lambda: window(mode), 2,
+                         trace.replace(".json", f"_{name}_{mode}.json") if trace else "")
+            r["ms"] /= iters
+            r["rays_per_s"] = tcfg.batch_size / r["ms"] * 1e3
+            build.reset_launches()
+            window(mode, 1)
+            r["launches_per_step"] = dict(build.LAUNCHES)
+            rec[mode] = r
         rec["heads"] = _heads(model, lambda: trainer.step(core, batch, next(step)))
         out[name] = rec
     return out

@@ -40,9 +40,10 @@ class TrainConfig:
     # microbatches per step, gradients averaged (the mean of per-microbatch
     # losses, each normalised by its own sums)
     grad_accum: int = 1
-    # read for parity with the JAX package, which fuses that many steps into
-    # one dispatch; the port runs one step at a time, and the sampling stream
-    # is the same at every value
+    # training steps per dispatch window (clipped by the runner's gcd rule):
+    # on the card each is one replay of the captured step, with one upload
+    # and at most one metrics readback per window; the run is the same at
+    # every value
     steps_per_call: int = 1
     # cosine-lr horizon (0 = end_iter); steps past it hold the alpha*lr floor
     lr_end_iter: int = 0

@@ -9,6 +9,14 @@ depth-feature distillation loss), and Adam with ``neus_lr_schedule``.
 Every normaliser of the loss is a global sum over the batch, taken through
 :func:`_global_sum`: a data-parallel version all-reduces there, and the
 sharded loss is then the single-device one.
+
+What depends on the step number reaches the step as data, so that one
+captured step serves every step (``train/dispatch.py``): the batch as device
+tensors, and :attr:`Trainer.inputs`, a device record of the step's
+``cos_anneal_ratio``, distillation weight and learning rate, computed on the
+host in f32 (:meth:`Trainer.step_inputs`). Whether the distillation term is
+in the loss at all is a separate program (``distill``), as the JAX step's
+gate is a multiply.
 """
 
 from __future__ import annotations
@@ -21,6 +29,17 @@ from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.schedules import neus_lr_schedule
+
+# the fields of Trainer.inputs
+STEP_INPUTS = ("cos_anneal_ratio", "distill_weight", "lr")
+
+
+def metric_names(tcfg: TrainConfig) -> tuple[str, ...]:
+    """The scalars one step reports, in the order loss_fn gives them."""
+    names = ("loss", "color_loss", "eikonal_loss", "mask_loss", "psnr", "s_val", "cdf",
+             "weight_max")
+    return names + (("depth_loss", "psnr_dfeat") if tcfg.extract_depth else ())
+
 
 def _global_sum(x: torch.Tensor) -> torch.Tensor:
     """A sum over this process's rays; across ranks, the place to all-reduce."""
@@ -42,23 +61,42 @@ def cos_anneal_ratio(step: int, anneal_end: int) -> float:
     return float(min(np.float32(1.0), np.float32(step) / np.float32(anneal_end)))
 
 
+def upload_batch(batch: dict, device) -> dict[str, torch.Tensor]:
+    """A host pixel batch (numpy leaves, or the [K, ...] stack of a window)
+    -> tensors on ``device``; to the card through pinned memory without
+    blocking the host. Tensors pass through."""
+    device = torch.device(device)
+    out = {}
+    for name, v in batch.items():
+        t = torch.as_tensor(v)
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[name] = t.to(device, non_blocking=True)
+    return out
+
+
 def rays_from_batch(cams: dict, batch: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Rays of the batch's pixels; ``cams`` holds ``pose_all`` [n, 4, 4] and
-    ``intrin_inv_all`` [n, 4, 4] on the device."""
-    idx = int(batch["img_idx"])
-    px = torch.as_tensor(batch["pixels_x"], device=device)
-    py = torch.as_tensor(batch["pixels_y"], device=device)
-    return pixels_to_rays(cams["pose_all"][idx], cams["intrin_inv_all"][idx], px, py)
+    ``intrin_inv_all`` [n, 4, 4] on the device. The camera is picked by an
+    index tensor, so a batch already on the device is read without a host
+    round trip."""
+    b = upload_batch({k: batch[k] for k in ("img_idx", "pixels_x", "pixels_y")}, device)
+    idx = b["img_idx"].reshape(1)
+    return pixels_to_rays(cams["pose_all"].index_select(0, idx)[0],
+                          cams["intrin_inv_all"].index_select(0, idx)[0],
+                          b["pixels_x"], b["pixels_y"])
 
 
 def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
-            batch: dict, step: int, generator: torch.Generator | None):
-    """-> (loss, metrics {name: detached scalar tensor})."""
+            batch: dict, inputs, distill: bool, generator: torch.Generator | None):
+    """-> (loss, metrics {name: detached scalar tensor}). ``batch``: tensors on
+    the cameras' device; ``inputs``: the step's STEP_INPUTS (the device
+    record, or floats); ``distill``: the distillation term is in the loss."""
     dev = cams["pose_all"].device
     rays_o, rays_d = rays_from_batch(cams, batch, dev)
     near, far = near_far_from_sphere(rays_o, rays_d)
-    true_rgb = torch.as_tensor(batch["color"], device=dev)
-    mask_raw = torch.as_tensor(batch["mask"], device=dev)
+    true_rgb = batch["color"]
+    mask_raw = batch["mask"]
     background_rgb = torch.ones(1, 3, device=dev) if tcfg.use_white_bkgd else None
     if tcfg.use_mask:
         mask = (mask_raw > 0.1).float()
@@ -68,7 +106,7 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
 
     out = render(nets, model, rays_o, rays_d, near, far, generator=generator,
                  background_rgb=background_rgb,
-                 cos_anneal_ratio=cos_anneal_ratio(step, tcfg.anneal_end),
+                 cos_anneal_ratio=inputs[0],
                  depth_before_color=tcfg.depth_before_color)
     color_fine = out["color_fine"]
 
@@ -83,7 +121,7 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
 
     w = torch.clamp(out["weight_sum"], 1e-3, 1.0 - 1e-3)
     bce = -(mask * torch.log(w) + (1.0 - mask) * torch.log(1.0 - w))
-    n_total = _global_sum(torch.tensor(float(bce.numel()), device=dev))
+    n_total = _global_sum(bce.new_full((), float(bce.numel())))
     mask_loss = _global_sum(bce.sum()) / n_total
 
     loss = color_fine_loss + eikonal_loss * tcfg.igr_weight + mask_loss * tcfg.mask_weight
@@ -99,16 +137,14 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
     }
 
     if tcfg.extract_depth:
-        gt_feats = torch.as_tensor(batch["feats"], device=dev)
+        gt_feats = batch["feats"]
         feats = out["render_feats"]
         depth_fine_loss = _global_sum(((feats - gt_feats) * mask).abs().sum()) / mask_sum
         dsq = _global_sum(((feats - gt_feats) ** 2 * mask).sum())
         # mask_sum * 3 whatever the channel count, as the JAX package
         psnr_dfeat = 20.0 * torch.log10(1.0 / torch.sqrt(dsq / (mask_sum * 3.0)))
-        if step > tcfg.depth_start_iter:
-            ramp = depth_ramp_weight(max(step - tcfg.depth_start_iter - 1, 0),
-                                     tcfg.depth_ramp_iters)
-            loss = loss + ramp * tcfg.depth_loss_scale * depth_fine_loss
+        if distill:
+            loss = loss + inputs[1] * depth_fine_loss
         metrics.update(loss=loss, depth_loss=depth_fine_loss, psnr_dfeat=psnr_dfeat)
     return loss, {k: v.detach() for k, v in metrics.items()}
 
@@ -119,7 +155,12 @@ class Trainer:
     ``model.parameters()`` (nerf, sdf, variance, colour[, depth head]: the
     reference's order) with the learning rate ``neus_lr_schedule(step)`` set before the
     update, ``step`` counting updates from 0 as optax's ``count`` does (so
-    the first update under warm-up moves nothing)."""
+    the first update under warm-up moves nothing).
+
+    On the card Adam is ``capturable``: its step counts live on the device and
+    its learning rate is ``inputs[2]``, so that a captured step reads the
+    schedule's value of the step it replays. On the CPU it is torch's default
+    Adam, with the learning rate a float set before each update."""
 
     def __init__(self, tcfg: TrainConfig, model: NeuSModel, cams: dict,
                  generator: torch.Generator | None):
@@ -128,19 +169,52 @@ class Trainer:
         self.cams = cams
         self.generator = generator
         self.params = list(model.parameters())
-        self.optimizer = torch.optim.Adam(self.params, lr=tcfg.learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.device = self.params[0].device
+        self.capturable = self.device.type == "cuda"
+        # the step's STEP_INPUTS, on the device
+        self.inputs = torch.zeros(len(STEP_INPUTS), device=self.device)
+        self.optimizer = torch.optim.Adam(
+            self.params, lr=self.inputs[2] if self.capturable else tcfg.learning_rate,
+            betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
         self.schedule = neus_lr_schedule(
             tcfg.learning_rate, tcfg.warm_up_end, tcfg.lr_end_iter or tcfg.end_iter,
             tcfg.learning_rate_alpha,
         )
+        self.metric_names = metric_names(tcfg)
+
+    def distills(self, step: int) -> bool:
+        """Step ``step`` has the distillation term in its loss."""
+        return self.tcfg.extract_depth and step > self.tcfg.depth_start_iter
+
+    def step_inputs(self, step: int) -> np.ndarray:
+        """STEP_INPUTS of step ``step`` as f32 [3]: min(1, step / anneal_end),
+        the distillation weight (its sigmoid ramp times ``depth_loss_scale``,
+        0 where :meth:`distills` is false) and ``neus_lr_schedule(step)``."""
+        t = self.tcfg
+        weight = 0.0
+        if self.distills(step):
+            weight = depth_ramp_weight(step - t.depth_start_iter - 1,
+                                       t.depth_ramp_iters) * t.depth_loss_scale
+        return np.array([cos_anneal_ratio(step, t.anneal_end), weight, self.schedule(step)],
+                        np.float32)
+
+    def set_inputs(self, step: int) -> None:
+        self.inputs.copy_(upload_batch({"inputs": self.step_inputs(step)}, self.device)["inputs"])
 
     def gradients(self, nets: NeuSNetworks, batch: dict, step: int) -> dict:
-        """Fill ``p.grad`` with the step's gradient -> metrics. With
-        ``grad_accum`` > 1 the rays split into that many contiguous
-        microbatches, and gradients and metrics are their means."""
+        """Fill ``p.grad`` with the gradient of step ``step`` on a host batch
+        -> metrics (see :meth:`device_gradients`)."""
+        self.set_inputs(step)
+        return self.device_gradients(nets, upload_batch(batch, self.device), self.distills(step))
+
+    def device_gradients(self, nets: NeuSNetworks, batch: dict, distill: bool) -> dict:
+        """Fill ``p.grad`` with the gradient at ``inputs`` on a batch of
+        device tensors -> metrics. With ``grad_accum`` > 1 the rays split into
+        that many contiguous microbatches, and gradients and metrics are their
+        means. Each ``.grad`` is made anew by the first backward (under
+        capture, in the graph's pool, where every replay writes it)."""
         accum = max(self.tcfg.grad_accum, 1)
-        n = len(batch["pixels_x"])
+        n = batch["pixels_x"].shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} rays does not split into {accum} microbatches")
         m = n // accum
@@ -150,8 +224,8 @@ class Trainer:
         for k in range(accum):
             sub = {name: v if name == "img_idx" else v[k * m:(k + 1) * m]
                    for name, v in batch.items()}
-            loss, metrics = loss_fn(nets, self.tcfg, self.model, self.cams, sub, step,
-                                    self.generator)
+            loss, metrics = loss_fn(nets, self.tcfg, self.model, self.cams, sub, self.inputs,
+                                    distill, self.generator)
             loss.backward()
             sums = {name: sums.get(name, 0.0) + v for name, v in metrics.items()}
         for p in self.params:
@@ -163,14 +237,26 @@ class Trainer:
 
     def apply(self, step: int) -> None:
         """The Adam update of step ``step`` from the gradients in ``p.grad``."""
-        lr = self.schedule(step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        self.set_inputs(step)
+        self._update()
+
+    def _update(self) -> None:
+        """Adam at the learning rate ``inputs[2]``: read there by the
+        capturable Adam on the card, set as a float on the CPU."""
+        if not self.capturable:
+            for group in self.optimizer.param_groups:
+                group["lr"] = float(self.inputs[2])
         self.optimizer.step()
 
-    def step(self, nets: NeuSNetworks, batch: dict, step: int) -> dict:
-        """Training step ``step`` (0-based) on a pixel batch -> metrics
-        (device scalars)."""
-        metrics = self.gradients(nets, batch, step)
-        self.apply(step)
+    def program(self, nets: NeuSNetworks, batch: dict, distill: bool) -> dict:
+        """One step at ``inputs`` on a batch of device tensors, gradients then
+        Adam -> metrics: what a captured step runs."""
+        metrics = self.device_gradients(nets, batch, distill)
+        self._update()
         return metrics
+
+    def step(self, nets: NeuSNetworks, batch: dict, step: int) -> dict:
+        """Training step ``step`` (0-based) on a host pixel batch -> metrics
+        (device scalars)."""
+        self.set_inputs(step)
+        return self.program(nets, upload_batch(batch, self.device), self.distills(step))
