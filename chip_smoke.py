@@ -17,7 +17,10 @@
    core widths (128 samples; 96 resampled at womsk_white_tpu, 64 at
    wmask_tpu); K2 and K3 with the colour head's 3 outputs and with the depth
    head's 96 (the same net). K4 is held and timed at a chunk's rows and at a
-   training step's, K5 at a step's rows without and with the dpt head. K1
+   training step's, K5 at a step's rows without and with the dpt head, both
+   also at the learn confs' rows, whose background NeRF runs over all 160
+   merged samples (K4 at 81,920 and 655,360, K5 at 81,920, with its d_pts
+   and d_views, which feed the camera gradient, printed on their own). K1
    also holds the plain version's division by 100 on the
    card against the kernel's multiply by 0.01f. Then the dW contraction that
    K3 and K5 share, alone on the scratch their launches left (K3's colour and
@@ -28,8 +31,9 @@
    ``torch.matmul`` calls at its row counts, f32 with TF32 off for K1, bf16
    on pre-rounded operands for the others (a backward with each layer's dX
    and dW products), no epilogue.
-4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere), the
-   conf with only its paths rewritten and a seeded full-width geometric-init
+4. Slice phase: writes a scene (8 views of 400x300 of a shaded sphere, its
+   cameras, and the same cameras with COLMAP-grade noise for the learn
+   confs), the conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
    port's CLI on ``cuda`` with the launch counts set to 0 just before and read
    just after. Fails if a forward kernel was not launched.
@@ -79,7 +83,21 @@
     (ramp > 0.99) and holds the depth and dpt heads' gradients too;
     ``getfeats_40`` from the run's checkpoint launches K2 twice per K4
     launch and writes finite full-resolution depths.
-11. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+11. Learn phase: phase 6 on ``confs/womsk_learn_white_colmap.conf`` at full
+    width (the poses and the focal learned from the noisy cameras; the
+    background NeRF over all 160 samples; one step a window) with
+    ``save_freq`` 10 and ``start_refine_pose_iter`` 10, so that both refine
+    programs are captured: every ``pnf_<it>.pth`` holds the JAX importer's
+    keys, r, t and fx are at their initial values in ``pnf_000010`` and
+    have moved by ``pnf_000020``; then the dispatch check on it (r, t and fx
+    of ``pnf_000040`` included), the gradient check with the camera
+    gradients held at 2^-6, and the timed steps (after the refine gate).
+12. wdepth-learn phase: phase 6 on
+    ``confs/womsk_learn_white_wdepth_colmap.conf`` with ``depth_start_iter``
+    10 and the cameras refined from step 0, as shipped: K2 twice a step, K3
+    once and twice from step 11 on, K4/K5 once; timed steps;
+    ``getfeats_40`` through the cameras of ``pnf_000040``.
+13. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -120,6 +138,11 @@ RAGGED = 37
 # backward over 32 outside samples + 1
 CORE_ROWS = (BATCH * 128, BATCH * 96, BATCH * 64)
 K5_ROWS = BATCH * 33
+# the learn confs run the background NeRF over every one of the 128 + 32
+# merged samples (no skip_bg_inside): K4 and K5 at a step's 81,920 rows, K4
+# at a serving chunk's 655,360
+LEARN_ROWS = BATCH * 160
+LEARN_K4_ROWS = CHUNK * 160
 
 # K1 is f32 throughout: the kernel and torch differ in summation order and in
 # the last ulp of exp/log1p/sin/cos. K2/K4 round every matmul operand to bf16
@@ -380,7 +403,7 @@ def kernel_phase(device) -> dict:
     wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(tw + hw[:4], tb + hb[:4]))
     packed = fused_mlp._nerf_pack(nplan, 4, tw, tb, hw[:4], hb[:4], device)
     errs, shapes = [], []
-    for rows in (K4_ROWS, K5_ROWS):
+    for rows in (K4_ROWS, K5_ROWS, LEARN_ROWS, LEARN_K4_ROWS):
         pts4, views = n_inputs(rows + RAGGED)
         for has_dpt in (False, True):
             dplan = (10, 4, (4,), 8, has_dpt)
@@ -453,27 +476,35 @@ def kernel_phase(device) -> dict:
 
     # K5: the background NeRF's backward at one training step's outside rows,
     # without the dpt head (womsk_white_tpu) and with it (the wdepth recipe)
+    # (and at the learn confs' 81,920 rows, where its input cotangents d_pts
+    # and d_views feed the camera gradient, each held and printed on its own)
     errs, shapes = [], []
-    for has_dpt in (False, True):
+    for rows, has_dpt in ((K5_ROWS, False), (K5_ROWS, True), (LEARN_ROWS, False),
+                          (LEARN_ROWS, True)):
         nplan = (10, 4, (4,), 8, has_dpt)
         heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
         dims = t_dims + (h_dims if has_dpt else h_dims[:4])
-        pts4, views = n_inputs(K5_ROWS + RAGGED)
-        gs = [torch.randn(K5_ROWS + RAGGED, k, generator=gen).to(device)
+        pts4, views = n_inputs(rows + RAGGED)
+        gs = [torch.randn(rows + RAGGED, k, generator=gen).to(device)
               for k in ((1, 3, 96) if has_dpt else (1, 3))]
-        errs.append(_compare_bwd(f"nerf_bwd(has_dpt={has_dpt})", *(flat(x) for x in _bwd_runs(
-            fused_mlp._nerf_bwd_launch, fused_mlp.nerf_bwd_plain,
-            (nplan, pts4, views, tw, tb, *heads, *gs)))))
-        pts4, views = (x[:K5_ROWS].contiguous() for x in (pts4, views))
-        gs = [x[:K5_ROWS].contiguous() for x in gs]
+        runs = [flat(x) for x in _bwd_runs(fused_mlp._nerf_bwd_launch, fused_mlp.nerf_bwd_plain,
+                                           (nplan, pts4, views, tw, tb, *heads, *gs))]
+        name = f"nerf_bwd(rows={rows + RAGGED}, has_dpt={has_dpt})"
+        errs.append(_compare_bwd(name, *runs))
+        for i, what in ((0, "d_pts"), (1, "d_views")):
+            print(f"[kernel] {name} {what}: rel L2 error {_rel_l2(runs[0][i], runs[2][i]):.3e} "
+                  f"(tol {BWD_L2_TOL:.3e}), max abs err "
+                  f"{float((runs[0][i] - runs[2][i]).abs().max()):.3e}")
+        pts4, views = (x[:rows].contiguous() for x in (pts4, views))
+        gs = [x[:rows].contiguous() for x in gs]
         nargs = (nplan, pts4, views, tw, tb, *heads)
         flops_row = 3 * 2 * sum(k * n for k, n in dims)
         wbytes = sum(w.numel() * 6 + b.numel() * 8 for w, b in zip(tw + heads[0], tb + heads[1]))
-        b_ms, b_by = bound(K5_ROWS, flops_row, (4 + 3 + 1 + 3 + (96 if has_dpt else 0) + 4 + 3) * 4,
+        b_ms, b_by = bound(rows, flops_row, (4 + 3 + 1 + 3 + (96 if has_dpt else 0) + 4 + 3) * 4,
                            wbytes, PEAK_BF16_S)
         k5_packed = fused_mlp._nerf_pack(nplan, 4, tw, tb, *heads, device)
-        sc = fused_mlp._BwdScratch(K5_ROWS, k5_packed[2], device)
-        if not has_dpt:
+        sc = fused_mlp._BwdScratch(rows, k5_packed[2], device)
+        if (rows, has_dpt) == (K5_ROWS, False):
             sc5 = sc  # the contraction below is held on womsk_white_tpu's K5 scratch
         outs = [torch.empty_like(pts4), torch.empty_like(views)]
         # without the dpt head the kernel never reads the g_dpt slot
@@ -484,11 +515,11 @@ def kernel_phase(device) -> dict:
             sc.contract()
 
         shapes.append({
-            "rows": K5_ROWS, "has_dpt": has_dpt,
+            "rows": rows, "has_dpt": has_dpt,
             "ms": time_ms(lambda: fused_mlp._nerf_bwd_launch(*nargs, *gs)),
             "kernel_ms": time_ms(k5_launches),
             "plain_ms": time_ms(lambda: fused_mlp.nerf_bwd_plain(*nargs, *gs)),
-            "library_ms": _time_products(dims, K5_ROWS, torch.bfloat16, device, backward=True),
+            "library_ms": _time_products(dims, rows, torch.bfloat16, device, backward=True),
             "library": BF16_PRODUCTS + ", with each layer's dX and dW products",
             "bound_ms": b_ms, "bound_by": b_by, "flops_row": flops_row,
         })
@@ -607,9 +638,13 @@ def _look_at(eye):
 def write_scene(data_dir: str) -> None:
     """8 RGBA views of a Lambertian sphere of radius 0.5 from a ring at
     distance 3, with ``image/cameras_sphere.npz`` (world_mat_<stem> = K w2c,
-    scale_mat_<stem> = I)."""
+    scale_mat_<stem> = I), and ``image/cameras_sphere_colmap.npz``, the
+    learn confs' cameras: the same poses with COLMAP-grade noise from
+    ``perturb_poses`` (seed 5), for the learned cameras to correct."""
     import cv2 as cv
     import numpy as np
+
+    from vdnerf_tpu_torch.data.cameras import perturb_poses
 
     img_dir = os.path.join(data_dir, "image")
     os.makedirs(img_dir)
@@ -619,7 +654,7 @@ def write_scene(data_dir: str) -> None:
     light = np.array([0.4, -0.3, 0.85]) / np.linalg.norm([0.4, -0.3, 0.85])
     xs, ys = np.meshgrid(np.arange(SCENE_W), np.arange(SCENE_H))
     pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
-    cams = {}
+    cams, c2ws = {}, []
     for i in range(SCENE_VIEWS):
         theta = 2 * np.pi * i / SCENE_VIEWS
         c2w = _look_at(3.0 * np.array([np.cos(theta), np.sin(theta), 0.4 + 0.1 * (i % 3)]))
@@ -640,7 +675,12 @@ def write_scene(data_dir: str) -> None:
         cv.imwrite(os.path.join(img_dir, f"{stem}.png"), rgba)
         cams[f"world_mat_{stem}"] = (K @ np.linalg.inv(c2w)).astype(np.float32)
         cams[f"scale_mat_{stem}"] = np.eye(4, dtype=np.float32)
+        c2ws.append(c2w)
     np.savez(os.path.join(img_dir, "cameras_sphere.npz"), **cams)
+    noisy = perturb_poses(np.stack(c2ws), np.random.default_rng(5))
+    np.savez(os.path.join(img_dir, "cameras_sphere_colmap.npz"), **{
+        **cams, **{f"world_mat_{i:03d}": (K @ np.linalg.inv(c2w)).astype(np.float32)
+                   for i, c2w in enumerate(noisy)}})
 
 
 def write_conf(tmp: str, exp: str = "exp", train: dict | None = None,
@@ -769,6 +809,17 @@ BACKGROUND = ("nerf_fwd", "nerf_bwd")
 # so 29 of the 40 steps train the depth head
 WDEPTH = "womsk_white_wdepth_tpu"
 WDEPTH_KEYS = {**TRAIN_KEYS, "depth_start_iter": 10}
+# the learned-camera recipes, cut in depth only; they have no resample_from
+# and no steps_per_call (one step a window, each a replay). The mask-free one
+# refines the cameras from step 11 (not from step 0), so that both refine
+# programs are captured and pnf_000010 still holds the initial cameras; the
+# wdepth one refines from step 0 as shipped, and distills from step 11
+LEARN = "womsk_learn_white_colmap"
+LEARN_KEYS = {"end_iter": 40, "save_freq": 10, "val_freq": 20, "val_mesh_freq": 20,
+              "start_refine_pose_iter": 10}
+LEARN_WDEPTH = "womsk_learn_white_wdepth_colmap"
+LEARN_WDEPTH_KEYS = {"end_iter": 40, "save_freq": 10, "val_freq": 20, "val_mesh_freq": 20,
+                     "depth_start_iter": 10}
 # the recipe's teacher features: 96 channels per view at half the image size
 # (the store upsamples them), from the seed
 FEAT_C, FEAT_SEED = 96, 0
@@ -807,6 +858,7 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
     base = ["--conf", conf_path, "--case", case]
     masked = conf.get_int("model.neus_renderer.n_outside") == 0
     wdepth = conf.get_bool("train.extract_depth")
+    learn = conf.get_bool("train.focal_learnable", default=False)
 
     # the cadence's meshes, each with the launches it made
     meshes, validate_mesh = [], Runner.validate_mesh
@@ -874,9 +926,11 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
         raise SystemExit(f"{tag} the run logged no depth loss: {depth_losses}")
     if masked and not all(v > 0 for v in mask_losses.values()):
         raise SystemExit(f"the masked run logged no mask BCE: {mask_losses}")
+    saves = list(range(keys["save_freq"], keys["end_iter"] + 1, keys["save_freq"]))
     ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
-    if ckpts != ["ckpt_000020.pth", "ckpt_000040.pth"]:
+    if ckpts != [f"ckpt_{it:06d}.pth" for it in saves]:
         raise SystemExit(f"checkpoints written: {ckpts}")
+    pnf = check_pnf(conf, exp_dir, saves, tag) if learn else None
     trained = torch.load(os.path.join(exp_dir, "checkpoints", "ckpt_000040.pth"),
                          map_location="cpu", weights_only=True)
     fresh = build_model(conf, build_networks(conf, wdepth), seed=0)
@@ -900,7 +954,55 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
         raise SystemExit("valimg_40 disagrees with the training run's closing validation")
     return {"launches": launches, "summary": summary, "wall_s": wall, "losses": losses,
             "mask_losses": mask_losses, "depth_losses": depth_losses, "meshes": meshes,
-            "conf": conf, "conf_path": conf_path, "case": case}
+            "conf": conf, "conf_path": conf_path, "case": case, "name": name, "keys": keys,
+            "pnf": pnf}
+
+
+def initial_cameras(conf):
+    """The learned cameras a learnable conf starts from (r = t = 0, fx from
+    the scene's focal), on the CPU."""
+    from vdnerf_tpu_torch.data.cameras import LearnedCameras
+    from vdnerf_tpu_torch.data.dataset import SceneData
+
+    scene = SceneData(conf["dataset"])
+    return LearnedCameras(scene.pose_all, float(scene.focal), scene.H, scene.W,
+                          conf.get_int("model.focal.order", default=2))
+
+
+def check_pnf(conf, exp_dir: str, saves: list[int], tag: str) -> dict:
+    """Each save's ``pnf_<it>.pth``: the reference keys the JAX importer
+    reads (``pose_param_net`` r, t, init_c2w; ``intrin_net`` fx;
+    ``poses_iter_step``) and both camera Adams; r, t and fx exactly at their
+    initial values in a save before the refine gate's first update (step
+    ``start_refine_pose_iter`` + 1), moved in every later one -> the largest
+    change of each per save."""
+    import torch
+
+    start = conf.get_int("train.start_refine_pose_iter")
+    init = initial_cameras(conf).state_dict()
+    names = sorted(os.listdir(os.path.join(exp_dir, "pnf_checkpoints")))
+    if names != [f"pnf_{it:06d}.pth" for it in saves]:
+        raise SystemExit(f"{tag} pnf checkpoints written: {names}")
+    moved = {}
+    for it in saves:
+        ckpt = torch.load(os.path.join(exp_dir, "pnf_checkpoints", f"pnf_{it:06d}.pth"),
+                          map_location="cpu", weights_only=True)
+        if set(ckpt["pose_param_net"]) != {"r", "t", "init_c2w"} or set(ckpt["intrin_net"]) \
+                != {"fx"} or ckpt["poses_iter_step"] != it \
+                or not {"optimizer_pose", "optimizer_focal"} <= set(ckpt):
+            raise SystemExit(f"{tag} pnf_{it:06d}.pth holds {sorted(ckpt)}")
+        got = {**ckpt["pose_param_net"], **ckpt["intrin_net"]}
+        moved[it] = {k: float((got[k] - init[k]).abs().max()) for k in ("r", "t", "fx")}
+        if not torch.equal(got["init_c2w"], init["init_c2w"]):
+            raise SystemExit(f"{tag} pnf_{it:06d}.pth changed init_c2w")
+        # a save at step it holds the updates of steps 0 .. it - 1
+        frozen = it - 1 <= start
+        if (frozen and any(moved[it].values())) or (not frozen and not all(moved[it].values())):
+            raise SystemExit(f"{tag} pnf_{it:06d}.pth: cameras moved by {moved[it]}, refine "
+                             f"gate after step {start}")
+    print(f"{tag} learned cameras, largest change from their initial values per save: {moved} "
+          f"(refine gate after step {start})")
+    return moved
 
 
 def time_train_steps(conf_path: str) -> dict:
@@ -912,7 +1014,9 @@ def time_train_steps(conf_path: str) -> dict:
     loop's validations and meshes, after the program's warm-up and capture;
     then one profiled window of each for the device's busy and idle share. On
     a wdepth conf the steps come after depth_start_iter, so they train the
-    depth head. Also each kernel's launches per timed step."""
+    depth head, and on a learnable conf after start_refine_pose_iter, so
+    they update the cameras; a conf without a resampled core times its one
+    core. Also each kernel's launches per timed step."""
     import dataclasses
 
     import numpy as np
@@ -933,9 +1037,13 @@ def time_train_steps(conf_path: str) -> dict:
     rng = np.random.default_rng(0)
     tag = f"[train {os.path.basename(conf_path)}]"
     out = {}
-    for name, nets in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
-                       (f"core_{rcfg.n_render_samples}", runner.nets)):
-        step = runner.tcfg.depth_start_iter + 1 if runner.tcfg.extract_depth else 0
+    cores = [(f"core_{rcfg.n_samples + rcfg.n_importance}", faithful)]
+    if rcfg.n_render_samples:
+        cores.append((f"core_{rcfg.n_render_samples}", runner.nets))
+    tcfg = runner.tcfg
+    for name, nets in cores:
+        step = max(tcfg.depth_start_iter + 1 if tcfg.extract_depth else 0,
+                   tcfg.start_refine_pose_iter + 1 if tcfg.learnable else 0)
 
         sampling_ms = []
 
@@ -991,13 +1099,14 @@ def time_train_steps(conf_path: str) -> dict:
 
 
 def dispatch_check(tmp: str, graphed: dict) -> dict:
-    """The womsk_white_tpu training phase's 40 steps again, with the window's
-    per-step call patched to the eager card step: the same logged steps,
-    checkpoints and meshes, every logged loss within 1e-5 relative of the
-    replayed run's and every parameter tensor of the last checkpoint within
-    1e-5 relative L2, the same launches (a replay adds its program's
-    recorded launches). Replays and eager steps run the same kernels on the
-    same inputs, so both differences are expected to be 0."""
+    """A training phase's 40 steps again (womsk_white_tpu's, and the learned
+    cameras'), with the window's per-step call patched to the eager card
+    step: the same logged steps, checkpoints and meshes, every logged loss
+    within 1e-5 relative of the replayed run's and every parameter tensor of
+    the last checkpoint (and of its pnf checkpoint: r, t, fx) within 1e-5
+    relative L2, the same launches (a replay adds its program's recorded
+    launches). Replays and eager steps run the same kernels on the same
+    inputs, so both differences are expected to be 0."""
     import torch
 
     from vdnerf_tpu_torch import cli
@@ -1005,8 +1114,8 @@ def dispatch_check(tmp: str, graphed: dict) -> dict:
     from vdnerf_tpu_torch.train.dispatch import StepDispatch
     from vdnerf_tpu_torch.utils.hocon import load_conf
 
-    case, tag = graphed["case"], "[dispatch]"
-    conf_path = write_conf(tmp, "exp_eager", TRAIN_KEYS)
+    case, tag = graphed["case"], f"[dispatch {graphed['name']}]"
+    conf_path = write_conf(tmp, "exp_eager", graphed["keys"], graphed["name"])
     dirs = {"replay": graphed["conf"].get_string("general.base_exp_dir"),
             "eager": load_conf(conf_path, case).get_string("general.base_exp_dir")}
     replay_step = StepDispatch.step
@@ -1035,6 +1144,14 @@ def dispatch_check(tmp: str, graphed: dict) -> dict:
     param_err = max(_rel_l2(ckpts["replay"][net][name], ckpts["eager"][net][name])
                     for net in ckpts["replay"] if isinstance(ckpts["replay"][net], dict)
                     and net != "optimizer" for name in ckpts["replay"][net])
+    cam_err = None
+    if graphed["pnf"] is not None:
+        pnfs = {k: torch.load(os.path.join(d, "pnf_checkpoints", "pnf_000040.pth"),
+                              map_location="cpu", weights_only=True) for k, d in dirs.items()}
+        cam_err = max(_rel_l2(pnfs["replay"][net][name], pnfs["eager"][net][name])
+                      for net, name in (("pose_param_net", "r"), ("pose_param_net", "t"),
+                                        ("intrin_net", "fx")))
+        param_err = max(param_err, cam_err)
     meshes_same = {}
     for name in listing("meshes")["replay"]:
         data = {}
@@ -1043,11 +1160,14 @@ def dispatch_check(tmp: str, graphed: dict) -> dict:
                 data[k] = f.read()
         meshes_same[name] = data["replay"] == data["eager"]
     res = {"logged_loss_max_rel_err": loss_err, "param_max_rel_l2": param_err,
+           "camera_max_rel_l2": cam_err,
            "logged_steps": steps["replay"], "meshes_byte_equal": meshes_same,
            "launches_replay": graphed["launches"], "launches_eager": launches}
-    print(f"{tag} replayed vs eager 40-step womsk_white_tpu run: logged steps {steps}; "
+    print(f"{tag} replayed vs eager 40-step run: logged steps {steps}; "
           f"logged losses {loss_keys} max rel err {loss_err:.3e} (tol 1e-5); parameters max rel "
-          f"L2 {param_err:.3e} (tol 1e-5) over ckpt_000040; meshes byte-equal {meshes_same}; "
+          f"L2 {param_err:.3e} (tol 1e-5) over ckpt_000040"
+          + ("" if cam_err is None else f" and pnf_000040 (r, t, fx: {cam_err:.3e})")
+          + f"; meshes byte-equal {meshes_same}; "
           f"launches replayed {graphed['launches']} eager {launches}")
     if steps["replay"] != steps["eager"] or listing("checkpoints")["replay"] != \
             listing("checkpoints")["eager"] or listing("meshes")["replay"] != \
@@ -1160,8 +1280,9 @@ def mesh_phase(train: dict, device) -> dict:
 def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000) -> dict:
     """One step's loss and gradients at full width on 128 rays (perturb 0):
     the kernels on the card against the plain versions on the CPU. Loss within
-    1e-3 relative; each parameter's gradient within 2^-6 relative L2 error.
-    On a wdepth conf ``step`` lies past depth_start_iter + depth_ramp_iters, so
+    1e-3 relative; each parameter's gradient within 2^-6 relative L2 error,
+    on a learnable conf the cameras' r, t and fx too (at a seeded state off
+    their start, the same on both sides). On a wdepth conf ``step`` lies past depth_start_iter + depth_ramp_iters, so
     the distillation ramp is ~1 and the depth head's and the NeRF's dpt
     head's gradients are held too.
     Both sides round the fused MLPs' operands to bf16, but in another
@@ -1188,11 +1309,25 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
     res = {}
     for key, dev in (("card", device), ("plain", torch.device("cpu"))):
         model = build_model(conf, nets, seed=0).to(dev)
-        cams = {"pose_all": torch.as_tensor(scene.pose_all, device=dev),
-                "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=dev)}
+        if tcfg.learnable:
+            # the learned cameras at a seeded state off their start, so that
+            # Rodrigues' general branch and a moved focal are on the path
+            cams = initial_cameras(conf)
+            rng = np.random.default_rng(3)
+            with torch.no_grad():
+                for p in cams.pose_params():
+                    p.copy_(torch.tensor(rng.normal(scale=0.01, size=p.shape)))
+                cams.fx.mul_(1.01)
+            cams = cams.to(dev)
+        else:
+            cams = {"pose_all": torch.as_tensor(scene.pose_all, device=dev),
+                    "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=dev)}
         metrics = Trainer(tcfg, model, cams, None).gradients(nets, batch, step)
-        res[key] = (float(metrics["loss"]),
-                    {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        if tcfg.learnable:
+            grads.update({f"cameras.{n}": p.grad.detach().cpu()
+                          for n, p in cams.named_parameters()})
+        res[key] = (float(metrics["loss"]), grads)
     loss_err = abs(res["card"][0] - res["plain"][0]) / abs(res["plain"][0])
     rel = {n: float((g - res["plain"][1][n]).norm() / res["plain"][1][n].norm().clamp_min(1e-30))
            for n, g in res["card"][1].items()}
@@ -1204,6 +1339,15 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
     if not loss_err <= 1e-3 or not rel[worst] <= 2.0**-6:
         raise SystemExit("the training step through the kernels disagrees with the plain step")
     out = {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst}
+    if tcfg.learnable:
+        cam = {n: v for n, v in rel.items() if n.startswith("cameras.")}
+        print(f"[grad {name}] camera gradients (r, t, fx) rel L2 error: {cam} (tol "
+              f"{2.0**-6:.3e}); nonzero: "
+              f"{[n for n in cam if float(res['plain'][1][n].abs().max()) > 0]}")
+        if set(cam) != {"cameras.r", "cameras.t", "cameras.fx"} or not all(
+                float(res["plain"][1][n].abs().max()) > 0 for n in cam):
+            raise SystemExit("the learned-camera gradient check did not reach the cameras")
+        out["camera_grad_rel_l2"] = cam
     if tcfg.extract_depth:
         from vdnerf_tpu_torch.train.step import depth_ramp_weight
 
@@ -1221,15 +1365,17 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
 
 
 def serve_wdepth(train: dict) -> dict:
-    """getfeats_40 through the port's CLI from the wdepth run's checkpoint,
+    """getfeats_40 through the port's CLI from a wdepth run's checkpoint,
     with the launch counts set to 0 just before and read just after: each
     chunk runs K2 twice (the depth head, then the colour head) and K4 once
-    with its dpt head, and no backward."""
+    with its dpt head, and no backward. On a learnable conf the runner
+    renders through the cameras of ``pnf_000040.pth``, which moved."""
     import numpy as np
     import torch
 
     from vdnerf_tpu_torch import cli
     from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.runner import Runner
 
     argv = ["--conf", train["conf_path"], "--case", train["case"], "--mode", "getfeats_40"]
     build.reset_launches()
@@ -1240,7 +1386,7 @@ def serve_wdepth(train: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     rays = SCENE_VIEWS * SCENE_H * SCENE_W
-    print(f"[serve {WDEPTH}] getfeats_40: {summary} rays={rays} wall_s={wall:.3f} "
+    print(f"[serve {train['name']}] getfeats_40: {summary} rays={rays} wall_s={wall:.3f} "
           f"rays/s={rays / wall:.1f}; launches {launches}")
     if not all(math.isfinite(v) for v in summary.values()):
         raise SystemExit(f"getfeats_40: non-finite summary {summary}")
@@ -1254,6 +1400,20 @@ def serve_wdepth(train: dict) -> dict:
         depth = np.load(os.path.join(depth_dir, f"sdf_{i:03d}.npy"))
         if depth.shape != (SCENE_H, SCENE_W, 1) or not np.isfinite(depth).all():
             raise SystemExit(f"getfeats_40 wrote a depth of shape {depth.shape}")
+    if train["pnf"] is not None:
+        runner = Runner(train["conf_path"], train["case"], mode="getfeats")
+        runner.load_checkpoint_iter(40)
+        saved = torch.load(os.path.join(runner.base_exp_dir, "pnf_checkpoints", "pnf_000040.pth"),
+                           map_location="cpu", weights_only=True)
+        init = initial_cameras(train["conf"]).state_dict()
+        got = {k: v.cpu() for k, v in runner.cams.state_dict().items()}
+        same = all(torch.equal(got[k], saved[net][k]) for net, k in (
+            ("pose_param_net", "r"), ("pose_param_net", "t"), ("intrin_net", "fx")))
+        moved = float((got["r"] - init["r"]).abs().max())
+        print(f"[serve {train['name']}] the runner's cameras are pnf_000040's: {same}; r moved "
+              f"{moved:.3e} from its start")
+        if not same or not moved > 0:
+            raise SystemExit("getfeats_40 did not render through the learned cameras")
     return {"launches": launches, "summary": summary, "rays_per_s": rays / wall}
 
 
@@ -1302,6 +1462,23 @@ def main() -> int:
             wdepth["conf"], device, WDEPTH,
             step=wdepth_tcfg.depth_start_iter + wdepth_tcfg.depth_ramp_iters + 1000)
         wdepth_serve = serve_wdepth(wdepth)
+        # the learned cameras, mask-free and with distillation, on the
+        # perturbed cameras of write_scene
+        learn = train_phase(tmp, LEARN, LEARN_KEYS)
+        learn_dispatch = dispatch_check(tmp, learn)
+        learn_grad = gradient_check(learn["conf"], device, LEARN)
+        learn_steps = time_train_steps(learn["conf_path"])
+        learn_wdepth = train_phase(tmp, LEARN_WDEPTH, LEARN_WDEPTH_KEYS)
+        learn_wdepth_steps = time_train_steps(learn_wdepth["conf_path"])
+        for name, timed, want in ((LEARN, learn_steps, (1, 1, 1, 1)),
+                                  (LEARN_WDEPTH, learn_wdepth_steps, (2, 2, 1, 1))):
+            for core, rec in timed.items():
+                per_step = rec["replay"]["launches_per_step"]
+                if (per_step["render_fwd"], per_step["render_bwd"], per_step["nerf_fwd"],
+                        per_step["nerf_bwd"]) != want:
+                    raise SystemExit(f"{name} {core}: launches per step {per_step}, expected "
+                                     f"K2, K3, K4, K5 {want}")
+        learn_wdepth_serve = serve_wdepth(learn_wdepth)
 
     kernels = []
     for name, r in kern.items():
@@ -1309,7 +1486,10 @@ def main() -> int:
         by_path = {"serve": res["launches"][name], "train": train["launches"][name],
                    "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name],
                    "train_wdepth": wdepth["launches"][name],
-                   "serve_wdepth": wdepth_serve["launches"][name]}
+                   "serve_wdepth": wdepth_serve["launches"][name],
+                   "train_learn": learn["launches"][name],
+                   "train_learn_wdepth": learn_wdepth["launches"][name],
+                   "serve_learn_wdepth": learn_wdepth_serve["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1329,6 +1509,17 @@ def main() -> int:
                                        "depth_losses": wdepth["depth_losses"],
                                        "gradient_check": wdepth_grad},
                       "serve_wdepth": {k: v for k, v in wdepth_serve.items() if k != "launches"},
+                      "train_learn": {"steps": learn_steps, "summary": learn["summary"],
+                                      "wall_s": learn["wall_s"], "pnf": learn["pnf"],
+                                      "dispatch_check": learn_dispatch,
+                                      "gradient_check": learn_grad},
+                      "train_learn_wdepth": {"steps": learn_wdepth_steps,
+                                             "summary": learn_wdepth["summary"],
+                                             "wall_s": learn_wdepth["wall_s"],
+                                             "pnf": learn_wdepth["pnf"],
+                                             "depth_losses": learn_wdepth["depth_losses"]},
+                      "serve_learn_wdepth": {k: v for k, v in learn_wdepth_serve.items()
+                                             if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

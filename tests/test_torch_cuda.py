@@ -569,13 +569,16 @@ def test_wdepth_render_launches_both_heads(card):
 # ---------------------------------------------------------------------------
 
 
-def _small_trainer(card, **tcfg):
+def _small_trainer(card, learn=False, **tcfg):
     """A wdepth-shaped trainer at small widths on the card (depth head d_out
     8, the NeRF's dpt head, a 16-of-32 resampled core, perturbation on),
     seeded, with a camera 3 units from the sphere -> (trainer, core nets,
-    host batches)."""
+    host batches). With ``learn``, two learned cameras (the second turned
+    about the sphere), batches from both in turn, and the learn confs'
+    camera keys with the refine gate at step 5."""
     import dataclasses
 
+    from vdnerf_tpu_torch.data.cameras import LearnedCameras
     from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
     from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig
     from vdnerf_tpu_torch.train.config import TrainConfig
@@ -591,25 +594,32 @@ def _small_trainer(card, **tcfg):
         depth=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4, d_out=8))
     faithful = dataclasses.replace(
         nets, renderer=dataclasses.replace(nets.renderer, n_render_samples=0))
+    learn_keys = dict(learnable=True, focal_lr=5e-4, pose_lr=5e-4, focal_lr_gamma=0.9,
+                      pose_lr_gamma=0.9, step_size=4, start_refine_pose_iter=5,
+                      start_refine_focal_iter=5) if learn else {}
     cfg = TrainConfig(**{**dict(batch_size=256, end_iter=100, warm_up_end=20, anneal_end=50,
                                 extract_depth=True, depth_start_iter=5, depth_loss_scale=10.0),
-                         **tcfg})
+                         **learn_keys, **tcfg})
     W, H, focal = 64, 48, 50.0
     intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0],
                            [0, 0, 0, 1]])
     pose = torch.eye(4)
     pose[2, 3] = -3.0
-    cams = {"pose_all": pose[None].to(card),
-            "intrin_inv_all": torch.linalg.inv(intrin)[None].to(card)}
+    turned = torch.tensor([[0.0, 0, 1, -3], [0, 1, 0, 0], [-1, 0, 0, 0], [0, 0, 0, 1]])
+    if learn:
+        cams = LearnedCameras(torch.stack([pose, turned]).numpy(), focal, H, W).to(card)
+    else:
+        cams = {"pose_all": pose[None].to(card),
+                "intrin_inv_all": torch.linalg.inv(intrin)[None].to(card)}
     rng = np.random.default_rng(61)
     batches = [{
-        "img_idx": np.int32(0),
+        "img_idx": np.int32(i % 2 if learn else 0),
         "pixels_x": rng.integers(0, W, size=cfg.batch_size).astype(np.int32),
         "pixels_y": rng.integers(0, H, size=cfg.batch_size).astype(np.int32),
         "color": rng.uniform(0, 1, size=(cfg.batch_size, 3)).astype(np.float32),
         "mask": np.ones((cfg.batch_size, 1), np.float32),
         "feats": rng.normal(size=(cfg.batch_size, 8)).astype(np.float32),
-    } for _ in range(12)]
+    } for i in range(12)]
     model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(card)
     trainer = Trainer(cfg, model, cams, torch.Generator(device=card).manual_seed(0))
     return trainer, faithful, nets, batches
@@ -709,3 +719,92 @@ def test_capturable_adam_resumes_from_a_reference_checkpoint(card, tmp_path):
         writer.step(faithful, batches[s], s)
     for p, q in zip(writer.model.parameters(), resumed.model.parameters()):
         assert torch.equal(p, q)
+
+
+def _equal_cameras(a, b):
+    """Two learned-camera trainers hold the same r, t, fx and camera Adams,
+    bit for bit."""
+    for (name, p), q in zip(a.cams.named_parameters(), b.cams.parameters()):
+        assert torch.equal(p, q), name
+    for oa, ob in zip(a.camera_optimizers(), b.camera_optimizers()):
+        for p, q in zip(oa.param_groups[0]["params"], ob.param_groups[0]["params"]):
+            assert (p in oa.state) == (q in ob.state)
+            if p in oa.state:
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    assert torch.equal(oa.state[p][k], ob.state[q][k]), k
+
+
+def test_captured_learned_camera_step_replays_the_eager_steps(card):
+    """12 learned-camera steps in windows of 4 across the refine gate (step
+    5) and the distillation switch (step 6), against 12 eager card steps of
+    the same seeded trainer: the metrics, the networks, r, t, fx and both
+    camera Adams' moments and step counts bit for bit equal; the camera
+    Adams never step before the gate and read their lrs from
+    Trainer.inputs in the replays."""
+    from vdnerf_tpu_torch.train.dispatch import StepDispatch
+
+    graphed, faithful, _, batches = _small_trainer(card, learn=True)
+    eager = _small_trainer(card, learn=True)[0]
+    init = {k: v.clone() for k, v in graphed.cams.state_dict().items()}
+    dispatch = StepDispatch(graphed)
+    got = []
+    for w in range(3):
+        steps = range(4 * w, 4 * w + 4)
+        got += dispatch.run(steps, [faithful] * 4, batches[4 * w:4 * w + 4]).read()
+        if w == 0:
+            # steps 0-3: before the gate, the cameras and their Adams untouched
+            assert all(torch.equal(v, init[k]) for k, v in graphed.cams.state_dict().items())
+            assert graphed.pose_optimizer.state == {} == graphed.focal_optimizer.state
+    want = [{k: float(v) for k, v in eager.step(faithful, batches[s], s).items()}
+            for s in range(12)]
+    # programs: (no distill, no refine) 0-5, (distill, refine) 6-11
+    assert {k[1:] for k in dispatch.programs} == {(False, False), (True, True)}
+    assert got == want
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(p, q), name
+    _equal_cameras(graphed, eager)
+    assert not torch.equal(graphed.cams.r, init["r"]) and not torch.equal(graphed.cams.fx,
+                                                                         init["fx"])
+    for opt, field in zip(graphed.camera_optimizers(), (3, 4)):
+        group = opt.param_groups[0]
+        assert group["capturable"] and group["lr"].data_ptr() == graphed.inputs[field].data_ptr()
+        assert float(opt.state[group["params"][0]]["step"]) == 6
+
+
+def test_learned_cameras_resume_from_a_card_checkpoint(card, tmp_path):
+    """A card trainer's checkpoint and pnf checkpoint, loaded into a fresh
+    card trainer: the camera Adams are capturable again with their lrs the
+    trainer's inputs, and the resumed trainer's next steps (the last a
+    replay) equal the writer's next eager steps bit for bit."""
+    from vdnerf_tpu_torch.io.checkpoints import (
+        load_pnf_checkpoint,
+        load_reference_checkpoint,
+        save_pnf_checkpoint,
+        save_training_checkpoint,
+    )
+    from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
+
+    writer, faithful, _, batches = _small_trainer(card, learn=True, extract_depth=False,
+                                                  start_refine_pose_iter=1)
+    for s in range(4):
+        writer.step(faithful, batches[s], s)
+    save_training_checkpoint(str(tmp_path / "ckpt.pth"), writer.model, 4, writer.optimizer)
+    save_pnf_checkpoint(str(tmp_path / "pnf.pth"), writer.cams, 4,
+                        *writer.camera_optimizers())
+    resumed, *_ = _small_trainer(card, learn=True, extract_depth=False, start_refine_pose_iter=1)
+    load_reference_checkpoint(str(tmp_path / "ckpt.pth"), resumed.model, resumed.optimizer)
+    assert load_pnf_checkpoint(str(tmp_path / "pnf.pth"), resumed.cams,
+                               *resumed.camera_optimizers()) == 4
+    for opt, field in zip(resumed.camera_optimizers(), (3, 4)):
+        group = opt.param_groups[0]
+        assert group["capturable"] and group["lr"].data_ptr() == resumed.inputs[field].data_ptr()
+        assert all(st["step"].device.type == "cuda" for st in opt.state.values())
+    _equal_cameras(writer, resumed)
+    steps = range(4, 4 + WARMUP_STEPS + 1)
+    resumed.generator.set_state(writer.generator.get_state())
+    StepDispatch(resumed).run(steps, [faithful] * len(steps), batches[4:4 + len(steps)])
+    for s in steps:
+        writer.step(faithful, batches[s], s)
+    for p, q in zip(writer.model.parameters(), resumed.model.parameters()):
+        assert torch.equal(p, q)
+    _equal_cameras(writer, resumed)

@@ -16,8 +16,17 @@ optimizer's state on the host whatever device trained; the JAX package's
 ``import_torch_checkpoint(..., with_optimizer=True)`` reads its parameters and
 Adam moments.
 
+The learnable confs' cameras go beside each checkpoint into the reference's
+``pnf_checkpoints/pnf_<iter:06d>.pth`` (:func:`save_pnf_checkpoint`):
+``pose_param_net`` {r, t, init_c2w}, ``intrin_net`` {fx}, ``poses_iter_step``,
+and the two camera Adams under ``optimizer_pose`` / ``optimizer_focal``;
+the JAX package's ``import_torch_pnf_checkpoint`` reads the cameras. A JAX
+``ckpt_*.npz`` of a learnable run holds them as ``cams/...`` leaves
+(:func:`read_jax_cams`).
+
 :func:`from_jax_params` carries a JAX parameter tree over: ``[in, out]``
-weights become ``[out, in]``, ``g`` becomes ``weight_g`` of shape ``[out, 1]``.
+weights become ``[out, in]``, ``g`` becomes ``weight_g`` of shape ``[out, 1]``;
+:func:`from_jax_cams` does the same for the JAX ``cams`` tree.
 """
 
 from __future__ import annotations
@@ -72,6 +81,16 @@ def from_jax_params(params_np: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def from_jax_cams(cams_np: dict) -> dict[str, torch.Tensor]:
+    """JAX learned-camera tree ({pose: {r, t}, focal: {fx}, init_c2w}, numpy
+    leaves) -> the port's ``LearnedCameras`` state_dict."""
+    sd = {"r": _tensor(cams_np["pose"]["r"]), "t": _tensor(cams_np["pose"]["t"]),
+          "fx": _tensor(cams_np["focal"]["fx"]).reshape(())}
+    if "init_c2w" in cams_np:
+        sd["init_c2w"] = _tensor(cams_np["init_c2w"])
+    return sd
+
+
 def _unflatten(flat: dict[str, np.ndarray]) -> Any:
     """{'a/0/b': x} -> {'a': [{'b': x}]}: numeric keys become list indices."""
     tree: dict = {}
@@ -92,17 +111,30 @@ def _unflatten(flat: dict[str, np.ndarray]) -> Any:
     return fix(tree)
 
 
-def read_jax_checkpoint(path: str) -> tuple[dict, int]:
-    """A JAX ``ckpt_*.npz`` -> (params tree of numpy arrays, iter_step)."""
+def _read_npz_tree(path: str, prefix: str) -> tuple[dict, int]:
+    """The leaves of a JAX ``ckpt_*.npz`` under ``prefix/`` as a tree of
+    numpy arrays, and iter_step."""
     flat, step = {}, 0
     with np.load(path) as data:
         for key in data.files:
             leaf_path = key.split("|", 1)[1]
-            if leaf_path.startswith("params/"):
-                flat[leaf_path[len("params/"):]] = data[key]
+            if leaf_path.startswith(prefix + "/"):
+                flat[leaf_path[len(prefix) + 1:]] = data[key]
             elif leaf_path == "step":
                 step = int(data[key])
     return _unflatten(flat), step
+
+
+def read_jax_checkpoint(path: str) -> tuple[dict, int]:
+    """A JAX ``ckpt_*.npz`` -> (params tree of numpy arrays, iter_step)."""
+    return _read_npz_tree(path, "params")
+
+
+def read_jax_cams(path: str) -> dict | None:
+    """The learned cameras of a JAX ``ckpt_*.npz`` (numpy tree), or None when
+    the run had fixed cameras."""
+    cams, _ = _read_npz_tree(path, "cams")
+    return cams if "pose" in cams else None
 
 
 def load_jax_checkpoint(path: str, model: torch.nn.Module) -> int:
@@ -118,18 +150,23 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
     for name in _nets_of(model):
         getattr(model, name).load_state_dict(ckpt[name])
     if optimizer is not None:
-        # a capturable optimizer (the card's) keeps its lr tensor, which the
-        # captured step reads, and its step counts on the device
-        keep = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
-        optimizer.load_state_dict(ckpt["optimizer"])
-        for group, (lr, capturable) in zip(optimizer.param_groups, keep):
-            if capturable:
-                group.update(lr=lr, capturable=True)
-                for p in group["params"]:
-                    if p in optimizer.state:
-                        state = optimizer.state[p]
-                        state["step"] = state["step"].to(p.device, torch.float32)
+        load_optimizer_state(optimizer, ckpt["optimizer"])
     return int(ckpt.get("iter_step", 0))
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``load_state_dict`` that keeps a capturable optimizer (the card's)
+    capturable: its lr tensor, which the captured step reads, is rebound, and
+    its step counts go to the device."""
+    keep = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, (lr, capturable) in zip(optimizer.param_groups, keep):
+        if capturable:
+            group.update(lr=lr, capturable=True)
+            for p in group["params"]:
+                if p in optimizer.state:
+                    state = optimizer.state[p]
+                    state["step"] = state["step"].to(p.device, torch.float32)
 
 
 def reference_optimizer_state(optimizer: torch.optim.Optimizer) -> dict:
@@ -153,13 +190,52 @@ def save_training_checkpoint(path: str, model: torch.nn.Module, iter_step: int,
     if optimizer is not None:
         ckpt["optimizer"] = reference_optimizer_state(optimizer)
     ckpt["iter_step"] = iter_step
+    _save_atomic(ckpt, path)
+
+
+def _save_atomic(obj: dict, path: str) -> None:
     tmp = path + ".tmp"
-    torch.save(ckpt, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_pnf_checkpoint(path: str, cams: torch.nn.Module, iter_step: int,
+                        pose_optimizer: torch.optim.Optimizer | None = None,
+                        focal_optimizer: torch.optim.Optimizer | None = None) -> None:
+    """Write ``LearnedCameras`` in the reference ``pnf_*.pth`` layout, plus
+    the camera Adams when given (reference format), atomically."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    sd = {k: v.detach().cpu() for k, v in cams.state_dict().items()}
+    ckpt = {"pose_param_net": {k: sd[k] for k in ("r", "t", "init_c2w")},
+            "intrin_net": {"fx": sd["fx"]}, "poses_iter_step": iter_step}
+    for key, opt in (("optimizer_pose", pose_optimizer), ("optimizer_focal", focal_optimizer)):
+        if opt is not None:
+            ckpt[key] = reference_optimizer_state(opt)
+    _save_atomic(ckpt, path)
+
+
+def load_pnf_checkpoint(path: str, cams: torch.nn.Module,
+                        pose_optimizer: torch.optim.Optimizer | None = None,
+                        focal_optimizer: torch.optim.Optimizer | None = None) -> int:
+    """Load a reference ``pnf_*.pth`` into ``LearnedCameras`` (and, when given
+    and saved, the camera Adams) -> poses_iter_step."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    pose, intrin = ckpt["pose_param_net"], ckpt["intrin_net"]
+    sd = {"r": pose["r"], "t": pose["t"], "fx": intrin["fx"].reshape(()),
+          "init_c2w": pose.get("init_c2w", cams.init_c2w)}
+    cams.load_state_dict(sd)
+    for key, opt in (("optimizer_pose", pose_optimizer), ("optimizer_focal", focal_optimizer)):
+        if opt is not None and key in ckpt:
+            load_optimizer_state(opt, ckpt[key])
+    return int(ckpt.get("poses_iter_step", 0))
 
 
 def checkpoint_path(base_exp_dir: str, iter_step: int) -> str:
     return os.path.join(base_exp_dir, "checkpoints", f"ckpt_{iter_step:06d}.pth")
+
+
+def pnf_path(base_exp_dir: str, iter_step: int) -> str:
+    return os.path.join(base_exp_dir, "pnf_checkpoints", f"pnf_{iter_step:06d}.pth")
 
 
 def latest_checkpoint(base_exp_dir: str) -> str | None:

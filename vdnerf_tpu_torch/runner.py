@@ -1,6 +1,6 @@
 """Runner: training, and serving renders and depth exports from a checkpoint.
 
-Counterpart of ``vdnerf_tpu/runner.py`` for fixed cameras:
+Counterpart of ``vdnerf_tpu/runner.py`` for fixed and learned cameras:
 
 - ``train``: the training loop in windows of ``train.steps_per_call`` steps
   (each step on the card a CUDA-graph replay, ``train/dispatch.py``) with the
@@ -23,10 +23,13 @@ The wdepth confs (``train.extract_depth``) add the depth head and the
 depth-feature store (``<data_dir>/<img_dir>/<depth_dir>/<stem>.npy``), which
 every mode but the mesh modes loads, as the JAX runner does; ``only_depth`` and
 ``depth_weight`` are parsed and change nothing, and ``c_cat_d`` is not read,
-as there.
-Checkpoints load from the JAX package's ``ckpt_<it>.npz`` or a reference
-``ckpt_<it>.pth``; training writes the latter. The runner runs on
-``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
+as there. The learnable confs (``train.focal_learnable``) train the poses and
+the focal with the networks (``data/cameras.py`` ``LearnedCameras``), and
+every mode renders through the learned cameras.
+Checkpoints load from the JAX package's ``ckpt_<it>.npz`` (the learned cameras
+included) or a reference ``ckpt_<it>.pth`` (the learned cameras from the
+``pnf_checkpoints/pnf_<it>.pth`` beside it); training writes the latter two.
+The runner runs on ``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -42,16 +45,22 @@ import cv2 as cv
 import numpy as np
 import torch
 
+from vdnerf_tpu_torch.data.cameras import LearnedCameras
 from vdnerf_tpu_torch.data.dataset import SceneData
 from vdnerf_tpu_torch.data.rays import RayStore
 from vdnerf_tpu_torch.io import (
     MetricsWriter,
     Throughput,
     checkpoint_path,
+    from_jax_cams,
     latest_checkpoint,
     load_jax_checkpoint,
+    load_pnf_checkpoint,
     load_reference_checkpoint,
+    pnf_path,
+    read_jax_cams,
     record_run,
+    save_pnf_checkpoint,
     save_training_checkpoint,
 )
 from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
@@ -59,7 +68,12 @@ from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import StepDispatch
 from vdnerf_tpu_torch.train.step import Trainer
-from vdnerf_tpu_torch.train.validate import ImageRenderer, export_depth_from_sdf, val_image_metrics
+from vdnerf_tpu_torch.train.validate import (
+    ImageRenderer,
+    export_depth_from_sdf,
+    resolve_cams,
+    val_image_metrics,
+)
 from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
 from vdnerf_tpu_torch.utils.hocon import load_conf
 
@@ -108,8 +122,6 @@ class Runner:
         configure_numerics()
         self.conf = load_conf(conf_path, case, img_dir, npz_postfix)
         self.tcfg = TrainConfig.from_conf(self.conf)
-        if self.tcfg.learnable:
-            raise NotImplementedError("learned cameras are not ported yet")
         self.base_exp_dir = self.conf.get_string("general.base_exp_dir")
         if img_dir != "image":
             self.base_exp_dir += "_" + img_dir.split("image")[-1]
@@ -125,14 +137,23 @@ class Runner:
                                   self.scene_data.depth_lis, with_depth=self.tcfg.extract_depth)
         self.renderer = ImageRenderer(self.nets, self.tcfg, self.scene_data.H, self.scene_data.W)
         self.rng = np.random.default_rng(seed)
+        # the learned cameras (None for a fixed-camera conf), in every mode
+        self.cams = None
+        if self.tcfg.learnable:
+            self.cams = LearnedCameras(
+                self.scene_data.pose_all, float(self.scene_data.focal), self.scene_data.H,
+                self.scene_data.W, self.conf.get_int("model.focal.order", default=2),
+            ).to(self.device)
 
         self.trainer = None
         if mode == "train":
-            cams = {
-                "pose_all": torch.as_tensor(self.scene_data.pose_all, device=self.device),
-                "intrin_inv_all": torch.as_tensor(self.scene_data.intrinsics_all_inv,
-                                                  device=self.device),
-            }
+            cams = self.cams
+            if cams is None:
+                cams = {
+                    "pose_all": torch.as_tensor(self.scene_data.pose_all, device=self.device),
+                    "intrin_inv_all": torch.as_tensor(self.scene_data.intrinsics_all_inv,
+                                                      device=self.device),
+                }
             generator = torch.Generator(device=self.device).manual_seed(seed)
             self.trainer = Trainer(self.tcfg, self.model, cams, generator)
             record_run(self.base_exp_dir, self.conf.get("general.recording", []), conf_path)
@@ -141,23 +162,43 @@ class Runner:
             log.info("resuming from %s", latest)
             self.iter_step = load_reference_checkpoint(
                 latest, self.model, self.trainer.optimizer if self.trainer else None)
+            self._load_pnf(self.iter_step)
 
     # -- checkpoints ----------------------------------------------------------
 
     def load_checkpoint_iter(self, iter_step: int) -> None:
-        """Load ckpt_<iter>.npz (JAX package), else ckpt_<iter>.pth (reference)."""
+        """Load ckpt_<iter>.npz (JAX package), else ckpt_<iter>.pth (reference),
+        with the learned cameras of the one, or of the pnf_<iter>.pth beside
+        the other."""
         stem = os.path.join(self.base_exp_dir, "checkpoints", f"ckpt_{iter_step:06d}")
         if os.path.exists(stem + ".npz"):
             self.iter_step = load_jax_checkpoint(stem + ".npz", self.model)
+            cams = read_jax_cams(stem + ".npz") if self.cams is not None else None
+            if cams is not None:
+                self.cams.load_state_dict(from_jax_cams(cams))
         elif os.path.exists(stem + ".pth"):
             self.iter_step = load_reference_checkpoint(stem + ".pth", self.model)
+            self._load_pnf(iter_step)
         else:
             raise FileNotFoundError(stem + ".npz")
         log.info("loaded checkpoint %s at iter %d", stem, self.iter_step)
 
+    def _load_pnf(self, iter_step: int) -> None:
+        """The learned cameras (and, when training, their Adams) from
+        pnf_<iter>.pth, if the conf learns them and the file exists."""
+        path = pnf_path(self.base_exp_dir, iter_step)
+        if self.cams is None or not os.path.exists(path):
+            return
+        opts = self.trainer.camera_optimizers() if self.trainer else []
+        load_pnf_checkpoint(path, self.cams, *opts)
+        log.info("loaded learned cameras %s", path)
+
     def save_checkpoint(self) -> str:
         path = checkpoint_path(self.base_exp_dir, self.iter_step)
         save_training_checkpoint(path, self.model, self.iter_step, self.trainer.optimizer)
+        if self.cams is not None:
+            save_pnf_checkpoint(pnf_path(self.base_exp_dir, self.iter_step), self.cams,
+                                self.iter_step, *self.trainer.camera_optimizers())
         return path
 
     # -- training -------------------------------------------------------------
@@ -257,10 +298,10 @@ class Runner:
     # -- validation -----------------------------------------------------------
 
     def _render(self, idx: int, resolution_level: int) -> dict:
-        return self.renderer.render_image(
-            self.model, self.scene_data.pose_all[idx],
-            self.scene_data.intrinsics_all_inv[idx], resolution_level, self.iter_step,
-        )
+        poses, intrin_inv = resolve_cams(self.cams, self.scene_data.pose_all,
+                                         self.scene_data.intrinsics_all_inv)
+        return self.renderer.render_image(self.model, poses[idx], intrin_inv[idx],
+                                          resolution_level, self.iter_step)
 
     def validate_image(self, idx: int = -1, resolution_level: int = -1) -> None:
         """validations_fine/ (render over ground truth) and normals/ PNGs."""

@@ -17,7 +17,9 @@ windows of ``--iters`` steps through ``train/dispatch.py``: each step a
 replay of the captured step (``replay``, the path training takes), and each
 step launched op by op (``eager``). On a wdepth conf the batch carries random
 teacher features and the steps come after ``depth_start_iter``, so the depth
-head trains. For each it reports:
+head trains; on a learnable conf the camera's pose and focal are learned and
+the steps come after ``start_refine_pose_iter``, so they update; a conf
+without a resampled core has its faithful core only. For each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``
   chunks, or over two windows of ``--iters`` steps);
@@ -54,6 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from vdnerf_tpu_torch.data.cameras import LearnedCameras
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
 from vdnerf_tpu_torch.ops.renderer import render
@@ -183,7 +186,13 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
     intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
     pose = torch.eye(4)
     pose[2, 3] = -3.0  # on the -z axis, looking along +z at the sphere
-    cams = {"pose_all": pose[None].to(dev), "intrin_inv_all": torch.linalg.inv(intrin)[None].to(dev)}
+    if tcfg.learnable:
+        # the learnable confs learn this camera's pose and focal
+        order = conf.get_int("model.focal.order", default=2)
+        cams = LearnedCameras(pose[None].numpy(), focal, H, W, order).to(dev)
+    else:
+        cams = {"pose_all": pose[None].to(dev),
+                "intrin_inv_all": torch.linalg.inv(intrin)[None].to(dev)}
     rng = np.random.default_rng(0)
     batch = {
         "img_idx": np.int32(0),
@@ -194,12 +203,16 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
         "feats": rng.uniform(0, 1, size=(tcfg.batch_size, nets.depth.d_out if nets.depth else 1))
                  .astype(np.float32),
     }
-    first = tcfg.depth_start_iter + 1 if tcfg.extract_depth else 0
+    # past depth_start_iter and the refine gate: every term and update runs
+    first = max(tcfg.depth_start_iter + 1 if tcfg.extract_depth else 0,
+                tcfg.start_refine_pose_iter + 1 if tcfg.learnable else 0)
     rcfg = nets.renderer
     faithful = dataclasses.replace(nets, renderer=dataclasses.replace(rcfg, n_render_samples=0))
+    cores = [(f"core_{rcfg.n_samples + rcfg.n_importance}", faithful)]
+    if rcfg.n_render_samples:
+        cores.append((f"core_{rcfg.n_render_samples}", nets))
     out = {}
-    for name, core in ((f"core_{rcfg.n_samples + rcfg.n_importance}", faithful),
-                       (f"core_{rcfg.n_render_samples}", nets)):
+    for name, core in cores:
         model = build_model(conf, nets, seed=0).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
         # one trainer, two per-step calls: a replay, and the eager step

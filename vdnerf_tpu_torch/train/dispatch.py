@@ -9,11 +9,13 @@ kernel of it. The window's K batches and step inputs go to the card in one
 upload, and its metrics come back in one transfer (:meth:`Window.read`).
 
 Programs. A step program is a render core (the faithful one before
-``train.resample_from``, the resampled one after it) and, in the wdepth
-recipe, whether the distillation term is in the loss: separate programs
-rather than the JAX step's multiply by a gate, so that each program launches
-what the eager step launches (no depth-head backward before
-``depth_start_iter``). Each is captured at first use, after its first
+``train.resample_from``, the resampled one after it), in the wdepth recipe
+whether the distillation term is in the loss, and in the learnable recipes
+whether the cameras are refined (``start_refine_pose_iter``): separate
+programs rather than the JAX step's multiply by a gate and ``lax.cond``, so
+that each program launches what the eager step launches (no depth-head
+backward before ``depth_start_iter``) and the camera Adams neither step nor
+count before the gate. Each is captured at first use, after its first
 :data:`WARMUP_STEPS` steps ran eagerly on a side stream (PyTorch's
 whole-network capture recipe; they are the run's own steps and fill the
 kernels' cached index tensors, Adam's state and cuBLAS's workspaces, none of
@@ -23,9 +25,10 @@ outlives a replay (parameters, Adam's state, the step inputs, the captured
 batch) was made outside it. A capture error raises: the card never carries
 on eagerly.
 
-What a replay reads is fixed at capture: the parameters, their ``.grad``
-(made by the captured backward), Adam's ``exp_avg``/``exp_avg_sq``/``step``,
-``Trainer.inputs`` (Adam's lr among them), the batch buffers. A replay
+What a replay reads is fixed at capture: the parameters (the learned
+cameras' among them), their ``.grad`` (made by the captured backward), each
+Adam's ``exp_avg``/``exp_avg_sq``/``step``, ``Trainer.inputs`` (the Adams'
+learning rates among them), the batch buffers. A replay
 copies the step's row of the window into them first. The training generator
 is registered with every graph, so each replay draws the next jitter and
 stratified numbers, as an eager step would. A dispatch is made per training
@@ -59,7 +62,7 @@ WARMUP_STEPS = 3
 @dataclasses.dataclass
 class Window:
     """K consecutive training steps: ``steps`` (0-based), their batches and
-    step inputs on the card (``batch`` [K, ...], ``inputs`` [K, 3]; None on
+    step inputs on the card (``batch`` [K, ...], ``inputs`` [K, 5]; None on
     the CPU), and ``metrics`` [K, len(names)] as the steps fill it."""
 
     steps: list[int]
@@ -110,34 +113,37 @@ class StepDispatch:
         window = Window(steps, dev, dev.pop("_inputs"),
                         torch.empty(len(steps), len(names), device=self.device), names)
         for j, (s, n) in enumerate(zip(steps, nets)):
-            self.step(window, j, n, self.trainer.distills(s))
+            self.step(window, j, n, self.trainer.distills(s), self.trainer.refines(s))
         return window
 
-    def step(self, window: Window, j: int, nets: NeuSNetworks, distill: bool) -> None:
+    def step(self, window: Window, j: int, nets: NeuSNetworks, distill: bool,
+             refine: bool) -> None:
         """Step j of the window: a replay of its program, which is captured
         on first use after WARMUP_STEPS eager steps on a side stream."""
-        key = (nets, distill)
+        key = (nets, distill, refine)
         prog = self.programs.get(key)
         if prog is None:
             if self.eager_steps[key] < WARMUP_STEPS:
                 self.eager_steps[key] += 1
                 self.side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(self.side):
-                    self.eager_step(window, j, nets, distill)
+                    self.eager_step(window, j, nets, distill, refine)
                 torch.cuda.current_stream(self.device).wait_stream(self.side)
                 return
-            prog = self.programs[key] = self._capture(window, nets, distill)
+            prog = self.programs[key] = self._capture(window, nets, distill, refine)
         self._set_step(window, j)
         prog.graph.replay()
         window.metrics[j].copy_(prog.metrics)
         for k, v in prog.launches.items():
             build.LAUNCHES[k] += v
 
-    def eager_step(self, window: Window, j: int, nets: NeuSNetworks, distill: bool) -> None:
+    def eager_step(self, window: Window, j: int, nets: NeuSNetworks, distill: bool,
+                   refine: bool) -> None:
         """Step j of the window launched op by op on the card: the program a
         replay runs, on the same inputs (the graph's oracle)."""
         self.trainer.inputs.copy_(window.inputs[j])
-        metrics = self.trainer.program(nets, {k: v[j] for k, v in window.batch.items()}, distill)
+        metrics = self.trainer.program(nets, {k: v[j] for k, v in window.batch.items()},
+                                       distill, refine)
         window.metrics[j].copy_(self._stack(metrics))
 
     def _stack(self, metrics: dict) -> torch.Tensor:
@@ -149,7 +155,8 @@ class StepDispatch:
         for k, buf in self.batch.items():
             buf.copy_(window.batch[k][j])
 
-    def _capture(self, window: Window, nets: NeuSNetworks, distill: bool) -> _Program:
+    def _capture(self, window: Window, nets: NeuSNetworks, distill: bool,
+                 refine: bool) -> _Program:
         if self.batch is None:
             self.batch = {k: torch.empty_like(v[0]) for k, v in window.batch.items()}
         graph = torch.cuda.CUDAGraph()
@@ -157,7 +164,7 @@ class StepDispatch:
             graph.register_generator_state(self.trainer.generator)
         before = dict(build.LAUNCHES)
         with torch.cuda.graph(graph, pool=self.pool):
-            metrics = self._stack(self.trainer.program(nets, self.batch, distill))
+            metrics = self._stack(self.trainer.program(nets, self.batch, distill, refine))
         # the wrappers counted what the capture recorded; nothing ran
         launches = {k: build.LAUNCHES[k] - before[k] for k in before}
         build.LAUNCHES.update(before)

@@ -1,10 +1,13 @@
 """The NeuS train step: pixel batch -> rays -> render -> losses -> Adam.
 
-Counterpart of ``vdnerf_tpu/train/step.py`` for fixed cameras: rays of the
-batch's pixels, near/far on the unit sphere, the render (jitter and
+Counterpart of ``vdnerf_tpu/train/step.py``: rays of the batch's pixels
+(from the fixed cameras, or from the learned pose and focal, so that their
+gradients flow), near/far on the unit sphere, the render (jitter and
 stratified resample drawn from a ``torch.Generator``), the L1 colour +
 eikonal + mask-BCE loss (plus, for the wdepth confs, the sigmoid-ramped
-depth-feature distillation loss), and Adam with ``neus_lr_schedule``.
+depth-feature distillation loss), Adam with ``neus_lr_schedule``, and for
+the learnable confs the pose and focal updates (Adam at the multistep
+learning rates of the global step) past ``start_refine_pose_iter``.
 
 Every normaliser of the loss is a global sum over the batch, taken through
 :func:`_global_sum`: a data-parallel version all-reduces there, and the
@@ -13,10 +16,11 @@ sharded loss is then the single-device one.
 What depends on the step number reaches the step as data, so that one
 captured step serves every step (``train/dispatch.py``): the batch as device
 tensors, and :attr:`Trainer.inputs`, a device record of the step's
-``cos_anneal_ratio``, distillation weight and learning rate, computed on the
-host in f32 (:meth:`Trainer.step_inputs`). Whether the distillation term is
-in the loss at all is a separate program (``distill``), as the JAX step's
-gate is a multiply.
+``cos_anneal_ratio``, distillation weight and learning rates (main, pose,
+focal), computed on the host in f32 (:meth:`Trainer.step_inputs`). Whether
+the distillation term is in the loss (``distill``) and whether the cameras
+are refined (``refine``) are separate programs, where the JAX step
+multiplies by a gate and branches by ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -24,14 +28,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vdnerf_tpu_torch.data.cameras import pixels_to_rays
+from vdnerf_tpu_torch.data.cameras import LearnedCameras, pixels_to_rays
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
 from vdnerf_tpu_torch.train.config import TrainConfig
-from vdnerf_tpu_torch.train.schedules import neus_lr_schedule
+from vdnerf_tpu_torch.train.schedules import (
+    focal_lr_milestones,
+    multistep_schedule,
+    neus_lr_schedule,
+    pose_lr_milestones,
+)
 
 # the fields of Trainer.inputs
-STEP_INPUTS = ("cos_anneal_ratio", "distill_weight", "lr")
+STEP_INPUTS = ("cos_anneal_ratio", "distill_weight", "lr", "pose_lr", "focal_lr")
 
 
 def metric_names(tcfg: TrainConfig) -> tuple[str, ...]:
@@ -75,24 +84,29 @@ def upload_batch(batch: dict, device) -> dict[str, torch.Tensor]:
     return out
 
 
-def rays_from_batch(cams: dict, batch: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rays of the batch's pixels; ``cams`` holds ``pose_all`` [n, 4, 4] and
-    ``intrin_inv_all`` [n, 4, 4] on the device. The camera is picked by an
-    index tensor, so a batch already on the device is read without a host
-    round trip."""
+def rays_from_batch(cams, batch: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rays of the batch's pixels. ``cams``: the fixed cameras, a dict of
+    ``pose_all`` [n, 4, 4] and ``intrin_inv_all`` [n, 4, 4] on the device,
+    or :class:`LearnedCameras` (the learned c2w and the inverse of the
+    learned K, differentiable). The camera is picked by an index tensor, so
+    a batch already on the device is read without a host round trip."""
     b = upload_batch({k: batch[k] for k in ("img_idx", "pixels_x", "pixels_y")}, device)
     idx = b["img_idx"].reshape(1)
-    return pixels_to_rays(cams["pose_all"].index_select(0, idx)[0],
-                          cams["intrin_inv_all"].index_select(0, idx)[0],
-                          b["pixels_x"], b["pixels_y"])
+    if isinstance(cams, LearnedCameras):
+        pose, intrin_inv = cams.c2w(idx)[0], cams.K_inv()
+    else:
+        pose = cams["pose_all"].index_select(0, idx)[0]
+        intrin_inv = cams["intrin_inv_all"].index_select(0, idx)[0]
+    return pixels_to_rays(pose, intrin_inv, b["pixels_x"], b["pixels_y"])
 
 
-def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams: dict,
+def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
             batch: dict, inputs, distill: bool, generator: torch.Generator | None):
-    """-> (loss, metrics {name: detached scalar tensor}). ``batch``: tensors on
-    the cameras' device; ``inputs``: the step's STEP_INPUTS (the device
-    record, or floats); ``distill``: the distillation term is in the loss."""
-    dev = cams["pose_all"].device
+    """-> (loss, metrics {name: detached scalar tensor}). ``cams``: as
+    :func:`rays_from_batch` takes them; ``batch``: tensors on the cameras'
+    device; ``inputs``: the step's STEP_INPUTS (the device record, or
+    floats); ``distill``: the distillation term is in the loss."""
+    dev = batch["color"].device
     rays_o, rays_d = rays_from_batch(cams, batch, dev)
     near, far = near_far_from_sphere(rays_o, rays_d)
     true_rgb = batch["color"]
@@ -157,12 +171,21 @@ class Trainer:
     update, ``step`` counting updates from 0 as optax's ``count`` does (so
     the first update under warm-up moves nothing).
 
-    On the card Adam is ``capturable``: its step counts live on the device and
-    its learning rate is ``inputs[2]``, so that a captured step reads the
-    schedule's value of the step it replays. On the CPU it is torch's default
-    Adam, with the learning rate a float set before each update."""
+    With :class:`LearnedCameras` (the learnable confs) the loss also takes
+    the gradient of the cameras' ``r``, ``t`` and ``fx`` (dense: zero rows
+    for the cameras not in the batch), and past ``start_refine_pose_iter``
+    (:meth:`refines`; it gates pose and focal alike, as in the JAX step) two
+    more Adams step, one over (r, t) and one over fx, with optax
+    ``scale_by_adam``'s defaults at the multistep learning rates of the
+    global step. Before the gate they neither step nor count.
 
-    def __init__(self, tcfg: TrainConfig, model: NeuSModel, cams: dict,
+    On the card every Adam is ``capturable``: its step counts live on the
+    device and its learning rate is a field of ``inputs`` (``lr``,
+    ``pose_lr``, ``focal_lr``), so that a captured step reads the schedule's
+    value of the step it replays. On the CPU they are torch's default Adam,
+    with the learning rate a float set before each update."""
+
+    def __init__(self, tcfg: TrainConfig, model: NeuSModel, cams,
                  generator: torch.Generator | None):
         self.tcfg = tcfg
         self.model = model
@@ -173,30 +196,61 @@ class Trainer:
         self.capturable = self.device.type == "cuda"
         # the step's STEP_INPUTS, on the device
         self.inputs = torch.zeros(len(STEP_INPUTS), device=self.device)
-        self.optimizer = torch.optim.Adam(
-            self.params, lr=self.inputs[2] if self.capturable else tcfg.learning_rate,
-            betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
+        self.optimizer = self._adam(self.params, 2, tcfg.learning_rate)
         self.schedule = neus_lr_schedule(
             tcfg.learning_rate, tcfg.warm_up_end, tcfg.lr_end_iter or tcfg.end_iter,
             tcfg.learning_rate_alpha,
         )
+        self.learnable = isinstance(cams, LearnedCameras)
+        if self.learnable != tcfg.learnable:
+            raise ValueError("a learnable conf trains LearnedCameras, a fixed one a camera dict")
+        self.cam_params = []
+        if self.learnable:
+            self.cam_params = list(cams.parameters())
+            self.pose_optimizer = self._adam(cams.pose_params(), 3, tcfg.pose_lr)
+            self.focal_optimizer = self._adam([cams.fx], 4, tcfg.focal_lr)
+            self.pose_schedule = multistep_schedule(
+                tcfg.pose_lr,
+                pose_lr_milestones(tcfg.warm_up_end, tcfg.end_iter, tcfg.step_size),
+                tcfg.pose_lr_gamma)
+            self.focal_schedule = multistep_schedule(
+                tcfg.focal_lr,
+                focal_lr_milestones(tcfg.warm_up_end, tcfg.end_iter, tcfg.step_size),
+                tcfg.focal_lr_gamma)
         self.metric_names = metric_names(tcfg)
+
+    def _adam(self, params, field: int, lr: float) -> torch.optim.Adam:
+        """Adam (0.9, 0.999, 1e-8) whose lr on the card is ``inputs[field]``."""
+        return torch.optim.Adam(params, lr=self.inputs[field] if self.capturable else lr,
+                                betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
+
+    def camera_optimizers(self) -> list[torch.optim.Adam]:
+        """The cameras' Adams, pose then focal (lrs ``inputs[3]``, ``inputs[4]``)."""
+        return [self.pose_optimizer, self.focal_optimizer] if self.learnable else []
 
     def distills(self, step: int) -> bool:
         """Step ``step`` has the distillation term in its loss."""
         return self.tcfg.extract_depth and step > self.tcfg.depth_start_iter
 
+    def refines(self, step: int) -> bool:
+        """Step ``step`` updates the learned cameras."""
+        return self.learnable and step > self.tcfg.start_refine_pose_iter
+
     def step_inputs(self, step: int) -> np.ndarray:
-        """STEP_INPUTS of step ``step`` as f32 [3]: min(1, step / anneal_end),
+        """STEP_INPUTS of step ``step`` as f32 [5]: min(1, step / anneal_end),
         the distillation weight (its sigmoid ramp times ``depth_loss_scale``,
-        0 where :meth:`distills` is false) and ``neus_lr_schedule(step)``."""
+        0 where :meth:`distills` is false), ``neus_lr_schedule(step)``, and
+        the pose and focal learning rates (0 without learned cameras)."""
         t = self.tcfg
         weight = 0.0
         if self.distills(step):
             weight = depth_ramp_weight(step - t.depth_start_iter - 1,
                                        t.depth_ramp_iters) * t.depth_loss_scale
-        return np.array([cos_anneal_ratio(step, t.anneal_end), weight, self.schedule(step)],
-                        np.float32)
+        cam_lrs = [0.0, 0.0]
+        if self.learnable:
+            cam_lrs = [self.pose_schedule(step), self.focal_schedule(step)]
+        return np.array([cos_anneal_ratio(step, t.anneal_end), weight, self.schedule(step),
+                         *cam_lrs], np.float32)
 
     def set_inputs(self, step: int) -> None:
         self.inputs.copy_(upload_batch({"inputs": self.step_inputs(step)}, self.device)["inputs"])
@@ -208,17 +262,19 @@ class Trainer:
         return self.device_gradients(nets, upload_batch(batch, self.device), self.distills(step))
 
     def device_gradients(self, nets: NeuSNetworks, batch: dict, distill: bool) -> dict:
-        """Fill ``p.grad`` with the gradient at ``inputs`` on a batch of
-        device tensors -> metrics. With ``grad_accum`` > 1 the rays split into
-        that many contiguous microbatches, and gradients and metrics are their
-        means. Each ``.grad`` is made anew by the first backward (under
-        capture, in the graph's pool, where every replay writes it)."""
+        """Fill ``p.grad`` of the networks (and the learned cameras) with the
+        gradient at ``inputs`` on a batch of device tensors -> metrics. With
+        ``grad_accum`` > 1 the rays split into that many contiguous
+        microbatches, and gradients and metrics are their means. Each
+        ``.grad`` is made anew by the first backward (under capture, in the
+        graph's pool, where every replay writes it)."""
         accum = max(self.tcfg.grad_accum, 1)
         n = batch["pixels_x"].shape[0]
         if n % accum:
             raise ValueError(f"batch of {n} rays does not split into {accum} microbatches")
         m = n // accum
-        for p in self.params:
+        params = self.params + self.cam_params
+        for p in params:
             p.grad = None
         sums = {}
         for k in range(accum):
@@ -228,7 +284,7 @@ class Trainer:
                                     distill, self.generator)
             loss.backward()
             sums = {name: sums.get(name, 0.0) + v for name, v in metrics.items()}
-        for p in self.params:
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             elif accum > 1:
@@ -236,27 +292,31 @@ class Trainer:
         return {name: v * (1.0 / accum) if accum > 1 else v for name, v in sums.items()}
 
     def apply(self, step: int) -> None:
-        """The Adam update of step ``step`` from the gradients in ``p.grad``."""
+        """The Adam updates of step ``step`` from the gradients in ``p.grad``."""
         self.set_inputs(step)
-        self._update()
+        self._update(self.refines(step))
 
-    def _update(self) -> None:
-        """Adam at the learning rate ``inputs[2]``: read there by the
-        capturable Adam on the card, set as a float on the CPU."""
-        if not self.capturable:
-            for group in self.optimizer.param_groups:
-                group["lr"] = float(self.inputs[2])
-        self.optimizer.step()
+    def _update(self, refine: bool) -> None:
+        """Adam at the learning rate ``inputs[2]``, and with ``refine`` the
+        camera Adams at ``inputs[3]`` and ``inputs[4]``: read there by the
+        capturable Adams on the card, set as floats on the CPU."""
+        opts = [self.optimizer] + (self.camera_optimizers() if refine else [])
+        for opt, field in zip(opts, (2, 3, 4)):
+            if not self.capturable:
+                for group in opt.param_groups:
+                    group["lr"] = float(self.inputs[field])
+            opt.step()
 
-    def program(self, nets: NeuSNetworks, batch: dict, distill: bool) -> dict:
+    def program(self, nets: NeuSNetworks, batch: dict, distill: bool, refine: bool) -> dict:
         """One step at ``inputs`` on a batch of device tensors, gradients then
         Adam -> metrics: what a captured step runs."""
         metrics = self.device_gradients(nets, batch, distill)
-        self._update()
+        self._update(refine)
         return metrics
 
     def step(self, nets: NeuSNetworks, batch: dict, step: int) -> dict:
         """Training step ``step`` (0-based) on a host pixel batch -> metrics
         (device scalars)."""
         self.set_inputs(step)
-        return self.program(nets, upload_batch(batch, self.device), self.distills(step))
+        return self.program(nets, upload_batch(batch, self.device), self.distills(step),
+                            self.refines(step))

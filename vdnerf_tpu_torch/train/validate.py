@@ -1,7 +1,9 @@
 """Full-image rendering, validation metrics and the depth export.
 
-Counterpart of ``vdnerf_tpu/train/validate.py`` (fixed cameras):
+Counterpart of ``vdnerf_tpu/train/validate.py``:
 
+- :func:`resolve_cams`: every camera's c2w and inverse intrinsics, the
+  learned ones for a learnable conf.
 - :class:`ImageRenderer`: rays in chunks through :func:`render`, RGB,
   camera-frame normals and the argmax-weight depth.
 - :func:`val_image_metrics`: masked L1 and PSNR.
@@ -21,6 +23,19 @@ from vdnerf_tpu_torch.data.cameras import rays_grid
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
 from vdnerf_tpu_torch.train.config import TrainConfig
+
+
+def resolve_cams(cams, pose_all: np.ndarray,
+                 intrin_inv_all: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """-> (pose_all [n, 4, 4], intrin_inv [n, 4, 4]) on the host: the fixed
+    cameras given, or with :class:`LearnedCameras` ``cams`` the learned c2w
+    of every camera and the inverse of the learned K."""
+    if cams is None:
+        return pose_all, intrin_inv_all
+    with torch.no_grad():
+        poses = cams.all_c2w().cpu().numpy()
+        intrin_inv = cams.K_inv().cpu().numpy()
+    return poses, np.tile(intrin_inv, (len(poses), 1, 1))
 
 
 class ImageRenderer:
