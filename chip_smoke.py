@@ -70,8 +70,22 @@
    ``confs/wmask_tpu.conf`` (no outside samples, a 64-of-128 resampled core
    at frac 0.25, the mask BCE): K1-K3 must run and K4/K5 never; the
    background NeRF must not move; the mask loss is logged finite.
-10. wdepth phase: seeded 96-channel features at half the image size per view
-    (``image/wavelet_feats/0/<stem>.npy``), then phase 6 on
+10. Cycle phase (the monodepth side-car between NeuS's first and last
+    stage): ``getfeats_40`` through the CLI from phase 6's checkpoint (the
+    ``depth_from_sdf`` export, launch counts set to 0 before and read
+    after); ``vdnerf_tpu_torch.wavelet.finetune`` at its defaults
+    (DenseNet-161, the wavelet decoder, 800^2 inputs, batch 4, from flax's
+    initialisation) for 2 epochs over the 8 views (4 steps, each timed by
+    CUDA events, every loss finite, one validation with its images, the
+    checkpoints); ``wavelet.predict`` on ``image/``: one float32 [1, 96,
+    150, 200] file per view under ``image/wavelet_feats/0``, finite and
+    nonzero; then the side-car on the card against the same module and
+    weights on the CPU: DenseNet-161's five eval taps at one 256^2 image
+    (1e-4 relative L2 each), and one training-mode step's loss and encoder
+    gradients at a batch of 2 (1e-3). Prints the step's median time after
+    the first, images/s, predict's ms per image, the peak memory and the
+    card's name and power limit.
+11. wdepth phase: on the features predict wrote, phase 6 on
     ``confs/womsk_white_wdepth_tpu.conf`` at full width (the depth head
     4x256 -> 96, the NeRF's dpt head) with ``depth_start_iter`` 10: K3 must
     run once a step for the colour head and once more from step 11 on, K5
@@ -83,7 +97,7 @@
     (ramp > 0.99) and holds the depth and dpt heads' gradients too;
     ``getfeats_40`` from the run's checkpoint launches K2 twice per K4
     launch and writes finite full-resolution depths.
-11. Learn phase: phase 6 on ``confs/womsk_learn_white_colmap.conf`` at full
+12. Learn phase: phase 6 on ``confs/womsk_learn_white_colmap.conf`` at full
     width (the poses and the focal learned from the noisy cameras; the
     background NeRF over all 160 samples; one step a window) with
     ``save_freq`` 10 and ``start_refine_pose_iter`` 10, so that both refine
@@ -92,12 +106,12 @@
     have moved by ``pnf_000020``; then the dispatch check on it (r, t and fx
     of ``pnf_000040`` included), the gradient check with the camera
     gradients held at 2^-6, and the timed steps (after the refine gate).
-12. wdepth-learn phase: phase 6 on
+13. wdepth-learn phase: phase 6 on
     ``confs/womsk_learn_white_wdepth_colmap.conf`` with ``depth_start_iter``
     10 and the cameras refined from step 0, as shipped: K2 twice a step, K3
     once and twice from step 11 on, K4/K5 once; timed steps;
     ``getfeats_40`` through the cameras of ``pnf_000040``.
-13. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+14. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -820,24 +834,6 @@ LEARN_KEYS = {"end_iter": 40, "save_freq": 10, "val_freq": 20, "val_mesh_freq": 
 LEARN_WDEPTH = "womsk_learn_white_wdepth_colmap"
 LEARN_WDEPTH_KEYS = {"end_iter": 40, "save_freq": 10, "val_freq": 20, "val_mesh_freq": 20,
                      "depth_start_iter": 10}
-# the recipe's teacher features: 96 channels per view at half the image size
-# (the store upsamples them), from the seed
-FEAT_C, FEAT_SEED = 96, 0
-
-
-def write_features(data_dir: str, depth_dir: str) -> None:
-    """One [96, 150, 200] f32 .npy of seeded features per view under
-    <data_dir>/image/<depth_dir>, as the wdepth conf reads them."""
-    import numpy as np
-
-    out = os.path.join(data_dir, "image", depth_dir)
-    os.makedirs(out, exist_ok=True)
-    rng = np.random.default_rng(FEAT_SEED)
-    for i in range(SCENE_VIEWS):
-        f = rng.normal(size=(FEAT_C, SCENE_H // 2, SCENE_W // 2)).astype(np.float32)
-        np.save(os.path.join(out, f"{i:03d}.npy"), f)
-
-
 def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS) -> dict:
     """--mode train of confs/<name>.conf (with the ``keys`` of its train
     block rewritten) through the port's CLI on the card, then valimg_40 from
@@ -1364,6 +1360,185 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
     return out
 
 
+# the cycle phase: the monodepth side-car at the finetune CLI's defaults
+# (DenseNet-161, the wavelet decoder, 800^2 inputs, batch 4), 2 epochs over
+# the 8 views (4 steps), one validation at step 3; the card-vs-CPU check on
+# one 256^2 image (taps) and a batch of 2 (one step's loss and gradients).
+# The training-mode gradient is ill-conditioned in f32 (the L1 loss's
+# gradient is nearly uniform, and each BatchNorm's backward subtracts its
+# mean): where the CPU's own f32 gradient is farther than STEP_TOL from its
+# f64 evaluation, the card's must be within 1.5x that distance of f64
+CYCLE_SIZE, CYCLE_BATCH, CYCLE_EPOCHS, CYCLE_VAL_FREQ = 800, 4, 2, 3
+CHECK_SIZE, TAP_TOL, STEP_TOL = 256, 1e-4, 1e-3
+
+
+def cycle_phase(tmp: str, train: dict, device) -> dict:
+    """The paper's cycle on the card, between its first and last stage:
+    getfeats_40 from the womsk_white_tpu run's checkpoint (depth_from_sdf),
+    ``wavelet.finetune`` on that export, ``wavelet.predict`` writing the
+    96-channel features the wdepth phase then trains on; then the side-car
+    on the card against itself on the CPU."""
+    import copy
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.wavelet import finetune as finetune_cli
+    from vdnerf_tpu_torch.wavelet import predict as predict_cli
+    from vdnerf_tpu_torch.wavelet.io import load_model_from_folder
+    from vdnerf_tpu_torch.wavelet.model import WaveletOpts, create_model
+    from vdnerf_tpu_torch.wavelet.train_lib import finetune_loss
+
+    data_root = os.path.join(tmp, "depth_data")
+    img_dir = os.path.join(data_root, train["case"], "image")
+
+    # 1. the depth export of the trained NeuS
+    build.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.main(["--conf", train["conf_path"], "--case", train["case"],
+                        "--mode", "getfeats_40"])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"[cycle] getfeats_40 from the {train['name']} run: {summary} "
+          f"wall_s={time.perf_counter() - t0:.3f}; launches {launches}")
+    if not all(math.isfinite(v) for v in summary.values()) or not launches["sdf_fwd"] \
+            or not launches["render_fwd"] or not launches["nerf_fwd"]:
+        raise SystemExit(f"getfeats_40 for the cycle: summary {summary}, launches {launches}")
+    for i in range(SCENE_VIEWS):
+        depth = np.load(os.path.join(img_dir, "depth_from_sdf", f"sdf_{i:03d}.npy"))
+        if depth.shape != (SCENE_H, SCENE_W, 1) or not np.isfinite(depth).all():
+            raise SystemExit(f"getfeats_40 wrote a depth of shape {depth.shape}")
+
+    # 2. finetune, each step timed by CUDA events
+    step_ms = []
+    make_step = finetune_cli.make_finetune_step
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(batch, lr):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(batch, lr)
+            stop.record()
+            stop.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+            return out
+
+        return timed
+
+    finetune_cli.make_finetune_step = timed_make_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logpath = finetune_cli.finetune([
+            "-r", data_root, "--case", train["case"], "--image_size", str(CYCLE_SIZE),
+            "-bs", str(CYCLE_BATCH), "--epochs", str(CYCLE_EPOCHS),
+            "--val_freq", str(CYCLE_VAL_FREQ), "--log_every", "1",
+            "--logdir", os.path.join(tmp, "wavelet_log")])
+        torch.cuda.synchronize()
+        finetune_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        finetune_cli.make_finetune_step = make_step
+    n_steps = CYCLE_EPOCHS * math.ceil(SCENE_VIEWS / CYCLE_BATCH)
+    with open(os.path.join(logpath, "train", "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    with open(os.path.join(logpath, "val", "metrics.jsonl")) as f:
+        val = [json.loads(line) for line in f]
+    val_images = sorted(os.listdir(os.path.join(logpath, "val", "images")))
+    ckpt = os.path.join(logpath, "models", f"weights_{CYCLE_EPOCHS - 1}")
+    median_ms = statistics.median(step_ms[1:])
+    print(f"[cycle] finetune DenseNet-161 at {CYCLE_SIZE}^2, batch {CYCLE_BATCH}: {len(step_ms)} "
+          f"steps, losses {losses}, validation at steps {[r['step'] for r in val]} "
+          f"(loss {[r['loss'] for r in val]}), {len(val_images)} image tags in val/images; "
+          f"wall_s={finetune_wall:.3f}")
+    print(f"[cycle] finetune step ms (CUDA events) {step_ms}; median after the first "
+          f"{median_ms:.3f} ms = {CYCLE_BATCH / median_ms * 1e3:.3f} images/s; peak memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB)")
+    if len(step_ms) != n_steps or len(losses) != n_steps \
+            or not all(math.isfinite(v) for v in losses) \
+            or [r["step"] for r in val] != [CYCLE_VAL_FREQ] or "color" not in val_images \
+            or not os.path.exists(os.path.join(ckpt, "model.npz")):
+        raise SystemExit(f"the finetune run: {len(step_ms)} steps, losses {losses}, "
+                         f"validations {val}, images {val_images}, checkpoint {ckpt}")
+
+    # 3. predict: the encoder's first tap per view
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = predict_cli.main(["-ckpt", ckpt, "-d", img_dir])
+    predict_ms = (time.perf_counter() - t0) * 1e3 / max(len(paths), 1)
+    shape = (1, 96, SCENE_H // 2, SCENE_W // 2)
+    for path in paths:
+        feat = np.load(path)
+        if feat.shape != shape or feat.dtype != np.float32 or not np.isfinite(feat).all() \
+                or not np.abs(feat).max() > 0:
+            raise SystemExit(f"predict wrote {path}: {feat.shape} {feat.dtype}")
+    print(f"[cycle] predict: {len(paths)} files of {shape} float32, finite, nonzero; "
+          f"{predict_ms:.3f} ms per image (the CLI's wall clock, reading and writing included)")
+    if sorted(os.path.basename(p) for p in paths) != [f"{i:03d}.npy" for i in range(SCENE_VIEWS)]:
+        raise SystemExit(f"predict wrote {paths}")
+
+    # 4. the same module and weights on the card and on the CPU
+    model = create_model(WaveletOpts(), device)
+    load_model_from_folder(model, ckpt)
+    rng = np.random.default_rng(11)
+    image = torch.tensor(rng.uniform(size=(1, 3, CHECK_SIZE, CHECK_SIZE)), dtype=torch.float32)
+    cpu = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        taps = [t.cpu() for t in model.encode(image.to(device))]
+        want = cpu.encode(image)
+    tap_err = [float((g - w).norm() / w.norm()) for g, w in zip(taps, want)]
+    # the encoder alone at one view, as predict runs it
+    view = torch.rand(1, 3, SCENE_H, SCENE_W, device=device)
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: model.encode(view))
+    print(f"[cycle] the encoder alone at one {SCENE_H}x{SCENE_W} view: {encode_ms:.3f} ms "
+          "(CUDA events)")
+    batch = {"image": torch.tensor(rng.uniform(size=(2, 3, CHECK_SIZE, CHECK_SIZE)),
+                                   dtype=torch.float32),
+             "depth": torch.tensor(rng.uniform(0, 200, size=(2, 1, CHECK_SIZE // 2,
+                                                              CHECK_SIZE // 2)),
+                                   dtype=torch.float32),
+             "mask": torch.tensor(rng.uniform(size=(2, 1, CHECK_SIZE // 2, CHECK_SIZE // 2))
+                                  > 0.2, dtype=torch.float32)}
+    res = {}
+    for key, m in (("card", model), ("cpu", cpu), ("f64", copy.deepcopy(cpu).double())):
+        m.train()
+        p0 = next(m.parameters())
+        loss, _ = finetune_loss(m, {k: v.to(p0.device, p0.dtype) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(m.encoder.parameters()))
+        res[key] = (float(loss.detach()), torch.cat([g.cpu().double().flatten() for g in grads]))
+
+    def rel(a, b):
+        return float((res[a][1] - res[b][1]).norm() / res[b][1].norm())
+
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grad_err, card64, cpu64 = rel("card", "cpu"), rel("card", "f64"), rel("cpu", "f64")
+    print(f"[cycle] card vs CPU, DenseNet-161 eval taps at {CHECK_SIZE}^2: rel L2 "
+          f"{[f'{e:.3e}' for e in tap_err]} (tol {TAP_TOL}); finetune step at batch 2: loss "
+          f"{res['card'][0]:.6f} vs {res['cpu'][0]:.6f} (rel err {loss_err:.3e}, tol "
+          f"{STEP_TOL}); the encoder's gradient (one vector), rel L2: card vs CPU "
+          f"{grad_err:.3e}, card vs CPU f64 {card64:.3e}, CPU vs CPU f64 {cpu64:.3e} (tol "
+          f"{STEP_TOL} against the CPU, or 1.5x the CPU's own distance from f64)")
+    if not max(tap_err) <= TAP_TOL or not loss_err <= STEP_TOL \
+            or not (grad_err <= STEP_TOL or card64 <= 1.5 * cpu64):
+        raise SystemExit("the side-car on the card disagrees with itself on the CPU")
+    print(card_line())
+    return {"getfeats_launches": launches, "finetune_losses": losses,
+            "finetune_step_ms": step_ms, "finetune_step_ms_median": median_ms,
+            "images_per_s": CYCLE_BATCH / median_ms * 1e3, "finetune_wall_s": finetune_wall,
+            "peak_memory_bytes": peak, "predict_ms_per_image": predict_ms,
+            "encode_ms_per_view": encode_ms,
+            "tap_rel_l2": tap_err, "step_loss_rel_err": loss_err,
+            "step_encoder_grad_rel_l2": grad_err, "step_encoder_grad_card_vs_f64": card64,
+            "step_encoder_grad_cpu_vs_f64": cpu64}
+
+
 def serve_wdepth(train: dict) -> dict:
     """getfeats_40 through the port's CLI from a wdepth run's checkpoint,
     with the launch counts set to 0 just before and read just after: each
@@ -1448,7 +1623,8 @@ def main() -> int:
         masked = train_phase(tmp, "wmask_tpu")
         masked_steps = time_train_steps(masked["conf_path"])
         gradient_check(masked["conf"], device, "wmask_tpu")
-        write_features(os.path.join(tmp, "depth_data", "sphere"), "wavelet_feats/0")
+        # the side-car writes image/wavelet_feats/0, which the wdepth confs read
+        cycle = cycle_phase(tmp, train, device)
         wdepth = train_phase(tmp, WDEPTH, WDEPTH_KEYS)
         wdepth_steps = time_train_steps(wdepth["conf_path"])
         for core, rec in wdepth_steps.items():
@@ -1485,6 +1661,7 @@ def main() -> int:
         main_shape = r["shapes"][0]
         by_path = {"serve": res["launches"][name], "train": train["launches"][name],
                    "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name],
+                   "cycle_getfeats": cycle["getfeats_launches"][name],
                    "train_wdepth": wdepth["launches"][name],
                    "serve_wdepth": wdepth_serve["launches"][name],
                    "train_learn": learn["launches"][name],
@@ -1520,7 +1697,8 @@ def main() -> int:
                                              "depth_losses": learn_wdepth["depth_losses"]},
                       "serve_learn_wdepth": {k: v for k, v in learn_wdepth_serve.items()
                                              if k != "launches"},
-                      "mesh": {k: v for k, v in mesh.items() if k != "launches"}}))
+                      "mesh": {k: v for k, v in mesh.items() if k != "launches"},
+                      "cycle": cycle}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,17 @@ pre-activation lies within f32 summation noise of a relu kink, or whose
 sigmoid output is so near 1 that 1 - y keeps few bits, differs by a few
 percent on its own; and two launches on the same inputs agree bit for bit
 (the cross-CTA reduction is in a fixed order).
+
+The monodepth side-car (cuDNN convolutions, no kernel of the port's own) is
+held on the card against the same module on the CPU: DenseNet-161's taps
+within 1e-4 relative L2, one training step's loss within 1e-3 and its
+encoder gradient within 1e-3 or the CPU's own f32 error; its predict CLI
+runs on the card when no device is given.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
@@ -808,3 +816,107 @@ def test_learned_cameras_resume_from_a_card_checkpoint(card, tmp_path):
     for p, q in zip(writer.model.parameters(), resumed.model.parameters()):
         assert torch.equal(p, q)
     _equal_cameras(writer, resumed)
+
+
+# --- the wavelet monodepth side-car (cuDNN convolutions; f32, TF32 off) -------
+
+
+def _wavelet_batch(rng, n, size):
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return {"image": t(rng.uniform(size=(n, 3, size, size))),
+            "depth": t(rng.uniform(0, 200, size=(n, 1, size // 2, size // 2))),
+            "mask": t(rng.uniform(size=(n, 1, size // 2, size // 2)) > 0.2)}
+
+
+def test_wavelet_side_car_on_the_card_matches_the_cpu(card):
+    """DenseNet-161 with the wavelet decoder, the same module and weights on
+    the card and on the CPU: the five eval taps at 128^2 within 1e-4
+    relative L2 each; one training-mode step at a batch of 2, the loss within
+    1e-3 and the encoder's gradient (all tensors as one vector) within 1e-3,
+    or, where the CPU's f32 gradient is farther than that from its f64
+    evaluation (DenseNet-121 at 128^2: 3.2e-3 on the CPU alone), within 1.5x
+    the CPU's distance of f64."""
+    import copy
+
+    from vdnerf_tpu_torch.utils.device import configure_numerics
+    from vdnerf_tpu_torch.wavelet.model import WaveletOpts, create_model
+    from vdnerf_tpu_torch.wavelet.train_lib import finetune_loss
+
+    configure_numerics()
+    model = create_model(WaveletOpts(), card)
+    cpu = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(0)
+    x = _wavelet_batch(rng, 1, 128)["image"]
+    with torch.no_grad():
+        for got, want in zip(model.encode(x.to(card)), cpu.encode(x)):
+            _rel_l2_close(got.cpu(), want, 1e-4)
+    batch = _wavelet_batch(rng, 2, 128)
+    res = []
+    for m in (model, cpu, copy.deepcopy(cpu).double()):
+        m.train()
+        p0 = next(m.parameters())
+        loss, _ = finetune_loss(m, {k: v.to(p0.device, p0.dtype) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(m.encoder.parameters()))
+        res.append((loss.detach().cpu().double(),
+                    torch.cat([g.cpu().double().flatten() for g in grads])))
+    _rel_l2_close(res[0][0], res[1][0], 1e-3)
+    rel = lambda a, b: float((res[a][1] - res[b][1]).norm() / res[b][1].norm())  # noqa: E731
+    # the gradient is ill-conditioned in f32: where the CPU's own is farther
+    # than 1e-3 from f64, the card's must be within 1.5x that of f64
+    assert rel(0, 1) <= 1e-3 or rel(0, 2) <= 1.5 * rel(1, 2), (rel(0, 1), rel(0, 2), rel(1, 2))
+
+
+def _predict_scene(tmp_path):
+    import cv2 as cv
+
+    from vdnerf_tpu_torch.wavelet.io import save_model
+    from vdnerf_tpu_torch.wavelet.model import WaveletOpts, create_model
+
+    model = create_model(WaveletOpts(encoder_type="mobilenet_light"), "cpu")
+    folder = os.path.dirname(save_model(model, str(tmp_path / "log"), 0))
+    img_dir = tmp_path / "image"
+    img_dir.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        cv.imwrite(str(img_dir / f"{i:03d}.png"),
+                   rng.integers(0, 256, size=(40, 56, 3), dtype=np.uint8))
+    return model, ["-ckpt", folder, "-d", str(img_dir), "--encoder_type", "mobilenet_light"]
+
+
+def test_predict_refuses_to_run_without_a_card(monkeypatch, tmp_path):
+    from vdnerf_tpu_torch.wavelet.predict import main as predict
+
+    _, argv = _predict_scene(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        predict(argv)
+
+
+def test_predict_runs_on_the_card(card, tmp_path):
+    """With no device given, predict runs on cuda:0 (the model's weights
+    there) and writes what the CPU computes, within 1e-4."""
+    import cv2 as cv
+
+    from vdnerf_tpu_torch.wavelet import predict as predict_cli
+
+    model, argv = _predict_scene(tmp_path)
+    devices = []
+    create = predict_cli.create_model
+
+    def spy(opts, device):
+        m = create(opts, device)
+        devices.append(next(m.parameters()).device)
+        return m
+
+    predict_cli.create_model = spy
+    try:
+        paths = predict_cli.main(argv)
+    finally:
+        predict_cli.create_model = create
+    assert devices == [torch.device("cuda:0")] and len(paths) == 2
+    for p in paths:
+        pic = cv.imread(str(tmp_path / "image" / (os.path.basename(p)[:-4] + ".png")))
+        x = torch.from_numpy((pic.astype(np.float32) / 255.0).transpose(2, 0, 1).copy())[None]
+        with torch.no_grad():
+            want = model.encode(x)[0]
+        _rel_l2_close(torch.from_numpy(np.load(p)), want, 1e-4)

@@ -89,3 +89,79 @@ def f32_matmuls(monkeypatch):
     monkeypatch.setattr(jax_fused, "_BF16", jnp.float32)
     monkeypatch.setattr(port_fused, "_MM_DTYPE", torch.float32)
     yield
+
+
+# --- the wavelet monodepth side-car -----------------------------------------
+
+# a DenseNet small enough for the CPU (flax compiles the full ones slowly);
+# tests register it under TINY_DENSENET in both packages' DENSENET_CONFIGS
+TINY_DENSENET = 7
+TINY_DENSENET_CFG = dict(growth=8, init_features=16, blocks=(2, 2, 2, 2))
+
+
+@pytest.fixture(scope="module")
+def tiny_densenet():
+    """TINY_DENSENET in both packages' DENSENET_CONFIGS, for this module only."""
+    from vdnerf_tpu.wavelet import encoders as jax_enc
+    from vdnerf_tpu_torch.wavelet import encoders as port_enc
+
+    with pytest.MonkeyPatch.context() as mp:
+        for table in (jax_enc.DENSENET_CONFIGS, port_enc.DENSENET_CONFIGS):
+            mp.setitem(table, TINY_DENSENET, TINY_DENSENET_CFG)
+        yield TINY_DENSENET
+
+
+def seeded_variables(shapes, seed: int = 0) -> dict:
+    """numpy-seeded values for a flax variables tree of ``jax.eval_shape``
+    leaves: conv kernels N(0, 1/fan_in), running variances U(0.5, 1.5),
+    BatchNorm scales 1 + N(0, 0.1^2), biases and running means N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            return (rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        return (base + 0.1 * rng.normal(size=shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_wavelet_variables(module, *inputs, seed: int = 0, **kwargs) -> dict:
+    """Seeded variables of the flax ``module`` for ``inputs`` (shapes only:
+    flax's own init compiles slowly on the CPU)."""
+    shapes = jax.eval_shape(lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs),
+                            *inputs)
+    return seeded_variables(shapes, seed)
+
+
+def rel_l2(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def nchw(x) -> np.ndarray:
+    return np.transpose(np.asarray(x), (0, 3, 1, 2))
+
+
+def nhwc(x) -> np.ndarray:
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return np.transpose(x, (0, 2, 3, 1))
+
+
+@pytest.fixture
+def jax_create_model_from_shapes(monkeypatch):
+    """``vdnerf_tpu.wavelet.model.create_model`` with seeded variables made
+    from shapes (for the JAX CLIs, which restore them from ``-ckpt``)."""
+    from vdnerf_tpu.wavelet import model as jax_model
+
+    def create_model(key, opts, input_hw=(224, 224)):
+        model = jax_model.MonodepthModel(opts)
+        x = jax.numpy.zeros((1, *input_hw, 3), jax.numpy.float32)
+        return model, jax_wavelet_variables(model, x, seed=1, train=False)
+
+    monkeypatch.setattr(jax_model, "create_model", create_model)

@@ -95,10 +95,11 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profile_window(fn, trace: str = "") -> dict:
+def profile_window(fn, trace: str = "", group=_group) -> dict:
     """One call of fn under ``torch.profiler``: its host-clock window (the
-    profiler's own host overhead included), the device time by group and
-    kernel, and the device's busy and idle share of the window."""
+    profiler's own host overhead included), the device time by ``group`` (a
+    kernel name -> group name function) and kernel, and the device's busy and
+    idle share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -119,7 +120,7 @@ def profile_window(fn, trace: str = "") -> dict:
         us = ev.time_range.elapsed_us()
         spans.append((ev.time_range.start, ev.time_range.end))
         kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
-        groups[_group(ev.name)] = groups.get(_group(ev.name), 0.0) + us / 1e3
+        groups[group(ev.name)] = groups.get(group(ev.name), 0.0) + us / 1e3
     busy_ms = sum(groups.values())
     # the device's timeline: from its first event's start to its last one's
     # end, and the time inside that span when no event ran
