@@ -111,7 +111,20 @@
     10 and the cameras refined from step 0, as shipped: K2 twice a step, K3
     once and twice from step 11 on, K4/K5 once; timed steps;
     ``getfeats_40`` through the cameras of ``pnf_000040``.
-14. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+14. bf16 phase (``train.bf16``, the bf16 SDF block): phase 6's step timing
+    on ``womsk_white_tpu`` with ``train.bf16 = true`` (both core widths,
+    replayed and eager); the gradient check of phase 7 with the SDF block
+    in bf16 on both sides, the CPU also taking the f32 step: each gradient
+    within 2^-6 or 1.5x the CPU bf16 step's own distance from the CPU f32
+    step, whichever is larger (both printed).
+15. Flagship phase: ``vdnerf_tpu_torch.tools.flagship_run`` at full width on
+    its 24 views of 256^2, bf16, 300 steps (``FLAGSHIP_ARGS``), launch
+    counts set to 0 before and read after: fails unless every kernel and the
+    contraction ran, the masked PSNR at step 300 is above that at step 100,
+    and the extracted 256^3 mesh is non-empty with a finite Chamfer distance
+    to the analytic surface (the uncleaned mesh's: after 300 steps the
+    visual-hull cleaning culls the whole early surface).
+16. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -697,16 +710,24 @@ def write_scene(data_dir: str) -> None:
                    for i, c2w in enumerate(noisy)}})
 
 
+# train keys that write_conf adds where a conf has none
+NEW_TRAIN_KEYS = ("bf16",)
+
+
 def write_conf(tmp: str, exp: str = "exp", train: dict | None = None,
                name: str = "womsk_white_tpu") -> str:
     """confs/<name>.conf with only its two paths (and the given ``train``
-    keys) rewritten."""
+    keys) rewritten, or added (``NEW_TRAIN_KEYS``)."""
     with open(os.path.join(ROOT, "confs", f"{name}.conf")) as f:
         text = f.read()
     subs = [("./exp/CASE_NAME", f"{tmp}/{exp}/CASE_NAME"),
             ("./depth_data/CASE_NAME", f"{tmp}/depth_data/CASE_NAME")]
     for key, value in (train or {}).items():
         line = next((ln for ln in text.splitlines() if ln.strip().startswith(f"{key} =")), None)
+        if line is None and key in NEW_TRAIN_KEYS:
+            # a key the shipped conf leaves at its default
+            subs.append(("train {", f"train {{\n    {key} = {value}"))
+            continue
         if line is None:
             raise SystemExit(f"{name}.conf: no train key {key!r}")
         subs.append((line, f"    {key} = {value}"))
@@ -1025,6 +1046,10 @@ def time_train_steps(conf_path: str) -> dict:
 
     runner = Runner(conf_path, case="sphere", mode="train")
     rcfg = runner.nets.renderer
+    policy = runner.model.sdf_network_fine.matmul_dtype
+    if (policy is not None) != runner.tcfg.bf16:
+        raise SystemExit(f"{conf_path}: train.bf16 {runner.tcfg.bf16} but the SDF block runs "
+                         f"under {policy}")
     faithful = dataclasses.replace(runner.nets, renderer=dataclasses.replace(rcfg,
                                                                              n_render_samples=0))
     # one trainer, two per-step calls: a replay, and the eager step
@@ -1032,6 +1057,7 @@ def time_train_steps(conf_path: str) -> dict:
     dispatch["eager"].step = dispatch["eager"].eager_step
     rng = np.random.default_rng(0)
     tag = f"[train {os.path.basename(conf_path)}]"
+    print(f"{tag} SDF block matmul dtype: {policy or torch.float32}")
     out = {}
     cores = [(f"core_{rcfg.n_samples + rcfg.n_importance}", faithful)]
     if rcfg.n_render_samples:
@@ -1273,7 +1299,8 @@ def mesh_phase(train: dict, device) -> dict:
     return res
 
 
-def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000) -> dict:
+def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000,
+                   bf16: bool = False) -> dict:
     """One step's loss and gradients at full width on 128 rays (perturb 0):
     the kernels on the card against the plain versions on the CPU. Loss within
     1e-3 relative; each parameter's gradient within 2^-6 relative L2 error,
@@ -1284,7 +1311,13 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
     Both sides round the fused MLPs' operands to bf16, but in another
     summation order, and a relu kink or a bf16 rounding boundary taken the
     other way moves single rows by a few percent (see the kernel phase); the
-    f32 SDF block sums in another order on the card than on the CPU."""
+    f32 SDF block sums in another order on the card than on the CPU.
+
+    With ``bf16`` both sides run the SDF block under the bf16 policy
+    (``models/precision.py``), and the CPU also takes the f32 step: each
+    gradient is held at 2^-6, or at 1.5x the CPU bf16 step's own distance
+    from the CPU f32 step where that is larger (a bf16 rounding taken the
+    other way in the SDF block moves a gradient by about that much)."""
     import dataclasses
 
     import numpy as np
@@ -1303,8 +1336,12 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
     batch = RayStore(scene.images_lis, scene.masks_lis, scene.depth_lis,
                      with_depth=tcfg.extract_depth).sample_pixels(2, 128, np.random.default_rng(5))
     res = {}
-    for key, dev in (("card", device), ("plain", torch.device("cpu"))):
-        model = build_model(conf, nets, seed=0).to(dev)
+    runs = [("card", device, bf16), ("plain", torch.device("cpu"), bf16)]
+    if bf16:
+        runs.append(("plain_f32", torch.device("cpu"), False))
+    for key, dev, on in runs:
+        model = build_model(conf, nets, seed=0,
+                            matmul_dtype=torch.bfloat16 if on else None).to(dev)
         if tcfg.learnable:
             # the learned cameras at a seeded state off their start, so that
             # Rodrigues' general branch and a moved focal are on the path
@@ -1325,16 +1362,30 @@ def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000
                           for n, p in cams.named_parameters()})
         res[key] = (float(metrics["loss"]), grads)
     loss_err = abs(res["card"][0] - res["plain"][0]) / abs(res["plain"][0])
-    rel = {n: float((g - res["plain"][1][n]).norm() / res["plain"][1][n].norm().clamp_min(1e-30))
-           for n, g in res["card"][1].items()}
-    worst = max(rel, key=rel.get)
-    print(f"[grad {name}] 128-ray full-width step {step}, card vs plain on the CPU: loss "
-          f"{res['card'][0]:.6f} vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol 1e-3); "
-          f"worst gradient rel L2 error {rel[worst]:.3e} ({worst}, tol {2.0**-6:.3e}) over "
-          f"{len(rel)} tensors")
-    if not loss_err <= 1e-3 or not rel[worst] <= 2.0**-6:
+
+    def rel_l2(a, b):
+        return {n: float((g - b[n]).norm() / b[n].norm().clamp_min(1e-30)) for n, g in a.items()}
+
+    rel = rel_l2(res["card"][1], res["plain"][1])
+    tol = {n: 2.0**-6 for n in rel}
+    if bf16:
+        own = rel_l2(res["plain"][1], res["plain_f32"][1])
+        tol = {n: max(2.0**-6, 1.5 * own[n]) for n in rel}
+    worst = max(rel, key=lambda n: rel[n] / tol[n])
+    policy = "bf16 SDF block" if bf16 else "f32 SDF block"
+    print(f"[grad {name}] 128-ray full-width step {step} ({policy}), card vs plain on the CPU: "
+          f"loss {res['card'][0]:.6f} vs {res['plain'][0]:.6f} (rel err {loss_err:.3e}, tol "
+          f"1e-3); worst gradient rel L2 error {rel[worst]:.3e} ({worst}, tol {tol[worst]:.3e})"
+          f" over {len(rel)} tensors")
+    if bf16:
+        print(f"[grad {name}] per tensor, card-vs-CPU bf16 rel L2 / the CPU bf16 step's own "
+              f"distance from the CPU f32 step (tol max(2^-6, 1.5x that)): "
+              + ", ".join(f"{n} {rel[n]:.3e}/{own[n]:.3e}" for n in rel))
+    if not loss_err <= 1e-3 or not all(rel[n] <= tol[n] for n in rel):
         raise SystemExit("the training step through the kernels disagrees with the plain step")
     out = {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst}
+    if bf16:
+        out.update(own_bf16_f32_rel_l2=own, tol=tol[worst])
     if tcfg.learnable:
         cam = {n: v for n, v in rel.items() if n.startswith("cameras.")}
         print(f"[grad {name}] camera gradients (r, t, fx) rel L2 error: {cam} (tol "
@@ -1592,6 +1643,77 @@ def serve_wdepth(train: dict) -> dict:
     return {"launches": launches, "summary": summary, "rays_per_s": rays / wall}
 
 
+# the flagship phase: the convergence tool at full width on its 24 views of
+# 256^2, bf16, at its defaults otherwise (the faithful 128-sample core, the
+# background NeRF over all 160 samples), 300 steps in windows of 10
+FLAGSHIP_ARGS = ["--iters", "300", "--val-every", "100", "--resolution", "256"]
+
+
+def flagship_raw_chamfer(out: str, resolution: int) -> dict:
+    """Chamfer of the tool's extracted mesh (``flagship_mesh.ply``, before the
+    visual-hull cleaning) against the compound surface extracted at the same
+    resolution over the same bbox, on the card."""
+    import numpy as np
+
+    from vdnerf_tpu_torch.data.synthetic import compound_sdf_torch
+    from vdnerf_tpu_torch.mesh.extract import extract_geometry, load_ply
+    from vdnerf_tpu_torch.mesh.metrics import mesh_chamfer
+
+    verts, tris = load_ply(os.path.join(out, "flagship_mesh.ply"))
+    gt_verts, gt_tris = extract_geometry(np.full(3, -1.01), np.full(3, 1.01), resolution, 0.0,
+                                         lambda p: -compound_sdf_torch(p), device="cuda")
+    return mesh_chamfer(verts, tris, gt_verts, gt_tris)
+
+
+def flagship_phase(tmp: str) -> dict:
+    """``vdnerf_tpu_torch.tools.flagship_run`` on the card (bf16, 300 steps,
+    a 256^3 mesh), launch counts set to 0 before and read after: fails
+    unless every kernel and the contraction ran,
+    the masked PSNR at step 300 is above that at step 100, and the extracted
+    mesh is non-empty with a finite Chamfer distance to the analytic surface.
+    That Chamfer is the uncleaned mesh's: 300 steps leave the surface a
+    smooth blob around the object, which the visual-hull cleaning culls
+    whole (the report's cleaned Chamfer is then null)."""
+    import torch
+
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.tools import flagship_run
+
+    out = os.path.join(tmp, "flagship")
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = flagship_run.main(FLAGSHIP_ARGS + ["--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    curve = [(c["iter"], c["masked_psnr_res2"]) for c in report["psnr_curve"]]
+    print(f"[flagship] {' '.join(FLAGSHIP_ARGS)} (bf16 {report['config']['bf16']}): wall "
+          f"{wall:.1f} s, train {report['train_wall_s']} s, steady rays/s "
+          f"{report['steady_rays_per_sec']}, masked PSNR curve {curve}, final full-res "
+          f"{report['final_masked_psnr_fullres']} dB, mesh {report['mesh']['n_verts']} verts, "
+          f"cleaned {report['mesh_clean']}, chamfer {report['chamfer']}; launches {launches}")
+    if not report["mesh"]["n_verts"]:
+        raise SystemExit("flagship: the extracted mesh is empty")
+    raw = flagship_raw_chamfer(out, report["config"]["mesh_res"])
+    print(f"[flagship] the extracted (uncleaned) mesh against the analytic surface: {raw}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise SystemExit(f"flagship: not launched: {missing}")
+    if not report["config"]["bf16"]:
+        raise SystemExit("flagship: the run was not bf16")
+    if not curve[-1][1] > curve[0][1]:
+        raise SystemExit(f"flagship: the masked PSNR did not rise: {curve}")
+    if not math.isfinite(raw["chamfer"]):
+        raise SystemExit(f"flagship: non-finite Chamfer: {raw}")
+    return {"launches": launches, "wall_s": wall, "psnr_curve": curve, "raw_chamfer": raw,
+            **{k: report[k] for k in ("train_wall_s", "startup_warmup_capture_s",
+                                      "resample_onset_warmup_capture_s", "val_wall_s",
+                                      "rays_per_sec", "steady_rays_per_sec",
+                                      "final_masked_psnr_fullres", "final_eikonal", "chamfer",
+                                      "mesh", "mesh_clean")}}
+
+
 def main() -> int:
     import torch
 
@@ -1655,6 +1777,11 @@ def main() -> int:
                     raise SystemExit(f"{name} {core}: launches per step {per_step}, expected "
                                      f"K2, K3, K4, K5 {want}")
         learn_wdepth_serve = serve_wdepth(learn_wdepth)
+        # the bf16 SDF block (train.bf16): the steps timed, one step's
+        # gradients against the CPU, then the flagship tool
+        bf16_steps = time_train_steps(write_conf(tmp, "exp_bf16", {**TRAIN_KEYS, "bf16": "true"}))
+        bf16_grad = gradient_check(train["conf"], device, bf16=True)
+        flagship = flagship_phase(tmp)
 
     kernels = []
     for name, r in kern.items():
@@ -1666,7 +1793,8 @@ def main() -> int:
                    "serve_wdepth": wdepth_serve["launches"][name],
                    "train_learn": learn["launches"][name],
                    "train_learn_wdepth": learn_wdepth["launches"][name],
-                   "serve_learn_wdepth": learn_wdepth_serve["launches"][name]}
+                   "serve_learn_wdepth": learn_wdepth_serve["launches"][name],
+                   "flagship": flagship["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1697,6 +1825,8 @@ def main() -> int:
                                              "depth_losses": learn_wdepth["depth_losses"]},
                       "serve_learn_wdepth": {k: v for k, v in learn_wdepth_serve.items()
                                              if k != "launches"},
+                      "train_bf16": {"steps": bf16_steps, "gradient_check": bf16_grad},
+                      "flagship": {k: v for k, v in flagship.items() if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},
                       "cycle": cycle}))
     print(json.dumps({"kernels": kernels}))

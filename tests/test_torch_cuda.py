@@ -577,13 +577,14 @@ def test_wdepth_render_launches_both_heads(card):
 # ---------------------------------------------------------------------------
 
 
-def _small_trainer(card, learn=False, **tcfg):
+def _small_trainer(card, learn=False, bf16=False, **tcfg):
     """A wdepth-shaped trainer at small widths on the card (depth head d_out
     8, the NeRF's dpt head, a 16-of-32 resampled core, perturbation on),
     seeded, with a camera 3 units from the sphere -> (trainer, core nets,
     host batches). With ``learn``, two learned cameras (the second turned
     about the sphere), batches from both in turn, and the learn confs'
-    camera keys with the refine gate at step 5."""
+    camera keys with the refine gate at step 5. With ``bf16``, the SDF block
+    under the bf16 policy (``train.bf16``)."""
     import dataclasses
 
     from vdnerf_tpu_torch.data.cameras import LearnedCameras
@@ -628,7 +629,8 @@ def _small_trainer(card, learn=False, **tcfg):
         "mask": np.ones((cfg.batch_size, 1), np.float32),
         "feats": rng.normal(size=(cfg.batch_size, 8)).astype(np.float32),
     } for i in range(12)]
-    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(card)
+    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0),
+                      torch.bfloat16 if bf16 else None).to(card)
     trainer = Trainer(cfg, model, cams, torch.Generator(device=card).manual_seed(0))
     return trainer, faithful, nets, batches
 
@@ -677,6 +679,73 @@ def test_captured_step_replays_the_eager_steps(card):
         assert torch.equal(p, q), name
         for k in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(graphed.optimizer.state[p][k], eager.optimizer.state[q][k]), name
+
+
+def test_captured_bf16_step_replays_the_eager_steps(card):
+    """``train.bf16``: the bf16 SDF block changes nothing in the capture. 8
+    steps in windows of 4 (3 eager warm-up steps, then replays) across the
+    distillation switch at step 6, against 8 eager card steps of the same
+    seeded bf16 trainer: metrics, parameters and Adam moments bit for bit,
+    the generator at the same offset, and the same launches."""
+    from vdnerf_tpu_torch.train.dispatch import StepDispatch
+
+    graphed, faithful, _, batches = _small_trainer(card, bf16=True)
+    eager = _small_trainer(card, bf16=True)[0]
+    assert graphed.model.sdf_network_fine.matmul_dtype == torch.bfloat16
+    dispatch = StepDispatch(graphed)
+    build.reset_launches()
+    got = []
+    for w in range(2):
+        got += dispatch.run(range(4 * w, 4 * w + 4), [faithful] * 4,
+                            batches[4 * w:4 * w + 4]).read()
+    replay_launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    want = [{k: float(v) for k, v in eager.step(faithful, batches[s], s).items()}
+            for s in range(8)]
+    assert len(dispatch.programs) == 1  # (faithful, no distill); steps 6-7 stay eager
+    assert build.LAUNCHES == replay_launches
+    assert got == want
+    assert graphed.generator.get_offset() == eager.generator.get_offset()
+    for (name, p), q in zip(graphed.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(graphed.optimizer.state[p][k], eager.optimizer.state[q][k]), name
+
+
+def test_bf16_sdf_block_on_the_card_matches_the_cpu(card):
+    """The bf16 SDF block (sdf, spatial gradient, feature) and its parameter
+    gradients through the second-order path, at full width (8x256) on 8,192
+    points, on the card against the same module on the CPU: both round every
+    product and activation to bf16, in another summation order, so a value
+    near a rounding boundary rounds the other way on one side; held at 2^-7
+    relative L2 (the value and the feature) and 2^-6 (the gradients), the
+    size of bf16's own error (its relative L2 from the f32 block is printed)."""
+    from vdnerf_tpu_torch.models.fields import SDFConfig, SDFNetwork
+
+    pts = torch.tensor(np.random.default_rng(71).uniform(-1, 1, size=(8192, 3)),
+                       dtype=torch.float32)
+    res = {}
+    for key, dev, mm in (("card", card, torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                         ("cpu_f32", "cpu", None)):
+        net = SDFNetwork(SDFConfig(), torch.Generator().manual_seed(0), mm).to(dev)
+        sdf, grad, feat = net.sdf_value_grad_feat(pts.to(dev))
+        assert (sdf.dtype, grad.dtype) == (torch.float32, torch.float32)
+        assert feat.dtype == (torch.bfloat16 if mm else torch.float32)
+        loss = (sdf ** 2).sum() + ((grad.norm(dim=-1) - 1) ** 2).sum() + feat.float().sum()
+        loss.backward()
+        res[key] = [t.detach().float().cpu() for t in (sdf, grad, feat)] + [
+            p.grad.cpu() for p in net.parameters()]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    gaps = [rel(a, b) for a, b in zip(res["card"], res["cpu"])]
+    own = [rel(a, b) for a, b in zip(res["cpu"], res["cpu_f32"])]
+    print(f"\nbf16 SDF block, card vs CPU: sdf {gaps[0]:.2e}, grad {gaps[1]:.2e}, feat "
+          f"{gaps[2]:.2e}, worst parameter gradient {max(gaps[3:]):.2e}; CPU bf16 vs f32: "
+          f"{own[0]:.2e}, {own[1]:.2e}, {own[2]:.2e}, {max(own[3:]):.2e}")
+    assert gaps[0] <= 2.0**-7 and gaps[2] <= 2.0**-7
+    assert gaps[1] <= 2.0**-6 and max(gaps[3:]) <= 2.0**-6
 
 
 def test_replays_draw_new_jitter(card):

@@ -256,7 +256,10 @@ def test_twenty_step_trajectory_matches_jax(scene, f32_matmuls, fused):
                          ids=os.path.basename)
 def test_train_config_matches_jax_for_every_conf(conf):
     want = dataclasses.asdict(JTrainConfig.from_conf(jload_conf(conf, "x")))
-    assert dataclasses.asdict(TTrainConfig.from_conf(tload_conf(conf, "x"))) == want
+    got = dataclasses.asdict(TTrainConfig.from_conf(tload_conf(conf, "x")))
+    # train.bf16, which the JAX runner reads from the conf itself
+    assert got.pop("bf16") == jload_conf(conf, "x").get_bool("train.bf16", default=False)
+    assert got == want
 
 
 @pytest.mark.parametrize("batch_size,grad_accum", [(4096, 1), (6144, 1), (8192, 2), (512, 4)])
@@ -266,18 +269,19 @@ def test_train_config_auto_split_matches_jax(batch_size, grad_accum):
 
 
 def test_train_config_refuses_bf16(tmp_path):
-    """``train.bf16 = true`` runs the JAX package's SDF block in bf16; the port
-    has only the f32 block, so it refuses the conf rather than train another
-    recipe without a word."""
+    """``train.bf16 = true`` is accepted as ``TrainConfig.bf16``, the bf16 SDF
+    block (``models/precision.py``), not refused; false, or absent, is the
+    f32 block, with every other field the same."""
     with open(os.path.join(ROOT, "confs", "womsk_white_tpu.conf")) as f:
         text = f.read().replace("train {", "train {\n    bf16 = true", 1)
     path = os.path.join(tmp_path, "bf16.conf")
     with open(path, "w") as f:
         f.write(text)
     assert jload_conf(path, "x").get_bool("train.bf16")  # the JAX package reads the key
-    with pytest.raises(NotImplementedError, match="train.bf16"):
-        TTrainConfig.from_conf(tload_conf(path, "x"))
-    # false, or absent, is the f32 block
+    on = TTrainConfig.from_conf(tload_conf(path, "x"))
+    assert on.bf16 is True
     with open(path, "w") as f:
         f.write(text.replace("bf16 = true", "bf16 = false"))
-    assert TTrainConfig.from_conf(tload_conf(path, "x")).extract_depth is False
+    off = TTrainConfig.from_conf(tload_conf(path, "x"))
+    assert off.bf16 is False and off.extract_depth is False
+    assert dataclasses.replace(on, bf16=False) == off

@@ -274,4 +274,4 @@ def test_model_picks_the_decoder(tiny_densenet):
                     (dict(use_sparse=True), tdec.SparseDecoderWave),
                     (dict(use_wavelets=False), tdec.PlainDecoder),
                     ):
-        assert type(create_model(WaveletOpts(**base, **kw)).decoder) is cls
+        assert type(create_model(WaveletOpts(**base, **kw), "cpu").decoder) is cls

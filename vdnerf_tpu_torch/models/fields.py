@@ -10,8 +10,9 @@ port's kernels: :meth:`SDFNetwork.sdf_value` through K1,
 :meth:`RenderingNetwork.forward` through K2 and :meth:`NeRF.forward` through
 K4, and their gradients through K3 and K5. Each wrapper runs the kernel for
 CUDA tensors and its plain version for CPU tensors.
-:meth:`SDFNetwork.sdf_value_grad_feat` is a plain f32 forward with
-``torch.autograd.grad`` (the TPU package had no kernel there either).
+:meth:`SDFNetwork.sdf_value_grad_feat` is a plain forward with
+``torch.autograd.grad`` (the TPU package had no kernel there either), in f32
+or under the bf16 policy of ``models/precision.py`` (``matmul_dtype``).
 """
 
 from __future__ import annotations
@@ -23,10 +24,19 @@ import torch
 from torch import nn
 
 from vdnerf_tpu_torch.models.embedder import embed, embed_dim
-from vdnerf_tpu_torch.models.layers import PlainLinear, WeightNormLinear, make_linear, softplus_beta
+from vdnerf_tpu_torch.models.layers import (
+    PlainLinear,
+    WeightNormLinear,
+    linear,
+    make_linear,
+    softplus_beta,
+    softplus_beta_jax,
+)
 from vdnerf_tpu_torch.ops.kernels import fused_mlp, sdf_fwd
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# the skip scale as JAX takes it under bf16: the constant rounded to bf16
+_INV_SQRT2_BF16 = float(torch.tensor(_INV_SQRT2, dtype=torch.bfloat16))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,11 +108,18 @@ def _linears(module: nn.Module, n: int, prefix: str = "lin") -> list[nn.Module]:
 
 
 class SDFNetwork(nn.Module):
-    """8x256 softplus(100) MLP with the skip at layer 4, [sdf | feature]."""
+    """8x256 softplus(100) MLP with the skip at layer 4, [sdf | feature].
 
-    def __init__(self, cfg: SDFConfig, generator: torch.Generator):
+    ``matmul_dtype``: the policy of ``models/precision.py`` for
+    :meth:`forward_split` (None: f32; ``torch.bfloat16``: bf16 activations
+    and products with f32 accumulation). :meth:`sdf_value` (K1) is f32
+    under either."""
+
+    def __init__(self, cfg: SDFConfig, generator: torch.Generator,
+                 matmul_dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
+        self.matmul_dtype = matmul_dtype
         dims = cfg.dims
         self.n_linear = len(dims) - 1
         for l in range(self.n_linear):
@@ -145,17 +162,29 @@ class SDFNetwork(nn.Module):
         return [m.effective_weight().t() for m in layers], [m.bias for m in layers]
 
     def forward_split(self, pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Plain f32 forward: [N, 3] -> (sdf [N, 1], feature [N, d_out-1])."""
+        """Plain forward: [N, 3] -> (sdf [N, 1] f32, feature [N, d_out-1]).
+
+        Under bf16 (JAX ``sdf_apply_split`` under the policy) the activations
+        are bf16, the skip joins the embedded input cast to bf16 and scales by
+        the bf16-rounded 1/sqrt(2), softplus runs on bf16, the sdf channel is
+        cast to f32 before the division by ``scale``, and the feature stays
+        bf16 (its consumer is K2, which rounds it to bf16 anyway)."""
         cfg = self.cfg
+        mm = self.matmul_dtype
         inputs = embed(pts * cfg.scale, cfg.multires)
         x = inputs
         for l, layer in enumerate(_linears(self, self.n_linear)):
             if l in cfg.skip_in:
-                x = torch.cat([x, inputs], dim=-1) * _INV_SQRT2
-            x = layer(x)
+                if mm is None:
+                    x = torch.cat([x, inputs], dim=-1) * _INV_SQRT2
+                else:
+                    x = torch.cat([x, inputs.to(x.dtype)], dim=-1) * _INV_SQRT2_BF16
+            x = linear(layer, x, mm)
             if l < self.n_linear - 1:
-                x = softplus_beta(x, 100.0)
-        return x[:, :1] / cfg.scale, x[:, 1:]
+                x = softplus_beta(x, 100.0) if mm is None else softplus_beta_jax(x, 100.0)
+        if mm is None:
+            return x[:, :1] / cfg.scale, x[:, 1:]
+        return x[:, :1].float() / cfg.scale, x[:, 1:]
 
     def forward(self, pts: torch.Tensor) -> torch.Tensor:
         sdf, feat = self.forward_split(pts)
@@ -175,7 +204,9 @@ class SDFNetwork(nn.Module):
         self, pts: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(sdf [N,1], grad [N,3], feature [N,256]): one forward, one
-        ``autograd.grad``.
+        ``autograd.grad``. sdf and grad are f32 (the gradient comes back at
+        ``pts`` through the casts' backward); the feature is bf16 under the
+        bf16 policy.
 
         While grad mode is on and the parameters require grad (training), the
         result is differentiable: the gradient is taken with

@@ -41,6 +41,26 @@ class PlainLinear(nn.Linear):
         return self.weight
 
 
+def linear(layer: nn.Module, x: torch.Tensor, mm_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``layer(x)``; under a matmul dtype (``models/precision.py``) as the JAX
+    ``linear``: the input and the f32 effective weight cast to ``mm_dtype``,
+    their product accumulated in f32, the f32 bias added, and the sum cast to
+    ``mm_dtype``.
+
+    torch has no differentiable bf16 x bf16 -> f32 product (``mm``'s
+    ``out_dtype`` overload runs on CUDA only and has no derivative), and
+    ``F.linear`` on bf16 tensors rounds the product to bf16 before it adds a
+    bf16-rounded bias. So
+    the product is an f32 matmul of the rounded operands: a product of two
+    bf16 values is exact in f32, and the sums are f32. Its gradients follow
+    JAX's transpose rule: the input's and the weight's come back rounded to
+    ``mm_dtype`` (by the backward of the casts), the bias's in f32."""
+    if mm_dtype is None:
+        return layer(x)
+    w = layer.effective_weight().to(mm_dtype).float()
+    return F.linear(x.to(mm_dtype).float(), w, layer.bias).to(mm_dtype)
+
+
 def make_linear(d_in: int, d_out: int, weight_norm: bool, generator: torch.Generator):
     """A linear layer with torch's default init drawn from ``generator``:
     U(-1/sqrt(d_in), 1/sqrt(d_in)) for weight and bias."""
@@ -67,3 +87,30 @@ def softplus_beta(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
     """
     bx = beta * x
     return (torch.clamp(bx, min=0) + torch.log1p(torch.exp(-bx.abs()))) / beta
+
+
+class _Softplus(torch.autograd.Function):
+    """softplus(y) = max(y, 0) + log1p(exp(-|y|)) whose derivative is taken
+    as JAX takes ``logaddexp(y, 0)``'s: exp(y - softplus(y)), from the saved
+    output, so that the derivative's own derivative goes through this
+    Function again (the second-order path of the eikonal term)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        s = torch.clamp(y, min=0) + torch.log1p(torch.exp(-y.abs()))
+        ctx.save_for_backward(y, s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        y, s = ctx.saved_tensors
+        return g * torch.exp(y - s)
+
+
+def softplus_beta_jax(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
+    """:func:`softplus_beta` with JAX's derivative (``jax.nn.softplus``'s
+    ``exp(y - softplus(y))``): the same value, and in bf16 (the SDF block
+    under the bf16 policy) the gradients that JAX's bf16 chain gives, each
+    op rounding where JAX's does. Autograd of the stable form takes another
+    route (1[y > 0] - sigmoid(-|y|) sign(y)), which rounds elsewhere in bf16."""
+    return _Softplus.apply(beta * x) / beta

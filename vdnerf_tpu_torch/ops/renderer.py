@@ -73,12 +73,14 @@ class NeuSModel(nn.Module):
     """The networks under the reference checkpoint's names, registered (and
     drawn from ``generator``) in the reference's ``params_to_train`` order:
     nerf, sdf, variance, colour, then the depth head when ``nets.depth`` is
-    set."""
+    set. ``matmul_dtype``: the SDF network's precision policy
+    (``models/precision.py``)."""
 
-    def __init__(self, nets: NeuSNetworks, variance_init: float, generator: torch.Generator):
+    def __init__(self, nets: NeuSNetworks, variance_init: float, generator: torch.Generator,
+                 matmul_dtype: torch.dtype | None = None):
         super().__init__()
         self.nerf = NeRF(nets.nerf, generator)
-        self.sdf_network_fine = SDFNetwork(nets.sdf, generator)
+        self.sdf_network_fine = SDFNetwork(nets.sdf, generator, matmul_dtype)
         self.variance_network_fine = SingleVarianceNetwork(variance_init)
         self.color_network_fine = RenderingNetwork(nets.color, generator)
         if nets.depth is not None:

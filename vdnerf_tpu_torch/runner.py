@@ -30,6 +30,12 @@ Checkpoints load from the JAX package's ``ckpt_<it>.npz`` (the learned cameras
 included) or a reference ``ckpt_<it>.pth`` (the learned cameras from the
 ``pnf_checkpoints/pnf_<it>.pth`` beside it); training writes the latter two.
 The runner runs on ``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
+
+Precision: the SDF block is f32 unless ``VDNERF_BF16`` asks for bf16 (read
+once, here); a training runner switches it to bf16 when the conf sets
+``train.bf16``, for the run's steps and its validation renders, as the JAX
+runner switches its policy on in ``train()`` (``models/precision.py``). The
+serving modes run under the first of the two.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from vdnerf_tpu_torch.io import (
     save_training_checkpoint,
 )
 from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
+from vdnerf_tpu_torch.models.precision import env_matmul_dtype, matmul_dtype
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import StepDispatch
@@ -129,7 +136,9 @@ class Runner:
 
         self.scene_data = SceneData(self.conf["dataset"])
         self.nets = build_networks(self.conf, self.tcfg.extract_depth)
-        self.model = build_model(self.conf, self.nets, seed).to(self.device)
+        # the SDF block's precision: train.bf16 for a training run, else VDNERF_BF16
+        policy = matmul_dtype(True) if mode == "train" and self.tcfg.bf16 else env_matmul_dtype()
+        self.model = build_model(self.conf, self.nets, seed, policy).to(self.device)
         self.iter_step = 0
         self.store = None
         if "mesh" not in mode:

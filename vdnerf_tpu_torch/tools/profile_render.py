@@ -2,7 +2,7 @@
 card.
 
     python -m vdnerf_tpu_torch.tools.profile_render [--conf confs/womsk_white_tpu.conf]
-        [--rays 4096] [--iters 5] [--trace trace.json] [--train]
+        [--rays 4096] [--iters 5] [--trace trace.json] [--train [--bf16]]
 
 Builds the conf's networks at full width from a seed (geometric-init SDF,
 random colour head and background NeRF). Without ``--train`` it renders one
@@ -19,15 +19,18 @@ step launched op by op (``eager``). On a wdepth conf the batch carries random
 teacher features and the steps come after ``depth_start_iter``, so the depth
 head trains; on a learnable conf the camera's pose and focal are learned and
 the steps come after ``start_refine_pose_iter``, so they update; a conf
-without a resampled core has its faithful core only. For each it reports:
+without a resampled core has its faithful core only. With ``--bf16`` (or a
+conf that sets ``train.bf16``) the SDF block runs under the bf16 policy. For
+each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``
   chunks, or over two windows of ``--iters`` steps);
 - the device time by kernel under ``torch.profiler``, grouped into the port's
   CUDA kernels (a backward is its tile kernel plus the dW contraction that
   K3 and K5 share: ``dw_kernel``, ``reduce_dw_kernel`` and
-  ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain f32
-  autograd SDF value+gradient+feature block and its backward), and the rest
+  ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain
+  autograd SDF value+gradient+feature block and its backward: f32, or
+  under bf16 f32 products of bf16-rounded operands), and the rest
   (elementwise, reductions, sort, copies);
 - the device's busy and idle share of the profiled window, the number of
   device events (kernels and copies) in it, the span from the first event's
@@ -60,6 +63,7 @@ from vdnerf_tpu_torch.data.cameras import LearnedCameras
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
 from vdnerf_tpu_torch.ops.renderer import render
+from vdnerf_tpu_torch.models.precision import matmul_dtype
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
@@ -178,11 +182,13 @@ def _heads(model, run_step) -> dict:
     return out
 
 
-def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
+def _train_steps(conf, nets, dev, iters: int, trace: str, bf16: bool = False) -> dict:
     """Training steps per core width on a synthetic camera's pixels, in
     windows of ``iters`` steps through ``StepDispatch``: replayed (the
-    training path) and eager (each step launched op by op), in turns."""
+    training path) and eager (each step launched op by op), in turns. The
+    SDF block is bf16 where the conf sets ``train.bf16`` or ``bf16`` asks."""
     tcfg = TrainConfig.from_conf(conf)
+    policy = matmul_dtype(bf16 or tcfg.bf16)
     W, H, focal = 400, 300, 300.0
     intrin = torch.tensor([[focal, 0, W / 2, 0], [0, focal, H / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
     pose = torch.eye(4)
@@ -214,7 +220,7 @@ def _train_steps(conf, nets, dev, iters: int, trace: str) -> dict:
         cores.append((f"core_{rcfg.n_render_samples}", nets))
     out = {}
     for name, core in cores:
-        model = build_model(conf, nets, seed=0).to(dev)
+        model = build_model(conf, nets, seed=0, matmul_dtype=policy).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
         # one trainer, two per-step calls: a replay, and the eager step
         dispatch = {"replay": StepDispatch(trainer), "eager": StepDispatch(trainer)}
@@ -249,6 +255,8 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", default="")
     parser.add_argument("--train", action="store_true",
                         help="profile a training step instead of a serving chunk")
+    parser.add_argument("--bf16", action="store_true",
+                        help="with --train: the SDF block in bf16, as train.bf16 = true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_render: CUDA is not available", file=sys.stderr)
@@ -263,7 +271,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     head = {"device": torch.cuda.get_device_name(0), "card": card}
     if args.train:
-        print(json.dumps({**head, "train": _train_steps(conf, nets, dev, args.iters, args.trace)}))
+        print(json.dumps({**head, "train": _train_steps(conf, nets, dev, args.iters, args.trace,
+                                                        args.bf16)}))
         return 0
 
     model = build_model(conf, nets, seed=0).to(dev).eval()

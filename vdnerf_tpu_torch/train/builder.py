@@ -41,9 +41,11 @@ def build_networks(conf: Config, extract_depth: bool = False) -> NeuSNetworks:
     )
 
 
-def build_model(conf: Config, nets: NeuSNetworks, seed: int = 0) -> NeuSModel:
-    """A freshly initialised model (geometric-init SDF), on the CPU. One
-    generator seeded with ``seed`` draws the networks' weights in the order
-    nerf, sdf, colour, depth head."""
+def build_model(conf: Config, nets: NeuSNetworks, seed: int = 0,
+                matmul_dtype: torch.dtype | None = None) -> NeuSModel:
+    """A freshly initialised model (geometric-init SDF), on the CPU, its SDF
+    network under the precision policy ``matmul_dtype``
+    (``models/precision.py``). One generator seeded with ``seed`` draws the
+    networks' weights in the order nerf, sdf, colour, depth head."""
     gen = torch.Generator().manual_seed(seed)
-    return NeuSModel(nets, conf.get_float("model.variance_network.init_val"), gen)
+    return NeuSModel(nets, conf.get_float("model.variance_network.init_val"), gen, matmul_dtype)

@@ -1,7 +1,9 @@
 """Typed training configuration, built from the HOCON ``train`` block.
 
 Counterpart of ``vdnerf_tpu/train/config.py``: the same fields, defaults and
-conf keys, so every conf gives the same ``TrainConfig`` in both packages.
+conf keys, so every conf gives the same ``TrainConfig`` in both packages, and
+``bf16`` (``train.bf16``), which the JAX runner reads from the conf itself
+to switch its matmul policy on (``models/precision.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ class TrainConfig:
     step_size: int = 1
     start_refine_pose_iter: int = 0
     start_refine_focal_iter: int = 0
+    # the SDF value+gradient+feature block in bf16 (models/precision.py)
+    bf16: bool = False
 
     def __post_init__(self):
         # split a batch above MAX_MONOLITHIC_BATCH into the fewest
@@ -89,13 +93,6 @@ class TrainConfig:
     @classmethod
     def from_conf(cls, conf: Config) -> "TrainConfig":
         t = conf["train"]
-        if t.get_bool("bf16", default=False):
-            # the JAX package then runs the SDF value+gradient+feature block
-            # in bf16 (vdnerf_tpu/models/precision.py); the port has only the
-            # f32 block, and training it in f32 would not be that recipe
-            raise NotImplementedError(
-                "train.bf16 = true (the bf16 SDF block) is not ported: the port's SDF block "
-                "runs in f32 only; remove the key or set it to false")
         extract_depth = t.get_bool("extract_depth", default=False)
         learnable = t.get_bool("focal_learnable", default=False)
         kw = dict(
@@ -121,6 +118,7 @@ class TrainConfig:
             extract_depth=extract_depth,
             rgb_dims=t.get_int("rgb_dims", default=3) if extract_depth else 3,
             learnable=learnable,
+            bf16=t.get_bool("bf16", default=False),
         )
         if extract_depth:
             kw.update(

@@ -23,6 +23,9 @@ def resolve_device(device: str | torch.device | None, gpu: int = 0) -> torch.dev
 
 
 def configure_numerics() -> None:
-    """Keep f32 matmuls in full f32 (no TF32), like the JAX default policy."""
+    """Keep f32 matmuls in full f32 (no TF32), like the JAX default policy,
+    and let no bf16 GEMM reduce partly in bf16: JAX's products accumulate in
+    f32 (``preferred_element_type``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

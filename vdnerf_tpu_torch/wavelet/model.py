@@ -90,7 +90,7 @@ def init_flax_(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def create_model(opts: WaveletOpts, device: torch.device | str = "cpu",
+def create_model(opts: WaveletOpts, device: torch.device | str,
                  generator: torch.Generator | None = None) -> MonodepthModel:
     """The model with flax's initialisation from ``generator`` (seed 0 when
     omitted), in eval mode, on ``device``."""
