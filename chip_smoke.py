@@ -111,20 +111,38 @@
     10 and the cameras refined from step 0, as shipped: K2 twice a step, K3
     once and twice from step 11 on, K4/K5 once; timed steps;
     ``getfeats_40`` through the cameras of ``pnf_000040``.
-14. bf16 phase (``train.bf16``, the bf16 SDF block): phase 6's step timing
+14. Capture and novel-view phase: a binary COLMAP model under
+    ``capture/sparse/0`` (one SIMPLE_PINHOLE camera at f = 350 and 400x300,
+    the scene's noisy cameras, 300 points around the sphere), then
+    ``python -m vdnerf_tpu_torch.colmap.imgs2poses`` (COLMAP skipped) and
+    ``...colmap.gen_cameras_cli``: ``poses.npy`` is [8, 3, 5], and each
+    ``world_mat_<i> @ scale_mat_<i>`` decomposes to that camera's rotation
+    (1e-4) and f = 350 (1e-4 relative); ``showcam_40 -c`` through the CLI on
+    phase 12's run with ``dataset.gt_cameras_name`` at the clean cameras:
+    init, learned and GT c2w [8, 4, 4], the learned K [4, 4], the learned
+    poses moved, a frustum PNG; ``interpolate_0_1 -c`` on phase 6's run
+    (fixed cameras, K4 over 33 outside rows a ray) and on phase 12's (learned
+    cameras, K4 over all 160 samples), each with the launch counts set to 0
+    before and read after: K1, K2 and K4 launch, K2 and K4 once per 4096-ray
+    chunk (2 a frame of 100x75, 120 in all), no backward kernel; the video
+    decodes to 120 frames of 100x74 (mp4v keeps even sizes); the sweep's
+    middle frame (ratio 0.5) through the kernels, every 16th of its rays
+    within 5e-3 of the plain versions on the CPU. Prints each sweep's wall
+    clock, frames/s and rays/s.
+15. bf16 phase (``train.bf16``, the bf16 SDF block): phase 6's step timing
     on ``womsk_white_tpu`` with ``train.bf16 = true`` (both core widths,
     replayed and eager); the gradient check of phase 7 with the SDF block
     in bf16 on both sides, the CPU also taking the f32 step: each gradient
     within 2^-6 or 1.5x the CPU bf16 step's own distance from the CPU f32
     step, whichever is larger (both printed).
-15. Flagship phase: ``vdnerf_tpu_torch.tools.flagship_run`` at full width on
+16. Flagship phase: ``vdnerf_tpu_torch.tools.flagship_run`` at full width on
     its 24 views of 256^2, bf16, 300 steps (``FLAGSHIP_ARGS``), launch
     counts set to 0 before and read after: fails unless every kernel and the
     contraction ran, the masked PSNR at step 300 is above that at step 100,
     and the extracted 256^3 mesh is non-empty with a finite Chamfer distance
     to the analytic surface (the uncleaned mesh's: after 300 steps the
     visual-hull cleaning culls the whole early surface).
-16. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+17. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -662,12 +680,13 @@ def _look_at(eye):
     return c2w
 
 
-def write_scene(data_dir: str) -> None:
+def write_scene(data_dir: str):
     """8 RGBA views of a Lambertian sphere of radius 0.5 from a ring at
     distance 3, with ``image/cameras_sphere.npz`` (world_mat_<stem> = K w2c,
     scale_mat_<stem> = I), and ``image/cameras_sphere_colmap.npz``, the
     learn confs' cameras: the same poses with COLMAP-grade noise from
-    ``perturb_poses`` (seed 5), for the learned cameras to correct."""
+    ``perturb_poses`` (seed 5), for the learned cameras to correct -> those
+    noisy c2w [8, 4, 4]."""
     import cv2 as cv
     import numpy as np
 
@@ -708,6 +727,7 @@ def write_scene(data_dir: str) -> None:
     np.savez(os.path.join(img_dir, "cameras_sphere_colmap.npz"), **{
         **cams, **{f"world_mat_{i:03d}": (K @ np.linalg.inv(c2w)).astype(np.float32)
                    for i, c2w in enumerate(noisy)}})
+    return noisy
 
 
 # train keys that write_conf adds where a conf has none
@@ -754,7 +774,7 @@ def slice_phase(tmp: str) -> dict:
 
     case = "sphere"
     data_dir = os.path.join(tmp, "depth_data", case)
-    write_scene(data_dir)
+    noisy_c2w = write_scene(data_dir)
     conf_path = write_conf(tmp)
     conf = load_conf(conf_path, case)
     model = build_model(conf, build_networks(conf), seed=0)
@@ -792,6 +812,7 @@ def slice_phase(tmp: str) -> dict:
             raise SystemExit(f"{name}: shape {depth.shape}, finite={np.isfinite(depth).all()}")
     print(f"[slice] depth .npy written: {len(names)} x {(SCENE_H, SCENE_W, 1)}, finite")
     res["conf"] = conf
+    res["noisy_c2w"] = noisy_c2w
     return res
 
 
@@ -1643,6 +1664,219 @@ def serve_wdepth(train: dict) -> dict:
     return {"launches": launches, "summary": summary, "rays_per_s": rays / wall}
 
 
+# ---------------------------------------------------------------------------
+# capture and novel views
+# ---------------------------------------------------------------------------
+
+
+def write_colmap_model(sparse_dir: str, c2ws, f: float, points) -> None:
+    """A binary COLMAP sparse model: one SIMPLE_PINHOLE camera at focal ``f``
+    and the scene's size, one image per c2w (named as the scene's views, no
+    keypoints), and ``points`` each seen by the first two images."""
+    import struct
+
+    import numpy as np
+
+    from vdnerf_tpu_torch.colmap.read_model import rotmat2qvec
+
+    os.makedirs(sparse_dir)
+    with open(os.path.join(sparse_dir, "cameras.bin"), "wb") as fo:
+        fo.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 0, SCENE_W, SCENE_H))
+        fo.write(struct.pack("<3d", f, SCENE_W / 2, SCENE_H / 2))
+    with open(os.path.join(sparse_dir, "images.bin"), "wb") as fo:
+        fo.write(struct.pack("<Q", len(c2ws)))
+        for i, c2w in enumerate(c2ws):
+            w2c = np.linalg.inv(c2w)
+            fo.write(struct.pack("<i", i + 1) + struct.pack("<4d", *rotmat2qvec(w2c[:3, :3])))
+            fo.write(struct.pack("<3d", *w2c[:3, 3]) + struct.pack("<i", 1))
+            fo.write(f"{i:03d}.png".encode() + b"\x00" + struct.pack("<Q", 0))
+    with open(os.path.join(sparse_dir, "points3D.bin"), "wb") as fo:
+        fo.write(struct.pack("<Q", len(points)))
+        for j, p in enumerate(points):
+            fo.write(struct.pack("<Q", j + 1) + struct.pack("<3d", *p))
+            fo.write(struct.pack("<3B", 200, 150, 90) + struct.pack("<d", 0.5))
+            fo.write(struct.pack("<Q", 2) + struct.pack("<iiii", 1, j, 2, j))
+
+
+COLMAP_POINTS = 300
+
+
+def colmap_phase(tmp: str, noisy_c2w) -> dict:
+    """The capture preparation a learn conf starts from: a COLMAP model of
+    the scene's noisy cameras (f = 350) and 300 points around the sphere,
+    then ``python -m vdnerf_tpu_torch.colmap.imgs2poses`` (COLMAP skipped:
+    sparse/0 is there), the crop step (every point kept) and
+    ``python -m vdnerf_tpu_torch.colmap.gen_cameras_cli``. Decomposing each
+    ``world_mat_<i> @ scale_mat_<i>`` must give that camera's rotation within
+    1e-4 and f = 350 within 1e-4 relative."""
+    import numpy as np
+
+    from vdnerf_tpu_torch.data.dataset import load_K_Rt_from_P
+    from vdnerf_tpu_torch.mesh import load_ply, save_ply
+
+    capture = os.path.join(tmp, "capture")
+    rng = np.random.default_rng(7)
+    pts = rng.normal(size=(COLMAP_POINTS, 3))
+    pts *= rng.uniform(0.45, 0.55, (COLMAP_POINTS, 1)) / np.linalg.norm(pts, axis=-1, keepdims=True)
+    write_colmap_model(os.path.join(capture, "sparse", "0"), noisy_c2w, 350.0, pts)
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    seconds = {}
+    for module in ("imgs2poses", "gen_cameras_cli"):
+        if module == "gen_cameras_cli":
+            verts, _ = load_ply(os.path.join(capture, "sparse_points.ply"))
+            save_ply(os.path.join(capture, "sparse_points_interest.ply"), verts,
+                     np.zeros((0, 3), np.int64))
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", f"vdnerf_tpu_torch.colmap.{module}", capture],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        seconds[module] = time.perf_counter() - t0
+        print(f"[colmap] {module}: rc {out.returncode}, {seconds[module]:.2f} s: "
+              f"{out.stdout.strip().splitlines()}")
+        if out.returncode:
+            raise SystemExit(f"{module} failed:\n{out.stderr[-4000:]}")
+    poses = np.load(os.path.join(capture, "poses.npy"))
+    cams = np.load(os.path.join(capture, "cameras_sphere_colmap.npz"))
+    rot_err = f_err = 0.0
+    for i, c2w in enumerate(noisy_c2w):
+        P = (cams[f"world_mat_{i:03d}"] @ cams[f"scale_mat_{i:03d}"])[:3, :4]
+        K, pose = load_K_Rt_from_P(None, P)
+        rot_err = max(rot_err, float(np.abs(pose[:3, :3] - c2w[:3, :3]).max()))
+        f_err = max(f_err, abs(K[0, 0] / 350.0 - 1), abs(K[1, 1] / 350.0 - 1))
+    print(f"[colmap] poses.npy {poses.shape}; {len(cams.files)} arrays in the npz;"
+          f" rotation max abs err {rot_err:.3e} (tol 1e-4), focal rel err {f_err:.3e} (tol 1e-4)")
+    if poses.shape != (SCENE_VIEWS, 3, 5) or not rot_err <= 1e-4 or not f_err <= 1e-4:
+        raise SystemExit("the COLMAP preparation did not recover the cameras")
+    return {"poses_shape": list(poses.shape), "rotation_max_abs_err": rot_err,
+            "focal_rel_err": f_err, "seconds": seconds}
+
+
+def showcam_phase(tmp: str, learn: dict) -> dict:
+    """``showcam_40 -c`` through the port's CLI on the learn run, with
+    ``dataset.gt_cameras_name`` pointed at the clean cameras: the npz holds
+    init, learned and GT c2w [8, 4, 4] and the learned K [4, 4]; the learned
+    poses moved away from the initial ones; the PNG is a 3-channel image with
+    something drawn. Prints each set's largest rotation error against GT."""
+    import cv2 as cv
+    import numpy as np
+
+    from vdnerf_tpu_torch import cli
+
+    with open(learn["conf_path"]) as f:
+        text = f.read()
+    line = "    object_cameras_name = IMG_DIR/cameras_sphere_colmap.npz"
+    if text.count(line) != 1:
+        raise SystemExit(f"{learn['name']}.conf: expected one {line!r}")
+    conf_path = learn["conf_path"].replace(".conf", "_gt.conf")
+    with open(conf_path, "w") as f:
+        f.write(text.replace(line, line + "\n    gt_cameras_name = IMG_DIR/cameras_sphere.npz"))
+    t0 = time.perf_counter()
+    path = cli.main(["--conf", conf_path, "--case", learn["case"], "--mode", "showcam_40", "-c"])
+    wall = time.perf_counter() - t0
+    with np.load(path) as f:
+        dump = dict(f)
+    shapes = {k: v.shape for k, v in dump.items()}
+    want = {"init_c2w": (SCENE_VIEWS, 4, 4), "learned_c2w": (SCENE_VIEWS, 4, 4),
+            "gt_c2w": (SCENE_VIEWS, 4, 4), "learned_K": (4, 4)}
+    if shapes != want:
+        raise SystemExit(f"showcam_40 dumped {shapes}")
+    moved = float(np.abs(dump["learned_c2w"] - dump["init_c2w"]).max())
+    rot_err = {k: float(np.abs(dump[k][:, :3, :3] - dump["gt_c2w"][:, :3, :3]).max())
+               for k in ("init_c2w", "learned_c2w")}
+    png = cv.imread(path.replace(".npz", ".png"))
+    print(f"[showcam] {path}: {shapes}, wall_s={wall:.3f}; learned moved {moved:.3e} from init; "
+          f"rotation max abs err against GT {rot_err}; learned f {dump['learned_K'][0, 0]:.4f}; "
+          f"png {None if png is None else png.shape}")
+    if not moved > 0:
+        raise SystemExit(f"showcam_40: the learned poses did not move ({moved})")
+    if png is None or png.ndim != 3 or png.shape[2] != 3 or not (png < 250).any():
+        raise SystemExit("showcam_40 wrote no frustum image")
+    return {"shapes": {k: list(v) for k, v in shapes.items()}, "learned_moved": moved,
+            "rotation_err_vs_gt": rot_err, "wall_s": wall}
+
+
+INTERP_FRAMES, INTERP_LEVEL = 60, 4
+# every 16th ray of a 100x75 frame: 469 rays, about reference_check's 512
+REF_STRIDE = 16
+
+
+def interpolate_phase(run: dict, tag: str) -> dict:
+    """``interpolate_0_1 -c`` through the port's CLI on a training run's
+    latest checkpoint, with the launch counts set to 0 just before and read
+    just after: K1, K2 and K4 launch, K2 and K4 once per 4096-ray chunk (two
+    a frame of 100x75, 120 in all), no backward kernel; the .mp4 decodes to
+    120 frames of 100x74 (the codec's even size). Then the sweep's middle
+    frame (ratio 0.5) through the kernels on the card, every 16th of its rays
+    against the plain versions on the CPU (colour 5e-3, as
+    ``reference_check``)."""
+    import cv2 as cv
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch import cli
+    from vdnerf_tpu_torch.data.cameras import rays_between
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.runner import Runner
+
+    h, w = SCENE_H // INTERP_LEVEL, SCENE_W // INTERP_LEVEL
+    chunks = INTERP_FRAMES * math.ceil(h * w / CHUNK)
+    base = ["--conf", run["conf_path"], "--case", run["case"]]
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = cli.main(base + ["--mode", "interpolate_0_1", "-c"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    rays = INTERP_FRAMES * h * w
+    print(f"[{tag}] interpolate_0_1: {path} wall_s={wall:.3f} frames/s="
+          f"{INTERP_FRAMES / wall:.2f} rays/s={rays / wall:.1f}; launches {launches}")
+    if launches["sdf_fwd"] == 0 or launches["render_fwd"] != chunks \
+            or launches["nerf_fwd"] != chunks \
+            or any(launches[k] for k in ("render_bwd", "nerf_bwd", "dw_contract")):
+        raise SystemExit(f"[{tag}] launches {launches}: expected K1, K2 and K4 {chunks} times "
+                         "each, no backward")
+    cap = cv.VideoCapture(path)
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    # mp4v stores 4:2:0 chroma, so the encoder keeps even sizes: 75 rows
+    # decode as 74, as the JAX writer's do
+    print(f"[{tag}] the video decodes to {len(shapes)} frames of {set(shapes)}")
+    if len(shapes) != 2 * INTERP_FRAMES or set(shapes) != {(h - h % 2, w - w % 2, 3)}:
+        raise SystemExit(f"[{tag}] the video holds {len(shapes)} frames of {set(shapes)}")
+
+    # the middle frame whole on the card, every REF_STRIDE-th of its rays on
+    # the CPU (a full frame through the plain versions takes ~85 s there)
+    colors = {}
+    for dev in (None, "cpu"):
+        runner = Runner(run["conf_path"], run["case"], device=dev, mode="interpolate",
+                        is_continue=True)
+        poses, intrin_inv = runner.resolved_cams()
+        if dev is None:
+            frame = runner.renderer.render_between(runner.model, poses, intrin_inv, 0, 1, 0.5,
+                                                   INTERP_LEVEL, runner.iter_step)
+            colors["cuda"] = frame.reshape(-1, 3)[::REF_STRIDE]
+            continue
+        rays_o, rays_d = rays_between(*(torch.as_tensor(a) for a in (poses[0], poses[1],
+                                                                     intrin_inv[0])),
+                                      0.5, SCENE_H, SCENE_W, INTERP_LEVEL)
+        colors["cpu"] = runner.renderer.render_rays(
+            runner.model, rays_o.reshape(-1, 3)[::REF_STRIDE], rays_d.reshape(-1, 3)[::REF_STRIDE],
+            runner.iter_step)["color"]
+    err = float(np.abs(colors["cuda"] - colors["cpu"]).max())
+    print(f"[{tag}] the middle frame ({frame.shape}), {len(colors['cpu'])} of its rays, kernels "
+          f"vs plain on the CPU: colour max_abs_err {err:.3e} (tol 5e-3)")
+    if frame.shape != (h, w, 3) or not err <= 5e-3:
+        raise SystemExit(f"[{tag}] the interpolated frame disagrees with the plain render")
+    return {"launches": launches, "wall_s": wall, "frames_per_s": INTERP_FRAMES / wall,
+            "rays_per_s": rays / wall, "video_frames": len(shapes), "frame_hw": [h, w],
+            "chunks": chunks, "middle_frame_max_abs_err": err}
+
+
 # the flagship phase: the convergence tool at full width on its 24 views of
 # 256^2, bf16, at its defaults otherwise (the faithful 128-sample core, the
 # background NeRF over all 160 samples), 300 steps in windows of 10
@@ -1777,6 +2011,15 @@ def main() -> int:
                     raise SystemExit(f"{name} {core}: launches per step {per_step}, expected "
                                      f"K2, K3, K4, K5 {want}")
         learn_wdepth_serve = serve_wdepth(learn_wdepth)
+        # the capture workflow around the learn recipes: COLMAP preparation,
+        # the learned poses against the initial and GT ones, the novel views
+        novel = {"colmap": colmap_phase(tmp, res["noisy_c2w"]),
+                 "showcam": showcam_phase(tmp, learn)}
+        t_nv = time.perf_counter()
+        novel["interpolate"] = interpolate_phase(train, "interpolate womsk_white_tpu")
+        novel["interpolate_learn"] = interpolate_phase(learn, f"interpolate {LEARN}")
+        novel["interpolate_s"] = time.perf_counter() - t_nv
+        novel["card"] = card_line()
         # the bf16 SDF block (train.bf16): the steps timed, one step's
         # gradients against the CPU, then the flagship tool
         bf16_steps = time_train_steps(write_conf(tmp, "exp_bf16", {**TRAIN_KEYS, "bf16": "true"}))
@@ -1794,6 +2037,8 @@ def main() -> int:
                    "train_learn": learn["launches"][name],
                    "train_learn_wdepth": learn_wdepth["launches"][name],
                    "serve_learn_wdepth": learn_wdepth_serve["launches"][name],
+                   "interpolate": novel["interpolate"]["launches"][name],
+                   "interpolate_learn": novel["interpolate_learn"]["launches"][name],
                    "flagship": flagship["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
@@ -1825,6 +2070,9 @@ def main() -> int:
                                              "depth_losses": learn_wdepth["depth_losses"]},
                       "serve_learn_wdepth": {k: v for k, v in learn_wdepth_serve.items()
                                              if k != "launches"},
+                      "novel_views": {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
+                                          if isinstance(v, dict) else v)
+                                      for k, v in novel.items()},
                       "train_bf16": {"steps": bf16_steps, "gradient_check": bf16_grad},
                       "flagship": {k: v for k, v in flagship.items() if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},

@@ -94,8 +94,11 @@ def test_valimg_and_getfeats_match_jax_cli(scene, f32_matmuls, capsys):
     assert os.listdir(os.path.join(d, "exp", "weight_max"))
 
 
-def test_unported_mode_exits_with_message():
+@pytest.mark.parametrize("mode", ["bogus_1", "interpolate_0", "interpolate_a_b", "valimg"])
+def test_unknown_mode_exits_with_message(mode):
+    """Every JAX mode is ported; a mode the JAX CLI does not know, or one
+    without its numbers, exits with JAX's message before a conf is read."""
     from vdnerf_tpu_torch.cli import main as port_main
 
-    with pytest.raises(SystemExit, match="not yet ported"):
-        port_main(["--mode", "interpolate_0_1"], device="cpu")
+    with pytest.raises(SystemExit, match=f"unknown mode: {mode}$"):
+        port_main(["--mode", mode], device="cpu")

@@ -475,6 +475,47 @@ def test_masked_render_launches_no_background_kernel(card):
     torch.testing.assert_close(colors["cuda"], colors["cpu"], atol=5e-3, rtol=0)
 
 
+def test_interpolated_frame_through_the_kernels(card):
+    """One frame of the novel-view sweep (``render_between`` at ratio 0.5
+    between two learned cameras, resolution level 2: 768 rays, one chunk) at
+    small widths with the womsk renderer features: on the card K1, K2 and K4
+    run (K2 and K4 once) and no backward kernel; the colour within 5e-3 of
+    the plain versions on the CPU."""
+    from vdnerf_tpu_torch.data.cameras import LearnedCameras
+    from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
+    from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig
+    from vdnerf_tpu_torch.train.config import TrainConfig
+    from vdnerf_tpu_torch.train.validate import ImageRenderer, resolve_cams
+
+    nets = NeuSNetworks(
+        sdf=SDFConfig(d_out=65, d_hidden=64, n_layers=4, skip_in=(2,)),
+        color=RenderConfig(d_feature=64, d_hidden=64, n_layers=2, multires_view=4),
+        nerf=NeRFConfig(D=4, W=64, skips=(2,), multires=6, multires_view=2),
+        renderer=RendererConfig(n_samples=16, n_importance=16, n_outside=8, perturb=0.0,
+                                skip_bg_inside=True, n_render_samples=24,
+                                resample_uniform_frac=1.0))
+    W, H = 64, 48
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -3.0
+    turned = np.array([[0.0, 0, 1, -3], [0, 1, 0, 0], [-1, 0, 0, 0], [0, 0, 0, 1]], np.float32)
+    tcfg = TrainConfig(batch_size=256, use_white_bkgd=True)
+    frames, launches = {}, {}
+    for dev in (card, torch.device("cpu")):
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        cams = LearnedCameras(np.stack([pose, turned]), 50.0, H, W).to(dev)
+        poses, intrin_inv = resolve_cams(cams, None, None)
+        build.reset_launches()
+        frames[dev.type] = ImageRenderer(nets, tcfg, H, W).render_between(
+            model, poses, intrin_inv, 0, 1, 0.5, resolution_level=2)
+        launches[dev.type] = dict(build.LAUNCHES)
+    assert frames["cuda"].shape == (H // 2, W // 2, 3)
+    assert launches["cuda"]["sdf_fwd"] > 0
+    assert launches["cuda"]["render_fwd"] == launches["cuda"]["nerf_fwd"] == 1
+    assert launches["cuda"]["render_bwd"] == launches["cuda"]["nerf_bwd"] == 0
+    assert launches["cuda"]["dw_contract"] == 0 and not any(launches["cpu"].values())
+    np.testing.assert_allclose(frames["cuda"], frames["cpu"], atol=5e-3, rtol=0)
+
+
 @pytest.mark.parametrize("n", [63, 8192, 49152 + 37])
 def test_depth_head_bwd_full_width(card, n):
     """K3 at the wdepth recipe's depth head (289 -> 256 x4 -> 96: the output

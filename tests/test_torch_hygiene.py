@@ -1,7 +1,9 @@
 """Package rules of vdnerf_tpu_torch.
 
 - No module of the port, and not ``chip_smoke.py``, imports ``jax`` or anything
-  of ``vdnerf_tpu`` (an AST scan, so a lazy import inside a function counts).
+  of ``vdnerf_tpu`` (an AST scan, so a lazy import inside a function counts),
+  nor ``matplotlib``: the card's machine is not known to have it, and the
+  frustum plot is drawn with cv2.
 - The entry points run on the card: without an explicit ``device="cpu"`` they
   raise when CUDA is missing, and do not carry on on the CPU.
 - On CPU tensors the kernel wrappers run their plain versions and count no
@@ -45,6 +47,12 @@ def _forbidden(module: str) -> bool:
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_matplotlib(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "matplotlib"]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 

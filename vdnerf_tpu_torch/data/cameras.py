@@ -4,6 +4,9 @@ Counterpart of ``vdnerf_tpu/data/cameras.py``:
 
 - :func:`pixels_to_rays`, :func:`rays_grid`: rays of pixels for a c2w pose
   and an inverse intrinsic matrix (fixed or learned cameras alike).
+- :func:`interpolate_pose`, :func:`rays_between`: a pose between two cameras
+  (rotation slerped, translation lerped, both in the w2c frame) and its ray
+  grid, for the novel-view sweep.
 - :class:`LearnedCameras`: the learnable confs' cameras (``focal_learnable``,
   the reference's LearnPose / LearnIntrin): per camera an axis-angle ``r``
   and a translation ``t``, composed as a delta on the initial c2w, and one
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vdnerf_tpu_torch.utils.so3 import make_c2w
+from vdnerf_tpu_torch.utils.so3 import make_c2w, slerp
 
 
 def pixels_to_rays(
@@ -60,6 +63,31 @@ def rays_grid(
     ty = torch.linspace(0, H - 1, H // l, device=dev)
     px, py = torch.meshgrid(tx, ty, indexing="xy")
     return pixels_to_rays(pose, intrinsic_inv, px, py)
+
+
+def interpolate_pose(pose_0: torch.Tensor, pose_1: torch.Tensor, ratio) -> torch.Tensor:
+    """c2w [4, 4] between two c2w poses: the w2c rotations slerped and the
+    w2c translations lerped at ``ratio``, then inverted back."""
+    inv0 = torch.linalg.inv(pose_0)
+    inv1 = torch.linalg.inv(pose_1)
+    pose = torch.eye(4, dtype=pose_0.dtype, device=pose_0.device)
+    pose[:3, :3] = slerp(inv0[:3, :3], inv1[:3, :3], ratio)
+    pose[:3, 3] = (1.0 - ratio) * inv0[:3, 3] + ratio * inv1[:3, 3]
+    return torch.linalg.inv(pose)
+
+
+def rays_between(
+    pose_0: torch.Tensor,
+    pose_1: torch.Tensor,
+    intrinsic_inv: torch.Tensor,
+    ratio,
+    H: int,
+    W: int,
+    resolution_level: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ray grid of :func:`rays_grid` from :func:`interpolate_pose`."""
+    return rays_grid(interpolate_pose(pose_0, pose_1, ratio), intrinsic_inv, H, W,
+                     resolution_level)
 
 
 # -- learned cameras ----------------------------------------------------------

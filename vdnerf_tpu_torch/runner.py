@@ -17,7 +17,13 @@ Counterpart of ``vdnerf_tpu/runner.py`` for fixed and learned cameras:
   K1), in world space through ``scale_mats_np[0]`` on request, written to
   ``meshes/<iter:08d>.ply``; training extracts one at every
   ``val_mesh_freq``-th step (128^3, 256^3 at every 50,000th, 512^3 in world
-  space at every 150,000th).
+  space at every 150,000th);
+- ``interpolate_<i>_<j>``: the 60-frame novel-view sweep between cameras i
+  and j at resolution level 4, forward then back, written to
+  ``render/<iter:08d>_<i>_<j>.mp4``;
+- ``showcam``: the initial, learned (learnable confs) and ground-truth
+  camera poses to ``cam_poses/pose_<iter:06d>.npz`` and a frustum PNG beside
+  it.
 
 The wdepth confs (``train.extract_depth``) add the depth head and the
 depth-feature store (``<data_dir>/<img_dir>/<depth_dir>/<stem>.npy``), which
@@ -51,8 +57,8 @@ import cv2 as cv
 import numpy as np
 import torch
 
-from vdnerf_tpu_torch.data.cameras import LearnedCameras
-from vdnerf_tpu_torch.data.dataset import SceneData
+from vdnerf_tpu_torch.data.cameras import LearnedCameras, learn_intrin_K
+from vdnerf_tpu_torch.data.dataset import SceneData, load_K_Rt_from_P
 from vdnerf_tpu_torch.data.rays import RayStore
 from vdnerf_tpu_torch.io import (
     MetricsWriter,
@@ -78,9 +84,12 @@ from vdnerf_tpu_torch.train.step import Trainer
 from vdnerf_tpu_torch.train.validate import (
     ImageRenderer,
     export_depth_from_sdf,
+    interpolate_frames,
     resolve_cams,
     val_image_metrics,
+    write_video,
 )
+from vdnerf_tpu_torch.utils.camvis import plot_cam_poses
 from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
 from vdnerf_tpu_torch.utils.hocon import load_conf
 
@@ -306,9 +315,14 @@ class Runner:
 
     # -- validation -----------------------------------------------------------
 
+    def resolved_cams(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every camera's c2w and inverse intrinsics [n, 4, 4] on the host,
+        the learned ones for a learnable conf."""
+        return resolve_cams(self.cams, self.scene_data.pose_all,
+                            self.scene_data.intrinsics_all_inv)
+
     def _render(self, idx: int, resolution_level: int) -> dict:
-        poses, intrin_inv = resolve_cams(self.cams, self.scene_data.pose_all,
-                                         self.scene_data.intrinsics_all_inv)
+        poses, intrin_inv = self.resolved_cams()
         return self.renderer.render_image(self.model, poses[idx], intrin_inv[idx],
                                           resolution_level, self.iter_step)
 
@@ -406,3 +420,72 @@ class Runner:
                  resolution, {k: round(v, 3) for k, v in seconds.items()})
         return {"path": path, "resolution": resolution, "world_space": world_space,
                 "n_verts": int(len(verts)), "n_tris": int(len(tris)), "seconds": seconds}
+
+    # -- novel views ----------------------------------------------------------
+
+    def interpolate_view(self, idx0: int, idx1: int) -> str:
+        """The novel-view sweep between cameras ``idx0`` and ``idx1`` ->
+        ``render/<iter:08d>_<idx0>_<idx1>.mp4``."""
+        poses, intrin_inv = self.resolved_cams()
+        frames = interpolate_frames(self.renderer, self.model, poses, intrin_inv, idx0, idx1,
+                                    step=self.iter_step)
+        path = os.path.join(self.base_exp_dir, "render",
+                            f"{self.iter_step:08d}_{idx0}_{idx1}.mp4")
+        write_video(path, frames)
+        return path
+
+    # -- camera poses ---------------------------------------------------------
+
+    def get_gt_poses(self, cameras_npz_path: str) -> np.ndarray | None:
+        """c2w poses [n, 4, 4] from a cameras npz, keyed by image stem
+        (``world_mat_<stem>``) or by index (``world_mat_<i>``), ``scale_mat``
+        the identity where missing; None if the file or a camera is missing."""
+        if not os.path.exists(cameras_npz_path):
+            return None
+        stems = [os.path.splitext(os.path.basename(f))[0] for f in self.scene_data.images_lis]
+        poses = []
+        with np.load(cameras_npz_path) as camera_dict:
+            for i, stem in enumerate(stems):
+                key = next((k for k in (f"world_mat_{stem}", f"world_mat_{i}")
+                            if k in camera_dict), None)
+                if key is None:
+                    return None
+                world_mat = camera_dict[key].astype(np.float32)
+                scale_key = key.replace("world_mat", "scale_mat")
+                scale_mat = (camera_dict[scale_key] if scale_key in camera_dict
+                             else np.eye(4)).astype(np.float32)
+                _, pose = load_K_Rt_from_P(None, (world_mat @ scale_mat)[:3, :4])
+                poses.append(pose.astype(np.float32))
+        return np.stack(poses)
+
+    def show_cam_pose(self, gt_cameras_path: str | None = None) -> str:
+        """The initial, learned and ground-truth camera poses ->
+        ``cam_poses/pose_<iter:06d>.npz`` (``init_c2w``; ``learned_c2w`` and
+        ``learned_K`` for a learnable conf; ``gt_c2w`` when the file
+        ``dataset.gt_cameras_name``, by default the render cameras, resolves)
+        and their frustums in a PNG beside it."""
+        out = {"init_c2w": np.asarray(self.scene_data.pose_all)}
+        pose_sets = {"init": out["init_c2w"]}
+        fx = float(self.scene_data.focal)
+        if self.cams is not None:
+            with torch.no_grad():
+                out["learned_c2w"] = self.cams.all_c2w().cpu().numpy()
+                out["learned_K"] = learn_intrin_K(self.cams.fx, self.cams.H, self.cams.W,
+                                                  self.cams.order).cpu().numpy()
+            pose_sets["learned"] = out["learned_c2w"]
+            fx = float(out["learned_K"][0, 0])
+        if gt_cameras_path is None:
+            gt_cameras_path = os.path.join(
+                self.scene_data.data_dir,
+                self.conf.get_string("dataset.gt_cameras_name",
+                                     default=self.scene_data.render_cameras_name))
+        gt = self.get_gt_poses(gt_cameras_path)
+        if gt is not None:
+            out["gt_c2w"] = gt
+            pose_sets["gt"] = gt
+        path = os.path.join(self.base_exp_dir, "cam_poses", f"pose_{self.iter_step:06d}.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, **out)
+        plot_cam_poses(path.replace(".npz", ".png"), pose_sets, self.scene_data.H,
+                       self.scene_data.W, fx)
+        return path

@@ -9,6 +9,8 @@ Counterpart of ``vdnerf_tpu/train/validate.py``:
 - :func:`val_image_metrics`: masked L1 and PSNR.
 - :func:`export_depth_from_sdf`: the ``getfeats`` output, per-pixel
   argmax-weight depth as ``.npy`` plus a percentile-normalised PNG.
+- :func:`interpolate_frames`, :func:`write_video`: the novel-view sweep
+  between two cameras as uint8 BGR frames, and its ``mp4v`` video.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import cv2 as cv
 import numpy as np
 import torch
 
-from vdnerf_tpu_torch.data.cameras import rays_grid
+from vdnerf_tpu_torch.data.cameras import rays_between, rays_grid
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
 from vdnerf_tpu_torch.train.config import TrainConfig
@@ -110,6 +112,21 @@ class ImageRenderer:
             "gradient_error": out["gradient_error"],
         }
 
+    def render_between(self, model: NeuSModel, poses: np.ndarray, intrin_inv: np.ndarray,
+                       idx0: int, idx1: int, ratio: float, resolution_level: int = 4,
+                       step: int = 0) -> np.ndarray:
+        """[H//l, W//l, 3] colour of the pose at ``ratio`` between cameras
+        ``idx0`` and ``idx1`` of ``poses`` (from :func:`resolve_cams`), through
+        the first camera's inverse intrinsics."""
+        dev = next(model.parameters()).device
+        rays_o, rays_d = rays_between(
+            torch.as_tensor(poses[idx0], device=dev), torch.as_tensor(poses[idx1], device=dev),
+            torch.as_tensor(intrin_inv[0], device=dev), ratio, self.H, self.W, resolution_level,
+        )
+        h, w = rays_o.shape[:2]
+        out = self.render_rays(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), step)
+        return out["color"].reshape(h, w, -1)
+
 
 def val_image_metrics(img: np.ndarray, gt: np.ndarray, mask: np.ndarray) -> tuple[float, float]:
     """(L1, PSNR) under a [H, W, 1] mask."""
@@ -130,3 +147,31 @@ def export_depth_from_sdf(weight_depth: np.ndarray, out_npy_path: str,
         png = ((weight_depth - lb) / max(ub - lb, 1e-9) * 255).clip(0, 255)
         os.makedirs(os.path.dirname(weight_png_path), exist_ok=True)
         cv.imwrite(weight_png_path, png)
+
+
+def interpolate_frames(renderer: ImageRenderer, model: NeuSModel, poses: np.ndarray,
+                       intrin_inv: np.ndarray, idx0: int, idx1: int, n_frames: int = 60,
+                       resolution_level: int = 4, step: int = 0) -> list[np.ndarray]:
+    """The sweep from camera ``idx0`` to ``idx1`` at sine-eased ratios as
+    uint8 frames in the dataset's BGR order, then the same frames reversed."""
+    frames = []
+    for i in range(n_frames):
+        ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+        img = renderer.render_between(model, poses, intrin_inv, idx0, idx1, float(ratio),
+                                      resolution_level, step)
+        frames.append((img * 256).clip(0, 255).astype(np.uint8))
+    return frames + frames[::-1]
+
+
+def write_video(path: str, frames: list[np.ndarray], fps: int = 30) -> None:
+    """``frames`` as an ``mp4v`` video; raises if the writer does not open."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    h, w = frames[0].shape[:2]
+    writer = cv.VideoWriter(path, cv.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2.VideoWriter could not open {path} for mp4v")
+    try:
+        for frame in frames:
+            writer.write(frame)
+    finally:
+        writer.release()
