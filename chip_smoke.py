@@ -15,7 +15,9 @@
    also gives ``kernel_ms``, its launches alone on weights packed once. K2 is
    held at a chunk's rows, and K2 and K3 at a step's rows on each of the three
    core widths (128 samples; 96 resampled at womsk_white_tpu, 64 at
-   wmask_tpu); K2 and K3 with the colour head's 3 outputs and with the depth
+   wmask_tpu), and every kernel of the step also at the rows of a rank's
+   256-ray block on two cards (K1 16,384 and 4,096; K2/K3 24,576 and
+   16,384; K4/K5 8,448 and 40,960); K2 and K3 with the colour head's 3 outputs and with the depth
    head's 96 (the same net). K4 is held and timed at a chunk's rows and at a
    training step's, K5 at a step's rows without and with the dpt head, both
    also at the learn confs' rows, whose background NeRF runs over all 160
@@ -57,6 +59,20 @@
    differences are printed; both run the same kernels on the same inputs).
    Then times steps per core width, replayed and eager in turns, with the
    device's idle share of one profiled window of each.
+   Then the parallel phase (data parallelism on the one card; NCCL refuses
+   two ranks on one device): the same 40 steps through ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1`` of this script's
+   ``--rank-child nccl`` (a NCCL world of 1 through ``cli.main``: the loss
+   sums and the one flat gradient all-reduce inside every captured step)
+   under ``VDNERF_PROFILE_DIR``: logs and the last checkpoint within 1e-6
+   relative of the run above (an all-reduce over one rank is a copy; the
+   differences are printed), the same launches, its replayed steps timed
+   beside the run above's, the flat all-reduce and one scalar global sum
+   timed alone, the trace of steps 11-20 naming every kernel of the step;
+   then ``--nproc_per_node=2 ... --rank-child gloo``: two gloo ranks on
+   cuda:0, one full-width eager step each on its 256-ray block, against one
+   512-ray step here (loss 1e-5 relative, every summed gradient 1e-4
+   relative L2; K1-K5 launched on both ranks).
 7. Gradient check: one full-width step on 128 rays through the kernels on the
    card against the plain versions on the CPU.
 8. Mesh phase: ``validate_mesh_40`` through the CLI (512^3, world space,
@@ -173,7 +189,11 @@ PEAK_TF32_S = 495e12
 # also at the ladder's rows of one 512-ray training step
 CHUNK = 4096
 BATCH = 512
-K1_ROWS = (CHUNK * 64, CHUNK * 16, BATCH * 64, BATCH * 16)
+# a rank's block of the batch on two cards (the parallel phase): every kernel
+# of the step is also held and timed at its half-batch rows, where a launch's
+# fixed costs weigh more
+HALF = BATCH // 2
+K1_ROWS = (CHUNK * 64, CHUNK * 16, BATCH * 64, BATCH * 16, HALF * 64, HALF * 16)
 K2_ROWS = CHUNK * 96
 K4_ROWS = CHUNK * 33
 RAGGED = 37
@@ -183,11 +203,15 @@ RAGGED = 37
 # backward over 32 outside samples + 1
 CORE_ROWS = (BATCH * 128, BATCH * 96, BATCH * 64)
 K5_ROWS = BATCH * 33
+# HALF * 128 is BATCH * 64, held above
+HALF_CORE_ROWS = (HALF * 96, HALF * 64)
+HALF_K5_ROWS = HALF * 33
 # the learn confs run the background NeRF over every one of the 128 + 32
 # merged samples (no skip_bg_inside): K4 and K5 at a step's 81,920 rows, K4
 # at a serving chunk's 655,360
 LEARN_ROWS = BATCH * 160
 LEARN_K4_ROWS = CHUNK * 160
+HALF_LEARN_ROWS = HALF * 160
 
 # K1 is f32 throughout: the kernel and torch differ in summation order and in
 # the last ulp of exp/log1p/sin/cos. K2/K4 round every matmul operand to bf16
@@ -403,7 +427,7 @@ def kernel_phase(device) -> dict:
     packed = fused_mlp._render_pack(plan, r_inputs(1)[3], ws, bs, device)
     packed96 = fused_mlp._render_pack(plan, r_inputs(1)[3], ws96, bs96, device)
     errs, shapes = [], []
-    for rows in (K2_ROWS, *CORE_ROWS):
+    for rows in (K2_ROWS, *CORE_ROWS, *HALF_CORE_ROWS):
         inp = r_inputs(rows + RAGGED)
         for w_, b_ in ((ws, bs), (ws96, bs96)):
             errs.append(_compare(
@@ -448,7 +472,7 @@ def kernel_phase(device) -> dict:
     wbytes = sum(w.numel() * 2 + b.numel() * 4 for w, b in zip(tw + hw[:4], tb + hb[:4]))
     packed = fused_mlp._nerf_pack(nplan, 4, tw, tb, hw[:4], hb[:4], device)
     errs, shapes = [], []
-    for rows in (K4_ROWS, K5_ROWS, LEARN_ROWS, LEARN_K4_ROWS):
+    for rows in (K4_ROWS, K5_ROWS, LEARN_ROWS, LEARN_K4_ROWS, HALF_K5_ROWS, HALF_LEARN_ROWS):
         pts4, views = n_inputs(rows + RAGGED)
         for has_dpt in (False, True):
             dplan = (10, 4, (4,), 8, has_dpt)
@@ -486,7 +510,7 @@ def kernel_phase(device) -> dict:
         flops_row = 3 * 2 * sum(k * n for k, n in dims)
         wbytes = sum(w.numel() * 2 + b.numel() * 4 + (w.numel() + b.numel()) * 4
                      for w, b in zip(hw_, hb_))
-        for rows in CORE_ROWS:
+        for rows in (*CORE_ROWS, *HALF_CORE_ROWS):
             inp = r_inputs(rows + RAGGED)
             g = torch.randn(rows + RAGGED, d_out, generator=gen).to(device)
             errs.append(_compare_bwd(
@@ -525,7 +549,8 @@ def kernel_phase(device) -> dict:
     # and d_views feed the camera gradient, each held and printed on its own)
     errs, shapes = [], []
     for rows, has_dpt in ((K5_ROWS, False), (K5_ROWS, True), (LEARN_ROWS, False),
-                          (LEARN_ROWS, True)):
+                          (LEARN_ROWS, True), (HALF_K5_ROWS, False), (HALF_K5_ROWS, True),
+                          (HALF_LEARN_ROWS, False), (HALF_LEARN_ROWS, True)):
         nplan = (10, 4, (4,), 8, has_dpt)
         heads = (hw, hb) if has_dpt else (hw[:4], hb[:4])
         dims = t_dims + (h_dims if has_dpt else h_dims[:4])
@@ -1043,7 +1068,8 @@ def check_pnf(conf, exp_dir: str, saves: list[int], tag: str) -> dict:
     return moved
 
 
-def time_train_steps(conf_path: str) -> dict:
+def time_train_steps(conf_path: str, world=None, modes=("replay", "eager", "replay", "eager"),
+                     profile: bool = True) -> dict:
     """Steady-state ms/step, rays/s and device idle share per core width (the
     faithful core, and the resampled one after resample_from), the captured
     step replayed against the same step launched eagerly, in turns (replay,
@@ -1054,7 +1080,9 @@ def time_train_steps(conf_path: str) -> dict:
     a wdepth conf the steps come after depth_start_iter, so they train the
     depth head, and on a learnable conf after start_refine_pose_iter, so
     they update the cameras; a conf without a resampled core times its one
-    core. Also each kernel's launches per timed step."""
+    core. Also each kernel's launches per timed step. ``world``: the
+    process group's ``World`` (the parallel phase's rank); ``modes``: the
+    timed windows in turn; ``profile``: one profiled window of each mode."""
     import dataclasses
 
     import numpy as np
@@ -1065,7 +1093,7 @@ def time_train_steps(conf_path: str) -> dict:
     from vdnerf_tpu_torch.tools.profile_render import profile_window
     from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
 
-    runner = Runner(conf_path, case="sphere", mode="train")
+    runner = Runner(conf_path, case="sphere", mode="train", world=world)
     rcfg = runner.nets.renderer
     policy = runner.model.sdf_network_fine.matmul_dtype
     if (policy is not None) != runner.tcfg.bf16:
@@ -1101,10 +1129,11 @@ def time_train_steps(conf_path: str) -> dict:
             dispatch[mode].run(steps, [nets] * n, batches)
 
         window("replay", WARMUP_STEPS + 1)  # the program's warm-up steps, then its capture
-        window("eager", 2)
+        if "eager" in modes:
+            window("eager", 2)
         torch.cuda.synchronize()
-        rec = {"replay": {"ms_per_step": []}, "eager": {"ms_per_step": []}}
-        for mode in ("replay", "eager", "replay", "eager"):
+        rec = {mode: {"ms_per_step": []} for mode in modes}
+        for mode in modes:
             build.reset_launches()
             t0 = time.perf_counter()
             window(mode)
@@ -1112,9 +1141,14 @@ def time_train_steps(conf_path: str) -> dict:
             rec[mode]["ms_per_step"].append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
             rec[mode]["launches_per_step"] = {k: v / TIMED_STEPS for k, v in build.LAUNCHES.items()}
         for mode, r in rec.items():
+            r["rays_per_s"] = [runner.tcfg.batch_size * 1e3 / ms for ms in r["ms_per_step"]]
+            if not profile:
+                print(f"{tag} {name} {mode}: ms/step {[round(v, 3) for v in r['ms_per_step']]}"
+                      f", rays/s {[round(v, 1) for v in r['rays_per_s']]}; launches per step "
+                      f"{r['launches_per_step']}")
+                continue
             prof = profile_window(lambda: window(mode))
-            r.update(rays_per_s=[runner.tcfg.batch_size * 1e3 / ms for ms in r["ms_per_step"]],
-                     device_busy_ms_per_step=(prof["device_busy_ms"] or 0.0) / TIMED_STEPS,
+            r.update(device_busy_ms_per_step=(prof["device_busy_ms"] or 0.0) / TIMED_STEPS,
                      profiled_ms_per_step=prof["profiled_window_ms"] / TIMED_STEPS,
                      device_events_per_step=prof["device_events"] / TIMED_STEPS,
                      device_span_ms_per_step=(prof["device_span_ms"] or 0.0) / TIMED_STEPS,
@@ -1135,7 +1169,8 @@ def time_train_steps(conf_path: str) -> dict:
         rec["host_sampling_ms_per_step"] = sampling_ms[-1]
         print(f"{tag} {name}: host pixel sampling {sampling_ms[-1]:.3f} ms a step, done "
               f"before a window's first step")
-        if rec["replay"]["launches_per_step"] != rec["eager"]["launches_per_step"]:
+        if "eager" in rec and \
+                rec["replay"]["launches_per_step"] != rec["eager"]["launches_per_step"]:
             raise SystemExit(f"{tag} {name}: a replay counts other launches than an eager step")
         out[name] = rec
     return out
@@ -1221,6 +1256,230 @@ def dispatch_check(tmp: str, graphed: dict) -> dict:
     if launches != graphed["launches"]:
         raise SystemExit(f"{tag} launch counts differ")
     return res
+
+
+# ---------------------------------------------------------------------------
+# parallel phase
+# ---------------------------------------------------------------------------
+
+# the kernels the profiler must name in the NCCL run's trace of steps 11-20
+TRACE_KERNELS = ("sdf_fwd_kernel", "render_fwd_kernel", "render_bwd_kernel", "nerf_fwd_kernel",
+                 "nerf_bwd_kernel", "dw_kernel")
+TORCHRUN_TIMEOUT_S = 600
+
+
+def _torchrun(nproc: int, args: list[str], env: dict | None = None) -> float:
+    """This script's rank child on ``nproc`` ranks of this machine through
+    ``python -m torch.distributed.run --standalone`` -> wall seconds; raises
+    if a rank fails. The launcher and its ranks run in a process group of their
+    own, killed whole if they outlive the time limit."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--rank-child", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env={**os.environ, **(env or {})}, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=TORCHRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise SystemExit(f"torchrun {args[0]} on {nproc} rank(s) exited with {rc}")
+    return time.perf_counter() - t0
+
+
+def full_batch_step(conf_path: str, device, world=None):
+    """One full-width 512-ray step at step 1,000 (perturb 0, no generator)
+    through the kernels, on ``world``'s block of the batch when given ->
+    (loss, {name: gradient on the CPU}, launches). The gradients are the
+    summed ones under a process group."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vdnerf_tpu_torch.data.dataset import SceneData
+    from vdnerf_tpu_torch.data.rays import RayStore
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.parallel import shard_batch
+    from vdnerf_tpu_torch.train.builder import build_model, build_networks
+    from vdnerf_tpu_torch.train.config import TrainConfig
+    from vdnerf_tpu_torch.train.step import Trainer
+    from vdnerf_tpu_torch.utils.hocon import load_conf
+
+    conf = load_conf(conf_path, "sphere")
+    tcfg = TrainConfig.from_conf(conf)
+    nets = build_networks(conf, tcfg.extract_depth)
+    nets = dataclasses.replace(nets, renderer=dataclasses.replace(nets.renderer, perturb=0.0))
+    scene = SceneData(conf["dataset"])
+    batch = RayStore(scene.images_lis, scene.masks_lis).sample_pixels(
+        2, BATCH, np.random.default_rng(5))
+    if world is not None:
+        batch = shard_batch(batch, world)
+    model = build_model(conf, nets, seed=0).to(device)
+    cams = {"pose_all": torch.as_tensor(scene.pose_all, device=device),
+            "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=device)}
+    build.reset_launches()
+    metrics = Trainer(tcfg, model, cams, None, world).gradients(nets, batch, 1000)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return float(metrics["loss"]), grads, dict(build.LAUNCHES)
+
+
+def rank_child(kind: str, conf_path: str, out: str) -> int:
+    """A rank of the parallel phase, started by torchrun. ``nccl``: the
+    training run through the CLI in the NCCL group, its replayed steps timed,
+    the flat gradient all-reduce and one scalar global sum timed alone ->
+    ``out`` (JSON). ``gloo``: a gloo group on cuda:0, shared by every rank,
+    and one full-width step on the rank's block -> ``out/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from vdnerf_tpu_torch import cli, parallel
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.utils.device import configure_numerics
+
+    configure_numerics()
+    if kind == "gloo":
+        device = torch.device("cuda:0")  # every rank on the one card
+        dist.init_process_group("gloo")
+        with parallel.world_from_env(device) as world:
+            loss, grads, launches = full_batch_step(conf_path, device, world)
+            torch.save({"loss": loss, "grads": grads, "launches": launches,
+                        "rays": BATCH // world.size},
+                       os.path.join(out, f"rank{world.rank}.pt"))
+        dist.destroy_process_group()
+        return 0
+
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    with parallel.world_from_env(device) as world:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        summary = cli.main(["--conf", conf_path, "--case", "sphere", "--mode", "train"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        os.environ.pop("VDNERF_PROFILE_DIR", None)
+        steps = time_train_steps(conf_path, world=world, modes=("replay", "replay"),
+                                 profile=False)
+        from vdnerf_tpu_torch.train.builder import build_model, build_networks
+        from vdnerf_tpu_torch.utils.hocon import load_conf
+
+        conf = load_conf(conf_path, "sphere")
+        params = list(build_model(conf, build_networks(conf, False), seed=0).to(device)
+                      .parameters())
+        for p in params:
+            p.grad = torch.randn_like(p)
+        x = torch.ones((), device=device)
+        res = {"summary": summary, "launches": launches, "wall_s": wall, "steps": steps,
+               "world": [world.rank, world.size, dist.get_backend()],
+               "n_params": sum(p.numel() for p in params),
+               "all_reduce_grads_ms": time_ms(lambda: parallel.all_reduce_grads(params), 20),
+               "global_sum_ms": time_ms(lambda: parallel.global_sum(x), 20)}
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def parallel_phase(tmp: str, train: dict, steps: dict) -> dict:
+    """Data parallelism on the one card: (1) the womsk run's 40 steps again
+    through ``torchrun --nproc_per_node=1`` (a NCCL world of 1: the loss sums
+    and the one gradient all-reduce inside the captured step) under
+    ``VDNERF_PROFILE_DIR``: logs and the last checkpoint within 1e-6
+    relative of the train phase's run (an all-reduce over one rank is a
+    copy), the same launches, the replayed step's ms beside the train
+    phase's, the trace of steps 11-20 naming every kernel of the step;
+    (2) two gloo ranks on cuda:0, one full-width step each on its 256-ray
+    block, against one 512-ray step here: loss within 1e-5 relative, every
+    summed gradient within 1e-4 relative L2 (the kernels compute row by row:
+    only summation orders differ), K1-K5 launched on both ranks."""
+    import torch
+
+    from vdnerf_tpu_torch.utils.hocon import load_conf
+
+    tag = "[parallel]"
+    conf_path = write_conf(tmp, "exp_nccl1", TRAIN_KEYS)
+    prof_dir = os.path.join(tmp, "profile_nccl1")
+    out = os.path.join(tmp, "nccl1.json")
+    wall = _torchrun(1, ["nccl", conf_path, out], {"VDNERF_PROFILE_DIR": prof_dir})
+    with open(out) as f:
+        nccl = json.load(f)
+    dirs = {"train": train["conf"].get_string("general.base_exp_dir"),
+            "nccl": load_conf(conf_path, "sphere").get_string("general.base_exp_dir")}
+    logs = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "logs", "metrics.jsonl")) as f:
+            logs[k] = [json.loads(line) for line in f]
+    keys = [k for k in logs["train"][0] if k not in ("step", "rays_per_sec")]
+    log_err = max(abs(n[k] - t[k]) / max(abs(t[k]), 1e-30)
+                  for t, n in zip(logs["train"], logs["nccl"]) for k in keys)
+    ckpts = {k: torch.load(os.path.join(d, "checkpoints", "ckpt_000040.pth"), map_location="cpu",
+                           weights_only=True) for k, d in dirs.items()}
+    param_err = max(float((ckpts["nccl"][net][name] - v).abs().max())
+                    / max(float(v.abs().max()), 1e-30)
+                    for net, sd in ckpts["train"].items() if isinstance(sd, dict)
+                    and net != "optimizer" for name, v in sd.items())
+    replay = {core: (steps[core]["replay"]["ms_per_step"], rec["replay"]["ms_per_step"])
+              for core, rec in nccl["steps"].items()}
+    print(f"{tag} NCCL world of 1 (torchrun --nproc_per_node=1, {nccl['world']}): 40 steps in "
+          f"{nccl['wall_s']:.3f} s of cli.main ({wall:.3f} s with torchrun); logged steps "
+          f"{[r['step'] for r in logs['nccl']]}; logged metrics max rel diff to the train "
+          f"phase's run {log_err:.3e}, ckpt_000040 parameters max rel diff {param_err:.3e} (tol "
+          f"1e-6); launches {nccl['launches']} (train phase {train['launches']})")
+    for core, (plain, ranked) in replay.items():
+        print(f"{tag} {core} replayed ms/step: train phase {[round(v, 3) for v in plain]}, NCCL "
+              f"world of 1 {[round(v, 3) for v in ranked]}: the in-graph collectives and the "
+              f"flat copy cost {min(ranked) - min(plain):.3f} ms/step")
+    print(f"{tag} eager, alone: the flat all-reduce of {nccl['n_params']} f32 gradients "
+          f"{nccl['all_reduce_grads_ms']:.4f} ms, one scalar global_sum "
+          f"{nccl['global_sum_ms']:.4f} ms ({card_line()})")
+    if [r["step"] for r in logs["nccl"]] != [r["step"] for r in logs["train"]] \
+            or not log_err <= 1e-6 or not param_err <= 1e-6:
+        raise SystemExit(f"{tag} the NCCL world of 1 disagrees with the single-process run")
+    if nccl["launches"] != train["launches"]:
+        raise SystemExit(f"{tag} the NCCL world of 1 launched {nccl['launches']}")
+    traces = sorted(os.listdir(prof_dir))
+    if traces != ["train_steps_11_20.json"]:
+        raise SystemExit(f"{tag} VDNERF_PROFILE_DIR holds {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    in_trace = {k: sum(f"{k}(" in n or f"{k}<" in n for n in names) for k in TRACE_KERNELS}
+    n_nccl = sum("nccl" in n.lower() for n in names)
+    print(f"{tag} trace {traces[0]}: {len(names)} kernels; ours {in_trace}; NCCL {n_nccl}")
+    if not all(in_trace.values()):
+        raise SystemExit(f"{tag} the trace names no {[k for k, v in in_trace.items() if not v]}")
+
+    out_dir = os.path.join(tmp, "gloo2")
+    os.makedirs(out_dir, exist_ok=True)
+    gloo_wall = _torchrun(2, ["gloo", train["conf_path"], out_dir])
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
+             for r in range(2)]
+    loss, grads, launches = full_batch_step(train["conf_path"], torch.device("cuda:0"))
+    loss_err = abs(ranks[0]["loss"] - loss) / abs(loss)
+    rel = {n: _rel_l2(ranks[0]["grads"][n], g) for n, g in grads.items()}
+    worst = max(rel, key=rel.get)
+    same = all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in grads)
+    print(f"{tag} 2 gloo ranks on cuda:0, {ranks[0]['rays']} rays each ({gloo_wall:.3f} s with "
+          f"torchrun), against one {BATCH}-ray step: loss {ranks[0]['loss']:.7f} vs {loss:.7f} "
+          f"(rel err {loss_err:.3e}, tol 1e-5); worst gradient rel L2 {rel[worst]:.3e} ({worst},"
+          f" tol 1e-4) over {len(rel)} tensors; the ranks' summed gradients equal: {same}; "
+          f"launches rank 0 {ranks[0]['launches']}, rank 1 {ranks[1]['launches']}, one step "
+          f"{launches}")
+    if not loss_err <= 1e-5 or not rel[worst] <= 1e-4 or not same:
+        raise SystemExit(f"{tag} the 2-rank step disagrees with the full-batch step")
+    if not all(r["launches"][k] > 0 for r in ranks for k in launches):
+        raise SystemExit(f"{tag} a rank launched no {[k for k in launches if not ranks[0]['launches'][k] or not ranks[1]['launches'][k]]}")
+    return {"nccl": {k: nccl[k] for k in ("wall_s", "world", "n_params", "all_reduce_grads_ms",
+                                          "global_sum_ms", "steps")},
+            "nccl_launches": nccl["launches"], "logged_max_rel_diff": log_err,
+            "param_max_rel_diff": param_err, "trace_kernels": in_trace, "trace_nccl": n_nccl,
+            "gloo": {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst,
+                     "wall_s": gloo_wall},
+            "gloo_launches": [r["launches"] for r in ranks]}
 
 
 # ---------------------------------------------------------------------------
@@ -1974,6 +2233,7 @@ def main() -> int:
         train = train_phase(tmp)
         dispatch = dispatch_check(tmp, train)
         steps = time_train_steps(train["conf_path"])
+        par = parallel_phase(tmp, train, steps)
         gradient_check(train["conf"], device)
         mesh = mesh_phase(train, device)
         masked = train_phase(tmp, "wmask_tpu")
@@ -2039,7 +2299,10 @@ def main() -> int:
                    "serve_learn_wdepth": learn_wdepth_serve["launches"][name],
                    "interpolate": novel["interpolate"]["launches"][name],
                    "interpolate_learn": novel["interpolate_learn"]["launches"][name],
-                   "flagship": flagship["launches"][name]}
+                   "flagship": flagship["launches"][name],
+                   "train_nccl_world_of_1": par["nccl_launches"][name],
+                   "step_gloo_rank_0": par["gloo_launches"][0][name],
+                   "step_gloo_rank_1": par["gloo_launches"][1][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2052,6 +2315,8 @@ def main() -> int:
     print(json.dumps({"rays_per_s": res["rays_per_s"], "summary": res["summary"],
                       "train": {"steps": steps, "summary": train["summary"],
                                 "wall_s": train["wall_s"], "dispatch_check": dispatch},
+                      "parallel": {k: v for k, v in par.items()
+                                   if k not in ("nccl_launches", "gloo_launches")},
                       "train_wmask": {"steps": masked_steps, "summary": masked["summary"],
                                       "wall_s": masked["wall_s"]},
                       "train_wdepth": {"steps": wdepth_steps, "summary": wdepth["summary"],
@@ -2085,4 +2350,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(*sys.argv[2:]))
     sys.exit(main())

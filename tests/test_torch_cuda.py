@@ -1030,3 +1030,75 @@ def test_predict_runs_on_the_card(card, tmp_path):
         with torch.no_grad():
             want = model.encode(x)[0]
         _rel_l2_close(torch.from_numpy(np.load(p)), want, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (parallel/mesh.py) on the one card
+# ---------------------------------------------------------------------------
+
+
+def test_nccl_world_of_one_replays_the_single_process_steps(card):
+    """The captured-step test's 12 steps in a NCCL world of 1 (a rank of
+    ``tests/torch_dist.py``: the loss sums and the one gradient all-reduce
+    inside each captured program) against the same steps in this process
+    without a group: every step's metrics and every final parameter bit for
+    bit (an all-reduce over one rank is a copy), the same launches and
+    programs."""
+    import torch_dist
+    from vdnerf_tpu_torch.parallel import World
+
+    (got,) = torch_dist.run("card_dispatch", world_size=1, device="cuda:0")
+    want = torch_dist.card_dispatch(World())
+    assert got["programs"] == want["programs"] == 2
+    assert got["launches"] == want["launches"]
+    assert got["metrics"] == want["metrics"]
+    for name, p in want["params"].items():
+        np.testing.assert_array_equal(got["params"][name], p, err_msg=name)
+
+
+def test_two_gloo_ranks_on_one_card_match_the_full_batch_step(card):
+    """Two gloo ranks on cuda:0, each one eager step on its 128-ray block
+    through the kernels, against the 256-ray step here: the loss within 1e-5
+    relative and every summed gradient within 1e-4 relative L2 (the kernels
+    compute row by row, so only summation orders differ); K1-K5 launched on
+    both ranks."""
+    import torch_dist
+    from vdnerf_tpu_torch.parallel import World
+
+    ranks = torch_dist.run("card_step", world_size=2, device="cuda:0", backend="gloo")
+    want = torch_dist.card_step(World())
+    for r in ranks:
+        assert abs(r["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        for name, g in want["grads"].items():
+            err = np.linalg.norm(r["grads"][name] - g) / max(np.linalg.norm(g), 1e-30)
+            assert err <= 1e-4, (name, err)
+        assert all(r["launches"][k] > 0 for k in ("sdf_fwd", "render_fwd", "render_bwd",
+                                                  "nerf_fwd", "nerf_bwd")), r["launches"]
+
+
+def test_nccl_ranks_on_every_card_stay_equal_and_match_one_process(card):
+    """On a machine with two or more cards, one NCCL rank per card, each
+    replaying the captured-step test's 12 steps (perturb 0) on its block of
+    every 256-ray batch, the collectives inside each captured program: every
+    rank's metrics and final parameters bit for bit equal (the replicas stay
+    in step), K1-K5 launched on each, and every step's loss within 1e-4
+    relative of the same steps in this process on one card (the summation
+    order of the blocks moves Adam's sign-sized first updates, as in
+    ``tests/test_torch_train.py``'s 20-step trajectory)."""
+    import torch_dist
+    from vdnerf_tpu_torch.parallel import World
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: NCCL refuses two ranks on one card")
+    ranks = torch_dist.run("card_dispatch", world_size=n, device="cuda", perturb=0.0)
+    want = torch_dist.card_dispatch(World(), perturb=0.0)
+    for r in ranks:
+        assert r["programs"] == want["programs"] == 2
+        assert r["metrics"] == ranks[0]["metrics"]
+        for name, p in ranks[0]["params"].items():
+            np.testing.assert_array_equal(r["params"][name], p, err_msg=name)
+        assert all(r["launches"][k] > 0 for k in ("sdf_fwd", "render_fwd", "render_bwd",
+                                                  "nerf_fwd", "nerf_bwd")), r["launches"]
+    for got, step in zip(ranks[0]["metrics"], want["metrics"]):
+        assert abs(got["loss"] - step["loss"]) <= 1e-4 * abs(step["loss"]), (got, step)

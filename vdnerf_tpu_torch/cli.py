@@ -14,12 +14,29 @@ loads that checkpoint with its learned cameras, bare ``showcam`` uses what
 ``-c`` resumed). Any other mode exits with ``unknown mode``.
 ``--gpu`` picks the CUDA device; the CLI runs on the card unless a caller of
 :func:`main` passes ``device="cpu"``.
+
+Data-parallel training on the cards of one node:
+
+    torchrun --standalone --nproc_per_node=N -m vdnerf_tpu_torch.cli \
+        --conf confs/womsk_white_tpu.conf --case <case> --mode train [-c]
+
+Under torchrun ``--mode train`` joins the process group (NCCL; gloo for a
+caller's ``device="cpu"``) for the length of the run, and rank r trains on
+``cuda:<LOCAL_RANK>`` (``--gpu`` must stay 0). The serving modes run on one
+device and refuse ``WORLD_SIZE`` > 1, as the JAX package serves on one.
+``VDNERF_DEBUG_NANS=1`` runs the mode under autograd's anomaly detection
+with its NaN check (``utils/debug.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+
+from vdnerf_tpu_torch import parallel
+from vdnerf_tpu_torch.utils import debug
+from vdnerf_tpu_torch.utils.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +67,7 @@ def main(argv=None, device=None) -> dict | str | None:
     name, _, suffix = mode.rpartition("_")
     if not suffix.isdigit():
         name, suffix = mode, ""
+    pair = None
     if mode.startswith("interpolate"):
         # interpolate_<i>_<j>, split as the JAX CLI splits it
         name, *pair = mode.split("_")
@@ -61,7 +79,35 @@ def main(argv=None, device=None) -> dict | str | None:
     if name == "validate_mesh" and not suffix and not args.is_continue:
         # as the JAX CLI: the bare mode needs the resumed latest checkpoint
         raise SystemExit("validate_mesh needs an iteration suffix or --is_continue")
+    world_size = parallel.env_world_size()
+    if mode != "train" and (world_size or 1) > 1:
+        raise SystemExit(f"{name} serves on one device: run it without torchrun "
+                         f"(WORLD_SIZE is {world_size})")
+    if world_size is not None and args.gpu != 0:
+        raise SystemExit("under torchrun each rank trains on cuda:<LOCAL_RANK>; leave --gpu at 0")
 
+    with debug.nan_debugging(debug.nans_requested()):
+        if mode == "train":
+            return _train(args, device)
+        return _serve(args, name, suffix, pair, device)
+
+
+def _train(args, device) -> dict | None:
+    from vdnerf_tpu_torch.runner import Runner
+
+    gpu = args.gpu
+    if parallel.env_world_size() is not None:
+        gpu = int(os.environ.get("LOCAL_RANK", gpu))
+    with parallel.world_from_env(resolve_device(device, gpu)) as world:
+        runner = Runner(
+            args.conf, args.case, img_dir=args.img_dir,
+            npz_postfix=args.npz_postfix, seed=args.seed, device=device, gpu=gpu,
+            mode="train", is_continue=args.is_continue, world=world,
+        )
+        return runner.train()
+
+
+def _serve(args, name, suffix, pair, device):
     from vdnerf_tpu_torch.runner import Runner
 
     runner = Runner(
@@ -69,8 +115,6 @@ def main(argv=None, device=None) -> dict | str | None:
         npz_postfix=args.npz_postfix, seed=args.seed, device=device, gpu=args.gpu,
         mode=name, is_continue=args.is_continue,
     )
-    if mode == "train":
-        return runner.train()
     if name == "interpolate":
         return runner.interpolate_view(int(pair[0]), int(pair[1]))
     if suffix:

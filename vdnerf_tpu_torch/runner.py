@@ -37,6 +37,17 @@ included) or a reference ``ckpt_<it>.pth`` (the learned cameras from the
 ``pnf_checkpoints/pnf_<it>.pth`` beside it); training writes the latter two.
 The runner runs on ``cuda:<gpu>`` unless the caller passes ``device="cpu"``.
 
+Data parallelism (``parallel/mesh.py``): a training runner given a
+:class:`World` of N ranks (``torchrun``; ``cli.py`` makes it) runs on
+``cuda:<LOCAL_RANK>``. Every rank draws the same full batch from the same
+seeded host stream and keeps its block, so the sampling is the
+single-process run's; every host draw (the validation image's index too)
+happens on every rank. Rank 0 alone writes the metrics, checkpoints,
+validation images, meshes and the closing evaluation, while the others wait
+at a barrier; a SIGTERM on any rank stops every rank at the same window
+boundary. ``VDNERF_PROFILE_DIR`` traces steps 10-15 on rank 0
+(``utils/debug.py``).
+
 Precision: the SDF block is f32 unless ``VDNERF_BF16`` asks for bf16 (read
 once, here); a training runner switches it to bf16 when the conf sets
 ``train.bf16``, for the run's steps and its validation renders, as the JAX
@@ -46,6 +57,7 @@ serving modes run under the first of the two.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -77,6 +89,7 @@ from vdnerf_tpu_torch.io import (
 )
 from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
 from vdnerf_tpu_torch.models.precision import env_matmul_dtype, matmul_dtype
+from vdnerf_tpu_torch.parallel import World, broadcast_parameters, rank_seed, shard_batch
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import StepDispatch
@@ -89,6 +102,7 @@ from vdnerf_tpu_torch.train.validate import (
     val_image_metrics,
     write_video,
 )
+from vdnerf_tpu_torch.utils import debug
 from vdnerf_tpu_torch.utils.camvis import plot_cam_poses
 from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
 from vdnerf_tpu_torch.utils.hocon import load_conf
@@ -133,7 +147,9 @@ class Runner:
         gpu: int = 0,
         mode: str = "valimg",
         is_continue: bool = False,
+        world: World | None = None,
     ):
+        self.world = world or World()
         self.device = resolve_device(device, gpu)
         configure_numerics()
         self.conf = load_conf(conf_path, case, img_dir, npz_postfix)
@@ -172,15 +188,21 @@ class Runner:
                     "intrin_inv_all": torch.as_tensor(self.scene_data.intrinsics_all_inv,
                                                       device=self.device),
                 }
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-            self.trainer = Trainer(self.tcfg, self.model, cams, generator)
-            record_run(self.base_exp_dir, self.conf.get("general.recording", []), conf_path)
+            # each rank its own jitter stream; rank 0's is the single-process one
+            generator = torch.Generator(device=self.device).manual_seed(
+                rank_seed(seed, self.world.rank))
+            self.trainer = Trainer(self.tcfg, self.model, cams, generator, self.world)
+            if self.world.lead:
+                record_run(self.base_exp_dir, self.conf.get("general.recording", []), conf_path)
         latest = latest_checkpoint(self.base_exp_dir) if is_continue else None
         if latest is not None:
             log.info("resuming from %s", latest)
             self.iter_step = load_reference_checkpoint(
                 latest, self.model, self.trainer.optimizer if self.trainer else None)
             self._load_pnf(self.iter_step)
+        if self.world.grouped:
+            # every rank starts from rank 0's parameters (and learned cameras)
+            broadcast_parameters(self.model, *([self.cams] if self.cams is not None else []))
 
     # -- checkpoints ----------------------------------------------------------
 
@@ -223,7 +245,7 @@ class Runner:
 
     def train(self) -> dict | None:
         """Train to ``end_iter`` -> the closing ``val_all_imgs`` summary (None
-        when a SIGTERM stopped the run after its checkpoint).
+        when a SIGTERM stopped the run after its checkpoint), on every rank.
 
         Steps run in windows of K = ``train.steps_per_call`` (``StepDispatch``:
         graph replays on the card), K clipped as the JAX runner clips it: it
@@ -232,9 +254,11 @@ class Runner:
         ``resample_from``, so that windows end on every event and the run is
         the K = 1 run: the same pixel and jitter streams, the same logged
         steps, checkpoints, validations and meshes. Metrics come back once
-        per window, and only when a step of it is due."""
-        tcfg = self.tcfg
-        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs"))
+        per window, and only when a step of it is due. Across ranks each
+        batch is cut to the rank's block after it was drawn, and rank 0
+        writes every file."""
+        tcfg, world = self.tcfg, self.world
+        writer = MetricsWriter(os.path.join(self.base_exp_dir, "logs")) if world.lead else None
         # the faithful full-width core up to resample_from, the resampled core
         # after it (the JAX runner's one program switch)
         resample_boundary = 0
@@ -263,6 +287,8 @@ class Runner:
         perm_pos = 0
         throughput = Throughput(tcfg.batch_size)
         dispatch = StepDispatch(self.trainer)
+        profile_dir = os.environ.get(debug.PROFILE_ENV) if world.lead else None
+        trace = contextlib.ExitStack()
         try:
             for _ in range(res_step // k):
                 # image draw and pixel sampling interleave per step exactly as
@@ -270,20 +296,28 @@ class Runner:
                 batches = []
                 for _j in range(k):
                     idx = int(image_perm[perm_pos % len(image_perm)])
-                    batches.append(self.store.sample_pixels(idx, tcfg.batch_size, self.rng))
+                    batch = self.store.sample_pixels(idx, tcfg.batch_size, self.rng)
+                    batches.append(shard_batch(batch, world, tcfg.grad_accum))
                     perm_pos += 1
                     if perm_pos % len(image_perm) == 0:
                         image_perm = self.rng.permutation(n_images)
                 first = self.iter_step + 1
+                if profile_dir and self.iter_step <= 10 < self.iter_step + k:
+                    # the windows that hold steps 10-15, or the run's end first
+                    last = min(self.iter_step + k * -(-(16 - self.iter_step) // k), tcfg.end_iter)
+                    trace.enter_context(
+                        debug.profile_trace(profile_dir, f"train_steps_{first}_{last}.json"))
                 steps = range(self.iter_step, self.iter_step + k)
                 window = dispatch.run(
                     steps, [self.nets if s + 1 > resample_boundary else faithful for s in steps],
                     batches)
                 self.iter_step = step = self.iter_step + k
+                if step - k <= 15 < step:
+                    trace.close()
                 rays_ps = throughput.tick(k)
                 due = [s for s in range(first, step + 1)
                        if s % 10 == 0 or s <= 1 or s % tcfg.report_freq == 0]
-                if due:
+                if due and world.lead:
                     rows = window.read()
                     for s in due:
                         metrics = rows[s - first]
@@ -292,26 +326,41 @@ class Runner:
                         if s % tcfg.report_freq == 0:
                             log.info("iter %d loss=%.5f psnr=%.3f rays/s=%.0f", s,
                                      metrics["loss"], metrics["psnr"], rays_ps)
-                if self._preempt_signal is not None:
+                if world.any(self._preempt_signal is not None):
                     # before the periodic validations: the grace window is short
-                    self.save_checkpoint()
-                    writer.flush()
-                    log.warning("preemption signal %d: checkpoint saved at iter %d; "
-                                "rerun with --is_continue to resume",
-                                self._preempt_signal, step)
+                    if world.lead:
+                        self.save_checkpoint()
+                        writer.flush()
+                    world.barrier()
+                    log.warning("preemption signal: checkpoint saved at iter %d; rerun with "
+                                "--is_continue to resume", step)
                     return None
+                wrote = False
                 if step % tcfg.save_freq == 0:
-                    self.save_checkpoint()
+                    wrote = True
+                    if world.lead:
+                        self.save_checkpoint()
                 if step % tcfg.val_freq == 0:
-                    self.validate_image()
+                    # every rank draws the image, so that the host streams stay equal
+                    idx = int(self.rng.integers(n_images))
+                    wrote = True
+                    if world.lead:
+                        self.validate_image(idx)
                 if step % tcfg.val_mesh_freq == 0:
-                    res, world = mesh_resolution(step)
-                    self.validate_mesh(world_space=world, resolution=res)
+                    wrote = True
+                    if world.lead:
+                        res, world_space = mesh_resolution(step)
+                        self.validate_mesh(world_space=world_space, resolution=res)
+                if wrote:
+                    world.barrier()
         finally:
+            trace.close()
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
-            writer.close()
-        return self.val_all_imgs(resolution_level=2, both_mask=True)
+            if writer is not None:
+                writer.close()
+        summary = self.val_all_imgs(resolution_level=2, both_mask=True) if world.lead else None
+        return world.broadcast_object(summary)
 
     # -- validation -----------------------------------------------------------
 

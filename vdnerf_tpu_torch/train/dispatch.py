@@ -39,6 +39,19 @@ Launch counts: ``build.LAUNCHES`` counts wrapper calls, which a replay does
 not make; each program's launches are recorded at its capture and added on
 every replay, so that the counts say what ran.
 
+Data parallelism: for a trainer in a grouped world (``parallel/mesh.py``,
+NCCL on the card) the step's collectives (the loss normalisers' sums, the
+one gradient all-reduce) are part of ``Trainer.program`` and so of the
+captured graph: each replay runs them. The warm-up steps run them first, so
+the communicator exists before any capture; the capture is thread-local,
+since the process group's watchdog thread queries CUDA events meanwhile.
+Every rank captures and replays the same program sequence: the program key
+depends only on the step number.
+
+With ``VDNERF_DEBUG_NANS`` (``utils/debug.py``: autograd's anomaly detection
+with its NaN check, which a graph cannot run) steps are ``Trainer.step``
+calls on the card, launched op by op.
+
 On the CPU (``device="cpu"``, the tests) a window is ``Trainer.step`` once per
 step, as the caller asked.
 """
@@ -54,6 +67,7 @@ import torch
 from vdnerf_tpu_torch.ops.kernels import build
 from vdnerf_tpu_torch.ops.renderer import NeuSNetworks
 from vdnerf_tpu_torch.train.step import Trainer, upload_batch
+from vdnerf_tpu_torch.utils.debug import nan_debugging_enabled
 
 # eager steps of a program before its capture
 WARMUP_STEPS = 3
@@ -86,12 +100,12 @@ class _Program:
 
 class StepDispatch:
     """Runs windows of training steps for ``trainer``: graph replays on the
-    card, ``Trainer.step`` on the CPU."""
+    card, ``Trainer.step`` on the CPU or under ``VDNERF_DEBUG_NANS``."""
 
     def __init__(self, trainer: Trainer):
         self.trainer = trainer
         self.device = trainer.device
-        self.graphed = self.device.type == "cuda"
+        self.graphed = self.device.type == "cuda" and not nan_debugging_enabled()
         self.programs: dict[tuple, _Program] = {}
         self.eager_steps: collections.Counter = collections.Counter()
         self.pool = None
@@ -163,7 +177,9 @@ class StepDispatch:
         if self.trainer.generator is not None:
             graph.register_generator_state(self.trainer.generator)
         before = dict(build.LAUNCHES)
-        with torch.cuda.graph(graph, pool=self.pool):
+        # the process group's watchdog thread queries events during a capture
+        mode = "thread_local" if self.trainer.world.grouped else "global"
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode=mode):
             metrics = self._stack(self.trainer.program(nets, self.batch, distill, refine))
         # the wrappers counted what the capture recorded; nothing ran
         launches = {k: build.LAUNCHES[k] - before[k] for k in before}

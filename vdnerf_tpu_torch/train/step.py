@@ -10,8 +10,10 @@ the learnable confs the pose and focal updates (Adam at the multistep
 learning rates of the global step) past ``start_refine_pose_iter``.
 
 Every normaliser of the loss is a global sum over the batch, taken through
-:func:`_global_sum`: a data-parallel version all-reduces there, and the
-sharded loss is then the single-device one.
+the trainer's :class:`World` (``parallel/mesh.py``): in a world with a
+process group it is all-reduced over the ranks, and the sharded loss is the
+single-process one. The gradients are then summed over the ranks once per
+step, after the microbatches (:meth:`Trainer.device_gradients`).
 
 What depends on the step number reaches the step as data, so that one
 captured step serves every step (``train/dispatch.py``): the batch as device
@@ -31,6 +33,7 @@ import torch
 from vdnerf_tpu_torch.data.cameras import LearnedCameras, pixels_to_rays
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
+from vdnerf_tpu_torch.parallel import World, all_reduce_grads
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.schedules import (
     focal_lr_milestones,
@@ -48,11 +51,6 @@ def metric_names(tcfg: TrainConfig) -> tuple[str, ...]:
     names = ("loss", "color_loss", "eikonal_loss", "mask_loss", "psnr", "s_val", "cdf",
              "weight_max")
     return names + (("depth_loss", "psnr_dfeat") if tcfg.extract_depth else ())
-
-
-def _global_sum(x: torch.Tensor) -> torch.Tensor:
-    """A sum over this process's rays; across ranks, the place to all-reduce."""
-    return x
 
 
 def depth_ramp_weight(depth_iter: int, total_iter: int = 5000) -> float:
@@ -101,11 +99,15 @@ def rays_from_batch(cams, batch: dict, device) -> tuple[torch.Tensor, torch.Tens
 
 
 def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
-            batch: dict, inputs, distill: bool, generator: torch.Generator | None):
+            batch: dict, inputs, distill: bool, generator: torch.Generator | None,
+            world: World | None = None):
     """-> (loss, metrics {name: detached scalar tensor}). ``cams``: as
     :func:`rays_from_batch` takes them; ``batch``: tensors on the cameras'
     device; ``inputs``: the step's STEP_INPUTS (the device record, or
-    floats); ``distill``: the distillation term is in the loss."""
+    floats); ``distill``: the distillation term is in the loss; ``world``:
+    whose ``sum`` takes every normaliser (JAX's ``_psum``), this process
+    alone by default."""
+    gsum = (world or World()).sum
     dev = batch["color"].device
     rays_o, rays_d = rays_from_batch(cams, batch, dev)
     near, far = near_far_from_sphere(rays_o, rays_d)
@@ -116,7 +118,7 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
         mask = (mask_raw > 0.1).float()
     else:
         mask = torch.ones_like(mask_raw)
-    mask_sum = _global_sum(mask.sum()) + 1e-5
+    mask_sum = gsum(mask.sum()) + 1e-5
 
     out = render(nets, model, rays_o, rays_d, near, far, generator=generator,
                  background_rgb=background_rgb,
@@ -125,18 +127,18 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
     color_fine = out["color_fine"]
 
     color_error = (color_fine - true_rgb) * mask
-    color_fine_loss = _global_sum(color_error.abs().sum()) / mask_sum
-    sq = _global_sum(((color_fine - true_rgb) ** 2 * mask).sum())
+    color_fine_loss = gsum(color_error.abs().sum()) / mask_sum
+    sq = gsum(((color_fine - true_rgb) ** 2 * mask).sum())
     psnr = 20.0 * torch.log10(1.0 / torch.sqrt(sq / (mask_sum * 3.0)))
 
-    eik_num = _global_sum(out["gradient_error_num"].sum())
-    eik_den = _global_sum(out["gradient_error_den"].sum())
+    eik_num = gsum(out["gradient_error_num"].sum())
+    eik_den = gsum(out["gradient_error_den"].sum())
     eikonal_loss = eik_num / (eik_den + 1e-5)
 
     w = torch.clamp(out["weight_sum"], 1e-3, 1.0 - 1e-3)
     bce = -(mask * torch.log(w) + (1.0 - mask) * torch.log(1.0 - w))
-    n_total = _global_sum(bce.new_full((), float(bce.numel())))
-    mask_loss = _global_sum(bce.sum()) / n_total
+    n_total = gsum(bce.new_full((), float(bce.numel())))
+    mask_loss = gsum(bce.sum()) / n_total
 
     loss = color_fine_loss + eikonal_loss * tcfg.igr_weight + mask_loss * tcfg.mask_weight
     metrics = {
@@ -146,15 +148,15 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
         "mask_loss": mask_loss,
         "psnr": psnr,
         "s_val": out["s_val"].mean(),
-        "cdf": _global_sum((out["cdf_fine"][:, :1] * mask).sum()) / mask_sum,
-        "weight_max": _global_sum((out["weight_max"] * mask).sum()) / mask_sum,
+        "cdf": gsum((out["cdf_fine"][:, :1] * mask).sum()) / mask_sum,
+        "weight_max": gsum((out["weight_max"] * mask).sum()) / mask_sum,
     }
 
     if tcfg.extract_depth:
         gt_feats = batch["feats"]
         feats = out["render_feats"]
-        depth_fine_loss = _global_sum(((feats - gt_feats) * mask).abs().sum()) / mask_sum
-        dsq = _global_sum(((feats - gt_feats) ** 2 * mask).sum())
+        depth_fine_loss = gsum(((feats - gt_feats) * mask).abs().sum()) / mask_sum
+        dsq = gsum(((feats - gt_feats) ** 2 * mask).sum())
         # mask_sum * 3 whatever the channel count, as the JAX package
         psnr_dfeat = 20.0 * torch.log10(1.0 / torch.sqrt(dsq / (mask_sum * 3.0)))
         if distill:
@@ -183,14 +185,19 @@ class Trainer:
     device and its learning rate is a field of ``inputs`` (``lr``,
     ``pose_lr``, ``focal_lr``), so that a captured step reads the schedule's
     value of the step it replays. On the CPU they are torch's default Adam,
-    with the learning rate a float set before each update."""
+    with the learning rate a float set before each update.
+
+    ``world`` (``parallel/mesh.py``) decides whether the step communicates:
+    in a grouped world the loss's sums and the gradients are reduced over its
+    ranks; by default the trainer is this process alone."""
 
     def __init__(self, tcfg: TrainConfig, model: NeuSModel, cams,
-                 generator: torch.Generator | None):
+                 generator: torch.Generator | None, world: World | None = None):
         self.tcfg = tcfg
         self.model = model
         self.cams = cams
         self.generator = generator
+        self.world = world or World()
         self.params = list(model.parameters())
         self.device = self.params[0].device
         self.capturable = self.device.type == "cuda"
@@ -265,9 +272,12 @@ class Trainer:
         """Fill ``p.grad`` of the networks (and the learned cameras) with the
         gradient at ``inputs`` on a batch of device tensors -> metrics. With
         ``grad_accum`` > 1 the rays split into that many contiguous
-        microbatches, and gradients and metrics are their means. Each
-        ``.grad`` is made anew by the first backward (under capture, in the
-        graph's pool, where every replay writes it)."""
+        microbatches, and gradients and metrics are their means. In a
+        grouped ``world`` the batch is this rank's block, and the gradients are
+        then summed over the ranks in one all-reduce (JAX's ``psum`` after
+        the accumulation scan). Each ``.grad`` is made anew by the first
+        backward (under capture, in the graph's pool, where every replay
+        writes it)."""
         accum = max(self.tcfg.grad_accum, 1)
         n = batch["pixels_x"].shape[0]
         if n % accum:
@@ -281,7 +291,7 @@ class Trainer:
             sub = {name: v if name == "img_idx" else v[k * m:(k + 1) * m]
                    for name, v in batch.items()}
             loss, metrics = loss_fn(nets, self.tcfg, self.model, self.cams, sub, self.inputs,
-                                    distill, self.generator)
+                                    distill, self.generator, self.world)
             loss.backward()
             sums = {name: sums.get(name, 0.0) + v for name, v in metrics.items()}
         for p in params:
@@ -289,6 +299,8 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
             elif accum > 1:
                 p.grad.mul_(1.0 / accum)
+        if self.world.grouped:
+            all_reduce_grads(params)
         return {name: v * (1.0 / accum) if accum > 1 else v for name, v in sums.items()}
 
     def apply(self, step: int) -> None:
