@@ -158,7 +158,15 @@
     and the extracted 256^3 mesh is non-empty with a finite Chamfer distance
     to the analytic surface (the uncleaned mesh's: after 300 steps the
     visual-hull cleaning culls the whole early surface).
-17. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
+17. VDN cycle phase: ``vdnerf_tpu_torch.tools.vdn_cycle_run`` at full width
+    on 8 views of 64^2 (``VDN_CYCLE_ARGS``: 100 steps a leg, DenseNet-161
+    for one epoch, 128^3 QC meshes), then ``--skip-to-wdepth`` on the same
+    ``--out``, launch counts set to 0 before and read after; prints each
+    report's summary line and every stage's wall time, peak memory and
+    launches (the tool's ``_card.json``). Fails unless K1-K5 and the
+    contraction launched in both wdepth legs, and every report value the CPU
+    tests hold is present and finite.
+18. Prints a JSON line of the end-to-end numbers, one ``{"kernels": [...]}``
     line (the five kernels and the contraction), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -2207,6 +2215,75 @@ def flagship_phase(tmp: str) -> dict:
                                       "mesh", "mesh_clean")}}
 
 
+# the tool at full width, cut in depth: 8 views of 64^2, 100 steps a leg,
+# one side-car epoch, 128^3 QC meshes
+VDN_CYCLE_ARGS = ["--iters", "100", "--views", "8", "--img-res", "64", "--wavelet-epochs", "1",
+                  "--mesh-res", "128", "--shading", "camlight", "--depth-weight-scale", "10"]
+VDN_CYCLE_KERNELS = ("sdf_fwd", "render_fwd", "render_bwd", "nerf_fwd", "nerf_bwd",
+                     "dw_contract")
+
+
+def vdn_cycle_phase(tmp: str) -> dict:
+    """``vdnerf_tpu_torch.tools.vdn_cycle_run`` on the card: the full cycle,
+    then ``--skip-to-wdepth`` on its ``--out``, launch counts set to 0 before
+    and read after. Prints each stage's wall time, peak memory and launches;
+    fails unless every kernel ran in both wdepth legs and the values the CPU
+    tests hold are present and finite."""
+    import torch
+
+    from vdnerf_tpu_torch.ops.kernels import build
+    from vdnerf_tpu_torch.tools import vdn_cycle_run
+
+    out = os.path.join(tmp, "vdn_cycle")
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = vdn_cycle_run.main(VDN_CYCLE_ARGS + ["--out", out])
+    leg = vdn_cycle_run.main(VDN_CYCLE_ARGS + ["--out", out, "--skip-to-wdepth"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    stages = {}
+    for name in ("vdn_cycle_report", f"vdn_cycle_report_wdepth{leg['config']['iters']}"):
+        with open(os.path.join(out, f"{name}_card.json")) as f:
+            card = json.load(f)
+        for stage, rec in card["stages"].items():
+            print(f"[vdn_cycle] {name} {stage}: {rec['wall_s']} s, peak memory "
+                  f"{rec['peak_memory_bytes']} bytes ({rec['peak_memory_bytes'] / 2**30:.2f} "
+                  f"GiB), launches {rec['launches']}")
+        stages[name] = card["stages"]
+        leg_launches = card["stages"]["train_wdepth"]["launches"]
+        missing = [k for k in VDN_CYCLE_KERNELS if not leg_launches[k]]
+        if missing:
+            raise SystemExit(f"vdn_cycle {name}: not launched in the wdepth leg: {missing}")
+    values = {"base_psnr": full.get("base_object_masked_psnr_res2"),
+              "base_eikonal": full.get("base_eikonal"),
+              "wdepth_psnr": full.get("wdepth_object_masked_psnr_res2"),
+              "wdepth_eikonal": full.get("wdepth_eikonal"),
+              "depth_loss_first": full.get("distillation", {}).get("depth_loss_first"),
+              "depth_loss_last": full.get("distillation", {}).get("depth_loss_last"),
+              "depth_mean": full.get("depth_export", {}).get("depth_mean"),
+              "leg_wdepth_psnr": leg.get("wdepth_object_masked_psnr_res2"),
+              "leg_wdepth_eikonal": leg.get("wdepth_eikonal"),
+              "leg_depth_loss_first": leg.get("distillation", {}).get("depth_loss_first")}
+    bad = {k: v for k, v in values.items() if not isinstance(v, float) or not math.isfinite(v)}
+    flags = (full.get("distillation", {}).get("all_losses_finite"),
+             leg.get("distillation", {}).get("all_losses_finite"),
+             full.get("depth_export", {}).get("depth_finite"),
+             full.get("vdn_features", {}).get("finite"))
+    if bad or flags != (True, True, True, True) \
+            or full.get("vdn_features", {}).get("shape") != [1, 96, 32, 32] \
+            or not all(r.get(f"{p}_geometry", {}).get("mesh_res") == 128
+                       for r, p in ((full, "base"), (full, "wdepth"), (leg, "wdepth"))):
+        raise SystemExit(f"vdn_cycle: report values {values}, flags {flags}, features "
+                         f"{full.get('vdn_features')}")
+    print(f"[vdn_cycle] {' '.join(VDN_CYCLE_ARGS)}: wall {wall:.1f} s (both runs); base "
+          f"Chamfer {full['base_geometry'].get('chamfer')}, wdepth "
+          f"{full['wdepth_geometry'].get('chamfer')}, skip-to-wdepth "
+          f"{leg['wdepth_geometry'].get('chamfer')}; launches {launches}; {card_line()}")
+    return {"launches": launches, "wall_s": wall, "stages": stages, "values": values}
+
+
 def main() -> int:
     import torch
 
@@ -2285,6 +2362,7 @@ def main() -> int:
         bf16_steps = time_train_steps(write_conf(tmp, "exp_bf16", {**TRAIN_KEYS, "bf16": "true"}))
         bf16_grad = gradient_check(train["conf"], device, bf16=True)
         flagship = flagship_phase(tmp)
+        vdn_cycle = vdn_cycle_phase(tmp)
 
     kernels = []
     for name, r in kern.items():
@@ -2300,6 +2378,7 @@ def main() -> int:
                    "interpolate": novel["interpolate"]["launches"][name],
                    "interpolate_learn": novel["interpolate_learn"]["launches"][name],
                    "flagship": flagship["launches"][name],
+                   "vdn_cycle": vdn_cycle["launches"][name],
                    "train_nccl_world_of_1": par["nccl_launches"][name],
                    "step_gloo_rank_0": par["gloo_launches"][0][name],
                    "step_gloo_rank_1": par["gloo_launches"][1][name]}
@@ -2340,6 +2419,7 @@ def main() -> int:
                                       for k, v in novel.items()},
                       "train_bf16": {"steps": bf16_steps, "gradient_check": bf16_grad},
                       "flagship": {k: v for k, v in flagship.items() if k != "launches"},
+                      "vdn_cycle": {k: v for k, v in vdn_cycle.items() if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},
                       "cycle": cycle}))
     print(json.dumps({"kernels": kernels}))
