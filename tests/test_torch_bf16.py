@@ -64,7 +64,6 @@ from vdnerf_tpu.train import SceneStatic
 from vdnerf_tpu.train.step import make_loss_fn
 from vdnerf_tpu_torch.models import layers as tl
 from vdnerf_tpu_torch.models.embedder import embed
-from vdnerf_tpu_torch.ops.kernels import fused_mlp
 from vdnerf_tpu_torch.train.step import Trainer
 
 BF16 = torch.bfloat16
@@ -94,7 +93,7 @@ def _jax_policy(bf16: bool, fused: bool, fn, *args):
 
 
 def _bf16_model(params):
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, BF16)
     model.sdf_network_fine.matmul_dtype = BF16
     return model
 
@@ -230,13 +229,13 @@ def test_bf16_step_stays_within_jax_bf16_gap(scene, jax_steps):
     """The port's bf16 step against JAX's bf16 step given the port's f32
     ladder, per tensor against JAX's own bf16-to-f32 gap: within 2x for every
     tensor and within 1.5x for all but one."""
-    assert fused_mlp._MM_DTYPE == BF16
     _, tcfg = _cfgs(scene)
     tcfg = dataclasses.replace(tcfg, bf16=True)
     (_,), (tb,) = _batches(scene, 1)
     loss32, want32 = jax_steps["f32"]
     loss16, want16 = jax_steps["bf16_f32_ladder"]
     model = _bf16_model(jax_params(NETS))
+    assert model.color_network_fine.mm_dtype == model.nerf.mm_dtype == BF16
     got = Trainer(tcfg, model, scene["tcams"], None).gradients(port_nets(NETS), tb, 30)
     rows = _gap_rows(_port_grads(model), want16, want32)
     loss_gap, own_loss_gap = abs(float(got["loss"]) - loss16), abs(loss32 - loss16)
@@ -286,9 +285,9 @@ def test_bf16_false_is_the_f32_step_bit_for_bit(scene, monkeypatch):
     assert tcfg.bf16 is False
     params = jax_params(NETS)
     (_,), (tb,) = _batches(scene, 1, seed=6)
-    got = port_model(NETS, params)
+    got = port_model(NETS, params, BF16)
     assert got.sdf_network_fine.matmul_dtype is None
-    ref = port_model(NETS, params)
+    ref = port_model(NETS, params, BF16)
     net = ref.sdf_network_fine
     monkeypatch.setattr(net, "forward_split", lambda x: _plain_f32_forward_split(net, x))
     pts = torch.tensor(_block_inputs(512)[0])

@@ -21,6 +21,12 @@ sigmoid output is so near 1 that 1 - y keeps few bits, differs by a few
 percent on its own; and two launches on the same inputs agree bit for bit
 (the cross-CTA reduction is in a fixed order).
 
+The split-operand f32 mode of K2-K5 (3xTF32 products) is held to the plain
+versions with f32 operands: forwards within 1e-4 * max(1, max|plain|), every
+backward output within 1e-4 relative L2, two launches bit for bit equal; and
+under that mode no bf16 kernel and no plain version runs
+(``build.LAUNCHES``).
+
 The monodepth side-car (cuDNN convolutions, no kernel of the port's own) is
 held on the card against the same module on the CPU: DenseNet-161's taps
 within 1e-4 relative L2, one training step's loss within 1e-3 and its
@@ -39,6 +45,7 @@ import torch
 from vdnerf_tpu_torch.ops.kernels import build, fused_mlp, sdf_fwd
 
 pytestmark = pytest.mark.cuda
+BF16 = torch.bfloat16  # K2-K5's operand mode on JAX's fused path
 
 
 @pytest.fixture
@@ -122,9 +129,9 @@ def test_render_kernel_matches_plain(card, mode, multires_view, d_small, squeeze
     feat = torch.tensor(rng.normal(size=(77, 32)), dtype=torch.float32, device=card)
     plan = (mode, multires_view, squeeze_out)
     before = build.LAUNCHES["render_fwd"]
-    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs)
+    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs, BF16)
     assert build.LAUNCHES["render_fwd"] == before + 1
-    _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs))
+    _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs, mm=BF16))
 
 
 def _render_inputs(rng, n, d_feat, device):
@@ -148,10 +155,10 @@ def test_render_kernel_input_paths(card, n, d_feat, aligned):
         feat = buf.copy_(feat)
         assert feat.is_contiguous() and feat.data_ptr() % 16
     plan = ("idr", 4, True)
-    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs)
+    got = fused_mlp.render_net(plan, pts, nrm, dirs, feat, ws, bs, BF16)
     assert got.shape == (n, 3)
     if n:
-        _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs))
+        _bf16_close(got, fused_mlp.render_net_plain(plan, pts, nrm, dirs, feat, ws, bs, mm=BF16))
 
 
 @pytest.mark.parametrize("dims", [[(3 + 27 + 3 + 32, 272), (272, 3)], [(3 + 27 + 3 + 32, 48),
@@ -160,7 +167,8 @@ def test_render_kernel_refuses_a_pass_wider_than_256(card, dims):
     rng = np.random.default_rng(6)
     ws, bs = _weights(rng, dims, card)
     with pytest.raises(RuntimeError, match="render_fwd launch failed"):
-        fused_mlp.render_net(("idr", 4, True), *_render_inputs(rng, 9, 32, card), ws, bs)
+        fused_mlp.render_net(("idr", 4, True), *_render_inputs(rng, 9, 32, card), ws, bs,
+                             BF16)
 
 
 def _render_full_width(rng, n, d_out, device):
@@ -176,8 +184,8 @@ def test_render_kernel_full_width_row_counts(card, n, d_out):
     """K2 at full width around its 128-row tiles and at a training step's
     and a serving chunk's rows with a ragged tail, against the plain version."""
     plan, x, ws, bs = _render_full_width(np.random.default_rng(26), n, d_out, card)
-    got = fused_mlp.render_net(plan, *x, ws, bs)
-    want = fused_mlp.render_net_plain(plan, *x, ws, bs)
+    got = fused_mlp.render_net(plan, *x, ws, bs, BF16)
+    want = fused_mlp.render_net_plain(plan, *x, ws, bs, mm=BF16)
     assert got.shape == want.shape == (n, d_out)
     _bf16_close(got, want)
 
@@ -204,9 +212,9 @@ def test_render_bwd_on_the_forward_pack(card, n, width):
 def test_nerf_kernel_matches_plain(card, has_dpt):
     plan, pts, views, (tw, tb, hw, hb) = _nerf_inputs(np.random.default_rng(3), 83, has_dpt, card)
     before = build.LAUNCHES["nerf_fwd"]
-    got = fused_mlp.nerf(plan, pts, views, tw, tb, hw, hb)
+    got = fused_mlp.nerf(plan, pts, views, tw, tb, hw, hb, BF16)
     assert build.LAUNCHES["nerf_fwd"] == before + 1
-    want = fused_mlp.nerf_plain(plan, pts, views, tw, tb, hw, hb)
+    want = fused_mlp.nerf_plain(plan, pts, views, tw, tb, hw, hb, mm=BF16)
     assert (got[2] is None) == (not has_dpt)
     for g, w in zip(got, want):
         if w is not None:
@@ -238,7 +246,7 @@ def test_render_bwd_kernel_matches_plain(card, mode, multires_view, d_small, squ
     got = fused_mlp._render_bwd_launch(*args)
     again = fused_mlp._render_bwd_launch(*args)
     assert build.LAUNCHES["render_bwd"] == before + 2
-    _check_grads(got, fused_mlp.render_net_bwd_plain(*args), 4)
+    _check_grads(got, fused_mlp.render_net_bwd_plain(*args, mm=BF16), 4)
     for a, b in zip(got[:4] + tuple(got[4]) + tuple(got[5]),
                     again[:4] + tuple(again[4]) + tuple(again[5])):
         assert torch.equal(a, b)
@@ -254,7 +262,7 @@ def test_nerf_bwd_kernel_matches_plain(card, has_dpt):
     got = fused_mlp._nerf_bwd_launch(plan, pts, views, *weights, *gs)
     again = fused_mlp._nerf_bwd_launch(plan, pts, views, *weights, *gs)
     assert build.LAUNCHES["nerf_bwd"] == before + 2
-    _check_grads(got, fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs), 2)
+    _check_grads(got, fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs, mm=BF16), 2)
     for a, b in zip(got[:2] + tuple(t for l in got[2:] for t in l),
                     again[:2] + tuple(t for l in again[2:] for t in l)):
         assert torch.equal(a, b)
@@ -268,24 +276,147 @@ def test_autograd_through_the_kernels(card):
     x = [torch.tensor(rng.normal(size=(99, k)), dtype=torch.float32, device=card)
          for k in (3, 3, 3, 32)]
     before = dict(build.LAUNCHES)
-    out = fused_mlp.render_net(("idr", 4, True), *x, ws, bs)
+    out = fused_mlp.render_net(("idr", 4, True), *x, ws, bs, BF16)
     grads = torch.autograd.grad(out.square().sum(), leaves)
     plan, pts, views, weights = _nerf_inputs(rng, 99, False, card)
     nleaves = [t.requires_grad_(True) for group in weights for t in group]
-    alpha, rgb, _ = fused_mlp.nerf(plan, pts, views, *weights)
+    alpha, rgb, _ = fused_mlp.nerf(plan, pts, views, *weights, BF16)
     grads += torch.autograd.grad(alpha.sum() + rgb.square().sum(), nleaves)
     for k in ("render_fwd", "render_bwd", "nerf_fwd", "nerf_bwd"):
         assert build.LAUNCHES[k] == before[k] + 1, k
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
-def test_kernels_refuse_an_f32_policy(card, monkeypatch):
+def test_f32_mode_launches_only_the_split_kernels(card, monkeypatch):
+    """Under the f32 operand mode (JAX's default policy) the wrappers launch
+    the split-operand kernels: never the bf16 ones, never a plain version.
+    Each launch of a split kernel adds one to its count, and nothing else
+    does: the counts grow by the launcher calls the schedules made, the dW
+    contraction's (four a backward) under ``dw_contract_f32``."""
     rng = np.random.default_rng(4)
     ws, bs = _weights(rng, [(3 + 27 + 3 + 8, 16), (16, 3)], card)
-    x = torch.zeros(5, 3, device=card)
-    monkeypatch.setattr(fused_mlp, "_MM_DTYPE", torch.float32)
-    with pytest.raises(RuntimeError, match="bf16 only"):
-        fused_mlp.render_net(("idr", 4, True), x, x, x, torch.zeros(5, 8, device=card), ws, bs)
+    x = [torch.tensor(rng.normal(size=(5, c)), dtype=torch.float32, device=card)
+         for c in (3, 3, 3, 8)]
+    for name in ("render_net_plain", "render_net_bwd_plain", "nerf_plain", "nerf_bwd_plain"):
+        monkeypatch.setattr(fused_mlp, name, lambda *a, **k: pytest.fail("a plain version ran"))
+    made = {k: 0 for k in build.LAUNCHES}
+    init, dw = fused_mlp._SplitOps.__init__, fused_mlp._SplitOps.dw
+
+    def counting_init(ops, device, name):
+        init(ops, device, name)
+        lib, ops.in_dw = ops.lib, False
+
+        class Lib:  # each launcher call, under the kernel it serves
+            def __getattr__(self, fn):
+                def call(*args):
+                    made["dw_contract_f32" if ops.in_dw else name] += 1
+                    return getattr(lib, fn)(*args)
+                return call
+
+        ops.lib = Lib()
+
+    def counting_dw(ops, pairs, layers):
+        ops.in_dw = True
+        try:
+            return dw(ops, pairs, layers)
+        finally:
+            ops.in_dw = False
+
+    monkeypatch.setattr(fused_mlp._SplitOps, "__init__", counting_init)
+    monkeypatch.setattr(fused_mlp._SplitOps, "dw", counting_dw)
+    leaves = [t.requires_grad_(True) for t in ws + bs]
+    before = dict(build.LAUNCHES)
+    out = fused_mlp.render_net(("idr", 4, True), *x, ws, bs, torch.float32)
+    torch.autograd.grad(out.square().sum(), leaves)
+    plan, pts, views, weights = _nerf_inputs(rng, 99, True, card)
+    nleaves = [t.requires_grad_(True) for group in weights for t in group]
+    alpha, rgb, dpt = fused_mlp.nerf(plan, pts, views, *weights, torch.float32)
+    torch.autograd.grad(alpha.sum() + rgb.square().sum() + dpt.sum(), nleaves)
+    grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+    assert grew == made, (grew, made)
+    assert made["dw_contract_f32"] == 8 and all(made[k] for k in made if k.endswith("_f32"))
+    assert not any(made[k] for k in made if not k.endswith("_f32"))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fused_mlp.render_net(("idr", 4, True), *x, ws, bs, torch.float16)
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("mode,squeeze_out", [("idr", True), ("no_view_dir", False),
+                                              ("no_normal", True)])
+@pytest.mark.parametrize("n", [1, 77, 4099])
+def test_split_render_kernels_match_plain(card, mode, squeeze_out, n):
+    """K2/K3 in the split mode against the plain version with f32 operands:
+    the forward within 1e-4 * max(1, max|plain|), every backward output
+    within 1e-4 relative L2, two launches bit for bit equal."""
+    rng = np.random.default_rng(11)
+    d_feat = 30
+    k0 = 3 + d_feat + (27 if mode != "no_view_dir" else 0) + (3 if mode != "no_normal" else 0)
+    ws, bs = _weights(rng, [(k0, 64), (64, 64), (64, 5)], card)
+    x = [torch.tensor(rng.normal(size=(n, c)), dtype=torch.float32, device=card)
+         for c in (3, 3, 3, d_feat)]
+    plan = (mode, 4, squeeze_out)
+    got, _ = fused_mlp._render_launch_f32(plan, *x, ws, bs)
+    again, _ = fused_mlp._render_launch_f32(plan, *x, ws, bs)
+    want = fused_mlp.render_net_plain(plan, *x, ws, bs, mm=torch.float32)
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    g = torch.tensor(rng.normal(size=(n, 5)), dtype=torch.float32, device=card)
+    flat = lambda o: [*o[:4], *o[4], *o[5]]  # noqa: E731
+    got = flat(fused_mlp._render_bwd_launch_f32(plan, *x, ws, bs, g))
+    again = flat(fused_mlp._render_bwd_launch_f32(plan, *x, ws, bs, g))
+    want = flat(fused_mlp.render_net_bwd_plain(plan, *x, ws, bs, g, mm=torch.float32))
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), i
+        if float(w.abs().max()) > 0:
+            assert _rel_l2(a, w) <= 1e-4, (i, _rel_l2(a, w))
+
+
+@pytest.mark.parametrize("has_dpt", [False, True])
+@pytest.mark.parametrize("n", [1, 99, 4099])
+def test_split_nerf_kernels_match_plain(card, has_dpt, n):
+    rng = np.random.default_rng(12)
+    plan, pts, views, weights = _nerf_inputs(rng, n, has_dpt, card)
+    got, _ = fused_mlp._nerf_launch_f32(plan, pts, views, *weights)
+    want = fused_mlp.nerf_plain(plan, pts, views, *weights, mm=torch.float32)
+    for a, w in zip(got, want):
+        if w is not None:
+            assert float((a - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
+    gs = [torch.tensor(rng.normal(size=(n, c)), dtype=torch.float32, device=card)
+          for c in ((1, 3, 7) if has_dpt else (1, 3))]
+    flat = lambda o: [*o[:2], *(t for grp in o[2:] for t in grp)]  # noqa: E731
+    got = flat(fused_mlp._nerf_bwd_launch_f32(plan, pts, views, *weights, *gs))
+    again = flat(fused_mlp._nerf_bwd_launch_f32(plan, pts, views, *weights, *gs))
+    want = flat(fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs, mm=torch.float32))
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), i
+        if float(w.abs().max()) > 0:
+            assert _rel_l2(a, w) <= 1e-4, (i, _rel_l2(a, w))
+
+
+@pytest.mark.parametrize("n", [1, 77, 8192 + 37])
+def test_render_kernels_at_400_padded_inputs(card, n):
+    """The colour head under depth_before_color at full width (289 + 96 = 385
+    inputs, 400 padded) in the bf16 mode: K2 on its 3-stage ring and K3,
+    against their plain versions at the bf16 tolerances."""
+    rng = np.random.default_rng(13)
+    ws, bs = _weights(rng, [(385, 256), (256, 256), (256, 256), (256, 256), (256, 3)], card)
+    x = [torch.tensor(rng.normal(size=(n, c)), dtype=torch.float32, device=card)
+         for c in (3, 3, 3, 256 + 96)]
+    plan = ("idr", 4, True)
+    meta = fused_mlp._render_meta(plan, x[3], ws, bs, card)[2]
+    assert fused_mlp.render_ring_stages(meta) == 3
+    got, _ = fused_mlp._render_launch(plan, *x, ws, bs)
+    _bf16_close(got, fused_mlp.render_net_plain(plan, *x, ws, bs, mm=BF16))
+    g = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=card)
+    got = fused_mlp._render_bwd_launch(plan, *x, ws, bs, g)
+    want = fused_mlp.render_net_bwd_plain(plan, *x, ws, bs, g, mm=BF16)
+    for a, w in zip(got[:4], want[:4]):
+        _cotangent_close(a, w)
+    for a, w in zip([*got[4], *got[5]], [*want[4], *want[5]]):
+        _rel_close(a, w)
 
 
 def _sdf_full_width(rng, device):
@@ -331,7 +462,7 @@ def test_render_bwd_kernel_row_counts(card, n, width):
     args = (("idr", 4, True), pts, nrm, dirs, feat, ws, bs, g)
     flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
     got, again = flat(fused_mlp._render_bwd_launch(*args)), flat(fused_mlp._render_bwd_launch(*args))
-    want = flat(fused_mlp.render_net_bwd_plain(*args))
+    want = flat(fused_mlp.render_net_bwd_plain(*args, mm=BF16))
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         _rel_l2_close(a, w)
@@ -394,8 +525,8 @@ def test_nerf_kernel_full_width_row_counts(card, n, has_dpt):
     """K4 at full width around its 128-row tiles and at a training step's
     outside rows with a ragged tail, against the plain version."""
     plan, pts, views, weights = _nerf_full_width(np.random.default_rng(24), n, has_dpt, card)
-    got = fused_mlp.nerf(plan, pts, views, *weights)
-    want = fused_mlp.nerf_plain(plan, pts, views, *weights)
+    got = fused_mlp.nerf(plan, pts, views, *weights, BF16)
+    want = fused_mlp.nerf_plain(plan, pts, views, *weights, mm=BF16)
     assert (got[2] is None) == (not has_dpt)
     for g, w in zip(got, want):
         if w is not None:
@@ -415,7 +546,7 @@ def test_nerf_bwd_kernel_full_width_row_counts(card, n, has_dpt):
     flat = lambda xs: [t for x in xs for t in (x if isinstance(x, list) else [x])]  # noqa: E731
     args = (plan, pts, views, *weights, *gs)
     got, again = flat(fused_mlp._nerf_bwd_launch(*args)), flat(fused_mlp._nerf_bwd_launch(*args))
-    want = flat(fused_mlp.nerf_bwd_plain(*args))
+    want = flat(fused_mlp.nerf_bwd_plain(*args, mm=BF16))
     assert len(got) == len(want)
     for a, b, w in zip(got, again, want):
         assert a.shape == w.shape and torch.equal(a, b)
@@ -460,7 +591,7 @@ def test_masked_render_launches_no_background_kernel(card):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     colors, launches = {}, {}
     for dev in (card, torch.device("cpu")):
-        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0), mlp_dtype=BF16).to(dev)
         ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
         build.reset_launches()
         out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd),
@@ -501,7 +632,7 @@ def test_interpolated_frame_through_the_kernels(card):
     tcfg = TrainConfig(batch_size=256, use_white_bkgd=True)
     frames, launches = {}, {}
     for dev in (card, torch.device("cpu")):
-        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0), mlp_dtype=BF16).to(dev)
         cams = LearnedCameras(np.stack([pose, turned]), 50.0, H, W).to(dev)
         poses, intrin_inv = resolve_cams(cams, None, None)
         build.reset_launches()
@@ -531,7 +662,7 @@ def test_depth_head_bwd_full_width(card, n):
     before = build.LAUNCHES["render_bwd"]
     got, again = flat(fused_mlp._render_bwd_launch(*args)), flat(fused_mlp._render_bwd_launch(*args))
     assert build.LAUNCHES["render_bwd"] == before + 2
-    want = flat(fused_mlp.render_net_bwd_plain(*args))
+    want = flat(fused_mlp.render_net_bwd_plain(*args, mm=BF16))
     assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
     assert tuple(got[4 + 4].shape) == (256, 96)
     for a, b, w in zip(got, again, want):
@@ -549,14 +680,14 @@ def test_depth_head_through_autograd(card):
     leaves = [t.clone().requires_grad_(True) for t in ws + bs]
     g = torch.tensor(rng.normal(size=(n, 96)), dtype=torch.float32, device=card)
     before = dict(build.LAUNCHES)
-    out = fused_mlp.render_net(plan, *x, leaves[:5], leaves[5:])
+    out = fused_mlp.render_net(plan, *x, leaves[:5], leaves[5:], BF16)
     grads = torch.autograd.grad(out, leaves, g)
     assert build.LAUNCHES["render_fwd"] == before["render_fwd"] + 1
     assert build.LAUNCHES["render_bwd"] == before["render_bwd"] + 1
-    _bf16_close(out.detach(), fused_mlp.render_net_plain(plan, *x, ws, bs))
+    _bf16_close(out.detach(), fused_mlp.render_net_plain(plan, *x, ws, bs, mm=BF16))
     _, packed = fused_mlp._render_launch(plan, *x, ws, bs)
     on_pack = fused_mlp._render_bwd_launch(plan, *x, ws, bs, g, packed=packed)
-    plain = fused_mlp.render_net_bwd_plain(plan, *x, ws, bs, g)
+    plain = fused_mlp.render_net_bwd_plain(plan, *x, ws, bs, g, mm=BF16)
     for got, k3, w in zip(grads, [*on_pack[4], *on_pack[5]], [*plain[4], *plain[5]]):
         assert torch.equal(got, k3)
         _rel_l2_close(got, w)
@@ -592,7 +723,7 @@ def test_wdepth_render_launches_both_heads(card):
     outs, launches = {}, {}
     for key, nets, dev in (("base", base, card), ("card", wdepth, card),
                            ("cpu", wdepth, torch.device("cpu"))):
-        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0)).to(dev)
+        model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0), mlp_dtype=BF16).to(dev)
         ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
         build.reset_launches()
         out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd),
@@ -671,7 +802,7 @@ def _small_trainer(card, learn=False, bf16=False, **tcfg):
         "feats": rng.normal(size=(cfg.batch_size, 8)).astype(np.float32),
     } for i in range(12)]
     model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0),
-                      torch.bfloat16 if bf16 else None).to(card)
+                      torch.bfloat16 if bf16 else None, mlp_dtype=BF16).to(card)
     trainer = Trainer(cfg, model, cams, torch.Generator(device=card).manual_seed(0))
     return trainer, faithful, nets, batches
 

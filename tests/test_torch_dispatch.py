@@ -106,7 +106,7 @@ def test_window_matches_jax_scan(scenes, f32_matmuls, regime):
     stacked = {k: jnp.asarray(np.stack([b[k] for b in jbs])) for k in jbs[0]}
     state, want = scan(state, stacked)
 
-    model = port_model(nets, params)
+    model = port_model(nets, params, f32_matmuls)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     window = StepDispatch(trainer).run(range(K), [port_nets(nets)] * K, tbs)
     got = window.read()
@@ -255,7 +255,7 @@ def test_step_inputs_record_equals_the_floats(scenes, step):
     params = jax_params(STEP_NETS)
     _, (tb,) = _batches(scene, 1, seed=8)
 
-    model = port_model(STEP_NETS, params)
+    model = port_model(STEP_NETS, params, torch.bfloat16)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     got = trainer.gradients(nets, tb, step)
     got_grads = [p.grad.clone() for p in model.parameters()]
@@ -274,7 +274,7 @@ def test_step_inputs_record_equals_the_floats(scenes, step):
     assert trainer.distills(step) == distill
     assert 0.0 < floats[0] < 1.0 if step < 50 else floats[0] == 1.0
 
-    model = port_model(STEP_NETS, params)
+    model = port_model(STEP_NETS, params, torch.bfloat16)
     batch = {k: torch.as_tensor(v) for k, v in tb.items()}
     for p in model.parameters():
         p.grad = None

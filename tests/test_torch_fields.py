@@ -25,7 +25,7 @@ TOL = dict(atol=1e-5, rtol=1e-4)
 def setup():
     nets = jax_nets()
     params = jax_params(nets, seed=1)
-    return nets, params, port_model(nets, params)
+    return nets, params, port_model(nets, params, torch.bfloat16)
 
 
 def _pts(n=53, seed=0):
@@ -66,7 +66,8 @@ def test_color_head(f32_matmuls, mode):
           "no_normal": dict(d_in=6, multires_view=4)}[mode]
     cfg = jf.RenderConfig(mode=mode, d_feature=32, d_hidden=48, n_layers=3, **kw)
     params = jf.render_net_init(jax.random.PRNGKey(2), cfg)
-    net = RenderingNetwork(RenderConfig(**cfg.__dict__), torch.Generator().manual_seed(0))
+    net = RenderingNetwork(RenderConfig(**cfg.__dict__), torch.Generator().manual_seed(0),
+                           f32_matmuls)
     for l, p in enumerate(to_numpy(params)["layers"]):
         net.load_state_dict(tck.linear_state(f"lin{l}", p), strict=False)
     rng = np.random.default_rng(3)
@@ -84,7 +85,7 @@ def test_nerf(f32_matmuls, gen_depth_feats):
 
     cfg = jf.NeRFConfig(**{**NERF.__dict__, "gen_depth_feats": gen_depth_feats, "dpt_dim": 5})
     params = jf.nerf_init(jax.random.PRNGKey(4), cfg)
-    net = NeRF(NeRFConfig(**cfg.__dict__), torch.Generator().manual_seed(0))
+    net = NeRF(NeRFConfig(**cfg.__dict__), torch.Generator().manual_seed(0), f32_matmuls)
     nerf_p = to_numpy(params)
     sd = {}
     for i, p in enumerate(nerf_p["pts_linears"]):
@@ -138,8 +139,8 @@ def test_npz_and_pth_load_to_identical_parameters(setup, tmp_path):
     pth = str(tmp_path / "ckpt_000011.pth")
     tck.save_training_checkpoint(pth, model, 11)
 
-    a = port_model(nets, jax_params(nets, seed=9))
-    b = port_model(nets, jax_params(nets, seed=9))
+    a = port_model(nets, jax_params(nets, seed=9), torch.bfloat16)
+    b = port_model(nets, jax_params(nets, seed=9), torch.bfloat16)
     assert tck.load_jax_checkpoint(npz, a) == 11
     assert tck.load_reference_checkpoint(pth, b) == 11
     sa, sb, s0 = a.state_dict(), b.state_dict(), model.state_dict()

@@ -96,7 +96,7 @@ def test_cpu_render_runs_plain_versions_and_counts_no_launch():
     from vdnerf_tpu_torch.ops.renderer import render
 
     nets = jax_nets(skip_bg_inside=True)
-    model = port_model(nets, jax_params(nets))
+    model = port_model(nets, jax_params(nets), torch.bfloat16)
     o, d = (torch.from_numpy(a) for a in rays(8))
     build.reset_launches()
     with torch.no_grad():
@@ -104,5 +104,6 @@ def test_cpu_render_runs_plain_versions_and_counts_no_launch():
                      perturb_overwrite=0, background_rgb=torch.ones(1, 3))
     assert torch.isfinite(out["color_fine"]).all()
     assert set(build.LAUNCHES) == {"sdf_fwd", "render_fwd", "nerf_fwd", "render_bwd", "nerf_bwd",
-                                   "dw_contract"}
+                                   "dw_contract", "render_fwd_f32", "nerf_fwd_f32",
+                                   "render_bwd_f32", "nerf_bwd_f32", "dw_contract_f32"}
     assert not any(build.LAUNCHES.values())

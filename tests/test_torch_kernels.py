@@ -98,24 +98,24 @@ def _render_case(mode, n=77, d_feat=32, width=48, squeeze_out=True):
     return (mode, multires_view, squeeze_out), jplan, (pts, nrm, dirs, feat), ws, bs
 
 
-def _render_pair(mode, **kw):
+def _render_pair(mode, mm, **kw):
     plan, jplan, inputs, ws, bs = _render_case(mode, **kw)
     want = np.asarray(jfused.render_net_fused(
         jplan, 32, *(jnp.asarray(a) for a in inputs),
         [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs]))
-    got = fused_mlp.render_net(plan, *_t(inputs), _t(ws), _t(bs)).numpy()
+    got = fused_mlp.render_net(plan, *_t(inputs), _t(ws), _t(bs), mm).numpy()
     return got, want
 
 
 @pytest.mark.parametrize("mode", list(RENDER_MODES))
 def test_render_plain_matches_pallas_f32(f32_matmuls, mode):
-    got, want = _render_pair(mode)
+    got, want = _render_pair(mode, f32_matmuls)
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 @pytest.mark.parametrize("mode", list(RENDER_MODES))
 def test_render_plain_matches_pallas_bf16(mode):
-    got, want = _render_pair(mode, squeeze_out=mode != "no_normal")
+    got, want = _render_pair(mode, torch.bfloat16, squeeze_out=mode != "no_normal")
     np.testing.assert_allclose(got, want, atol=3e-3)
 
 
@@ -140,24 +140,24 @@ def _nerf_case(has_dpt, n=83, D=4, W=32, skips=(2,), multires=4, multires_view=2
     return plan, jplan, (pts, views), (tw, tb, hw, hb)
 
 
-def _nerf_pair(has_dpt):
+def _nerf_pair(has_dpt, mm):
     plan, jplan, inputs, weights = _nerf_case(has_dpt)
     want = jfused.nerf_fused(jplan, 32, *(jnp.asarray(a) for a in inputs),
                              *[[jnp.asarray(x) for x in group] for group in weights])
-    got = fused_mlp.nerf(plan, *_t(inputs), *[_t(group) for group in weights])
+    got = fused_mlp.nerf(plan, *_t(inputs), *[_t(group) for group in weights], mm)
     assert (got[2] is None) == (not has_dpt)
     return [g.numpy() for g in got if g is not None], [np.asarray(w) for w in want if w is not None]
 
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_plain_matches_pallas_f32(f32_matmuls, has_dpt):
-    for g, w in zip(*_nerf_pair(has_dpt)):
+    for g, w in zip(*_nerf_pair(has_dpt, f32_matmuls)):
         np.testing.assert_allclose(g, w, atol=1e-5)
 
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_plain_matches_pallas_bf16(has_dpt):
-    for g, w in zip(*_nerf_pair(has_dpt)):
+    for g, w in zip(*_nerf_pair(has_dpt, torch.bfloat16)):
         np.testing.assert_allclose(g, w, atol=3e-3)
 
 
@@ -166,4 +166,4 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         sdf_fwd.sdf_value(pts, [], [], (), 0, 1.0)
     with pytest.raises(ValueError):
-        fused_mlp.render_net(("idr", 4, True), pts, pts, pts, pts, [], [])
+        fused_mlp.render_net(("idr", 4, True), pts, pts, pts, pts, [], [], torch.bfloat16)

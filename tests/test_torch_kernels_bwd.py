@@ -55,7 +55,7 @@ def _render_case(mode, squeeze_out):
     return plan, jplan, [pts, nrm, dirs, feat], ws, bs, g
 
 
-def _render_grads(mode, squeeze_out):
+def _render_grads(mode, squeeze_out, mm):
     plan, jplan, inputs, ws, bs, g = _render_case(mode, squeeze_out)
 
     def f(pts, nrm, dirs, feat, ws, bs):
@@ -64,7 +64,8 @@ def _render_grads(mode, squeeze_out):
     _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in inputs),
                      [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
     want = vjp(jnp.asarray(g))
-    got = fused_mlp.render_net_bwd_plain(plan, *_t(inputs), _t(ws), _t(bs), torch.tensor(g))
+    got = fused_mlp.render_net_bwd_plain(plan, *_t(inputs), _t(ws), _t(bs), torch.tensor(g),
+                                         mm=mm)
     return got, want
 
 
@@ -80,16 +81,16 @@ def _check_render(got, want, rel):
 @pytest.mark.parametrize("squeeze_out", [True, False])
 @pytest.mark.parametrize("mode", list(RENDER_MODES))
 def test_render_bwd_plain_matches_pallas_vjp_f32(f32_matmuls, mode, squeeze_out):
-    _check_render(*_render_grads(mode, squeeze_out), TOL["f32"])
+    _check_render(*_render_grads(mode, squeeze_out, f32_matmuls), TOL["f32"])
 
 
 @pytest.mark.parametrize("squeeze_out", [True, False])
 @pytest.mark.parametrize("mode", list(RENDER_MODES))
 def test_render_bwd_plain_matches_pallas_vjp_bf16(mode, squeeze_out):
-    _check_render(*_render_grads(mode, squeeze_out), TOL["bf16"])
+    _check_render(*_render_grads(mode, squeeze_out, torch.bfloat16), TOL["bf16"])
 
 
-def _nerf_grads(has_dpt):
+def _nerf_grads(has_dpt, mm):
     plan, jplan, inputs, weights = _nerf_case(has_dpt, n=N)
     rng = np.random.default_rng(6)
     gs = [rng.normal(size=(N, 1)), rng.normal(size=(N, 3))]
@@ -105,7 +106,7 @@ def _nerf_grads(has_dpt):
     want = vjp((jnp.asarray(gs[0]), jnp.asarray(gs[1]),
                 jnp.asarray(gs[2]) if has_dpt else None))
     got = fused_mlp.nerf_bwd_plain(plan, *_t(inputs), *[_t(group) for group in weights],
-                                   *_t(gs))
+                                   *_t(gs), mm=mm)
     return got, want
 
 
@@ -120,12 +121,12 @@ def _check_nerf(got, want, rel):
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_bwd_plain_matches_pallas_vjp_f32(f32_matmuls, has_dpt):
-    _check_nerf(*_nerf_grads(has_dpt), TOL["f32"])
+    _check_nerf(*_nerf_grads(has_dpt, f32_matmuls), TOL["f32"])
 
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 def test_nerf_bwd_plain_matches_pallas_vjp_bf16(has_dpt):
-    _check_nerf(*_nerf_grads(has_dpt), TOL["bf16"])
+    _check_nerf(*_nerf_grads(has_dpt, torch.bfloat16), TOL["bf16"])
 
 
 def _leaves(xs):
@@ -136,11 +137,11 @@ def _leaves(xs):
 def test_render_function_backward_is_the_plain_backward(mode):
     plan, _, inputs, ws, bs, g = _render_case(mode, True)
     inputs, ws, bs = _leaves(_t(inputs)), _leaves(_t(ws)), _leaves(_t(bs))
-    out = fused_mlp.render_net(plan, *inputs, ws, bs)
+    out = fused_mlp.render_net(plan, *inputs, ws, bs, torch.bfloat16)
     got = torch.autograd.grad(out, inputs + ws + bs, torch.tensor(g), allow_unused=True)
     with torch.no_grad():
         d4, d5, d6, d7, dws, dbs = fused_mlp.render_net_bwd_plain(
-            plan, *inputs, ws, bs, torch.tensor(g))
+            plan, *inputs, ws, bs, torch.tensor(g), mm=torch.bfloat16)
     for a, b in zip(got, [d4, d5, d6, d7, *dws, *dbs]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -150,7 +151,7 @@ def test_nerf_function_backward_is_the_plain_backward(has_dpt):
     plan, _, inputs, weights = _nerf_case(has_dpt, n=N)
     inputs = _leaves(_t(inputs))
     weights = [_leaves(_t(group)) for group in weights]
-    alpha, rgb, dpt = fused_mlp.nerf(plan, *inputs, *weights)
+    alpha, rgb, dpt = fused_mlp.nerf(plan, *inputs, *weights, torch.bfloat16)
     rng = np.random.default_rng(7)
     gs = [torch.tensor(rng.normal(size=t.shape).astype(np.float32)) for t in (alpha, rgb)]
     outs = [alpha, rgb]
@@ -161,6 +162,6 @@ def test_nerf_function_backward_is_the_plain_backward(has_dpt):
     got = torch.autograd.grad(outs, flat, gs)
     with torch.no_grad():
         d_pts, d_views, dtw, dtb, dhw, dhb = fused_mlp.nerf_bwd_plain(
-            plan, *inputs, *weights, *gs)
+            plan, *inputs, *weights, *gs, mm=torch.bfloat16)
     for a, b in zip(got, [d_pts, d_views, *dtw, *dtb, *dhw, *dhb]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -366,21 +366,20 @@ def _close(got, want):
 
 @pytest.mark.parametrize("has_dpt", [False, True])
 @pytest.mark.parametrize("max_out", [256, 16])
-def test_nerf_packed_order_emulation_equals_plain(monkeypatch, has_dpt, max_out):
+def test_nerf_packed_order_emulation_equals_plain(has_dpt, max_out):
     """K4/K5's layer order and pass schedule, in f32, give the plain version's
     outputs and (through nerf_grads_from_packed) its gradients."""
-    monkeypatch.setattr(fused_mlp, "_MM_DTYPE", torch.float32)
     plan, pts, views, weights, gs = _nerf_setup(np.random.default_rng(31), 77, has_dpt)
     packed = fused_mlp._nerf_meta(plan, 4, *weights, torch.device("cpu"), dtype=torch.float32)
     g_dpt = gs[2] if has_dpt else None
     alpha, rgb, dpt, d_pts, d_views, grads = _emulate_nerf(packed, pts, views, gs[0], gs[1],
                                                            g_dpt, max_out)
-    want = fused_mlp.nerf_plain(plan, pts, views, *weights)
+    want = fused_mlp.nerf_plain(plan, pts, views, *weights, mm=torch.float32)
     for g, w in zip((alpha, rgb, dpt), want):
         assert (g is None) == (w is None)
         if w is not None:
             _close(g, w)
-    want = fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs)
+    want = fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs, mm=torch.float32)
     got = (d_pts, d_views, *fused_mlp.nerf_grads_from_packed(packed[2], grads))
     for g, w in zip(got, want):
         for a, b in zip(g if isinstance(g, list) else [g], w if isinstance(w, list) else [w]):
@@ -396,7 +395,7 @@ def test_nerf_packed_gradients_map_back_exactly(has_dpt, skips):
     mapping them back is the identity."""
     plan, pts, views, weights, gs = _nerf_setup(np.random.default_rng(32), 33, has_dpt,
                                                 skips=skips)
-    want = fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs)
+    want = fused_mlp.nerf_bwd_plain(plan, pts, views, *weights, *gs, mm=torch.bfloat16)
     W, B, meta = fused_mlp._nerf_meta(plan, 4, *want[2:], torch.device("cpu"),
                                       dtype=torch.float32)
     packed = [(W[wo:wo + Kp * Np].view(Kp, Np)[:K, :N], B[bo:bo + N])

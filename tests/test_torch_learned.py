@@ -130,14 +130,14 @@ def _compare_cams(port: LearnedCameras, jcams, tol_r=1e-4):
     assert errs["r"] <= tol_r and errs["t"] <= 1e-4 and errs["fx"] <= 1e-4, errs
 
 
-def _one_step(scene, nets, step, moved):
+def _one_step(scene, nets, step, moved, mm):
     jcams, cams = _cams(scene, moved)
     params = jax_params(nets)
     (jb,), (tb,) = _batches(scene, 1, seed=3)
     loss_fn = make_loss_fn(nets, scene["jcfg"], SCENE)
     fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     (loss, metrics), (g, gc) = fn((params, jcams), jb, step, jax.random.PRNGKey(0))
-    model = port_model(nets, params)
+    model = port_model(nets, params, mm)
     got = Trainer(scene["tcfg"], model, cams, None).gradients(port_nets(nets), tb, step)
     for k, v in metrics.items():
         assert abs(float(got[k]) - float(v)) <= 1e-5 * max(abs(float(v)), 1e-3), k
@@ -162,13 +162,13 @@ def _one_step(scene, nets, step, moved):
 
 @pytest.mark.parametrize("moved", [False, True], ids=["initial_cams", "moved_cams"])
 def test_one_step_with_camera_gradients_matches_jax(scene, f32_matmuls, fused, moved):
-    _one_step(scene, NETS, 7, moved)
+    _one_step(scene, NETS, 7, moved, f32_matmuls)
 
 
 def test_wdepth_learn_step_matches_jax(tmp_path_factory, f32_matmuls, fused):
     wscene = _learn_scene(str(tmp_path_factory.mktemp("torch_learned_wdepth")), wdepth=True)
     assert wscene["tcfg"].extract_depth and wscene["tcfg"].depth_start_iter == 5
-    _one_step(wscene, WDEPTH_NETS, 30, True)
+    _one_step(wscene, WDEPTH_NETS, 30, True, f32_matmuls)
 
 
 def _jax_run(scene, nets, jbs, jcams, scan=False):
@@ -203,7 +203,7 @@ def test_twenty_step_trajectory_across_the_refine_gate_matches_jax(scene, f32_ma
     jbs, tbs = _batches(sc, 20, seed=4)
     state, want, jax_cams = _jax_run(sc, NETS, jbs, jcams)
 
-    model = port_model(NETS, jax_params(NETS))
+    model = port_model(NETS, jax_params(NETS), f32_matmuls)
     trainer = Trainer(sc["tcfg"], model, cams, None)
     got = []
     for i, b in enumerate(tbs):
@@ -225,7 +225,7 @@ def test_window_across_the_refine_gate_matches_jax_scan(scene, f32_matmuls):
     jcams, cams = _cams(sc, True)
     jbs, tbs = _batches(sc, 4, seed=7)
     state, want, _ = _jax_run(sc, NETS, jbs, jcams, scan=True)
-    model = port_model(NETS, jax_params(NETS))
+    model = port_model(NETS, jax_params(NETS), f32_matmuls)
     trainer = Trainer(sc["tcfg"], model, cams, None)
     got = [m["loss"] for m in StepDispatch(trainer).run(range(4), [port_nets(NETS)] * 4,
                                                           tbs).read()]

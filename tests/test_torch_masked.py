@@ -92,7 +92,8 @@ def _render_both(policy):
     params = jax_params(NETS, seed=3)
     o, d = rays(N_RAYS, seed=5)
     want = _jax_render(NETS, params, o, d, fused=policy == "bf16")
-    return _port_render(NETS, params, o, d), want
+    return _port_render(NETS, params, o, d,
+                        torch.float32 if policy == "f32" else torch.bfloat16), want
 
 
 @pytest.mark.parametrize("policy", ["f32", "bf16"])
@@ -132,7 +133,7 @@ def test_masked_step_matches_jax(scene, f32_matmuls, fused, counted, core, step)
     loss, metrics, g = _jax_value_and_grad(scene, jcfg, params, jb, step,
                                            make_loss_fn(nets, jcfg, SceneStatic(H=H, W=W)))
 
-    model = port_model(nets, params)
+    model = port_model(nets, params, f32_matmuls)
     got = Trainer(tcfg, model, scene["tcams"], None).gradients(port_nets(nets), tb, step)
     assert counted["sdf_value"] == (5 if core == "resampled" else 4)
     assert metrics["mask_loss"] > 0.1
@@ -159,7 +160,7 @@ def test_masked_twenty_step_trajectory_matches_jax(scene, f32_matmuls, fused, co
         state, m = step_fn(state, b)
         want.append(float(m["loss"]))
 
-    model = port_model(nets, params)
+    model = port_model(nets, params, f32_matmuls)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     got = [float(trainer.step(port_nets(nets), b, i)["loss"]) for i, b in enumerate(tbs)]
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
@@ -172,7 +173,7 @@ def test_background_nerf_gets_no_gradient_no_move_and_the_checkpoint_reads_into_
     from vdnerf_tpu_torch.io.checkpoints import from_jax_params, save_training_checkpoint
 
     _, tcfg = _cfgs(scene, **MASK)
-    model = port_model(NETS, jax_params(NETS))
+    model = port_model(NETS, jax_params(NETS), torch.bfloat16)
     nerf0 = {n: p.detach().clone() for n, p in model.nerf.named_parameters()}
     others0 = {n: p.detach().clone() for n, p in model.named_parameters() if not n.startswith("nerf.")}
     trainer = Trainer(tcfg, model, scene["tcams"], None)

@@ -49,7 +49,7 @@ TOOL_TOL = 1e-6
 def net_fields():
     """The JAX and port fields (-sdf) of one small SDF on a 32^3 grid."""
     params = jax_params(NETS, seed=2)
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, torch.bfloat16)
 
     def jq(pts):
         return -sdf_value(NETS.sdf, params["sdf"], pts)[..., 0]

@@ -62,7 +62,6 @@ from vdnerf_tpu.parallel.mesh import shard_batch as jax_shard_batch
 from vdnerf_tpu.train import SceneStatic, init_state, make_train_step
 from vdnerf_tpu_torch import parallel
 from vdnerf_tpu_torch.data.synthetic import make_synthetic_scene, write_synthetic_conf
-from vdnerf_tpu_torch.ops.kernels import fused_mlp as port_fused
 from vdnerf_tpu_torch.train.step import Trainer
 
 N_RANKS = 2
@@ -104,7 +103,6 @@ def runs(scene, tmp_path_factory):  # noqa: F811
     rank_cases = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_fused, "_BF16", jnp.float32)
-        mp.setattr(port_fused, "_MM_DTYPE", torch.float32)
         precision.set_fused_mlp(True)
         try:
             for name in CASES:
@@ -130,7 +128,7 @@ def runs(scene, tmp_path_factory):  # noqa: F811
                     s1, _ = jax.jit(make_train_step(nets, jcfg, static))(state, jb)
                     rec["jax_single_grads"] = _mu_grads(s1["opt_state"])
                 pnets = port_nets(nets)
-                model = port_model(nets, params)
+                model = port_model(nets, params, torch.float32)
                 rank_cases.append({"nets": pnets, "tcfg": tcfg, "cams": spec, "batch": tb,
                                    "step": step, "state": {k: v.numpy() for k, v in
                                                            model.state_dict().items()}})

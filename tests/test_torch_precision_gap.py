@@ -1,14 +1,13 @@
-"""How far the port's production step drifts from JAX's default f32 step,
+"""How far the port's bf16 operand mode drifts from JAX's default f32 step,
 and that all of that drift is the reference kernels' own.
 
-On the card the port always runs the colour head, the depth head and the
-background NeRF through K2-K5, whose matmul operands are bf16
-(``fused_mlp._MM_DTYPE``). The JAX package runs those nets with f32 matmuls
-unless ``set_fused_mlp(True)`` switches its Pallas kernels on, and no shipped
-conf does. So the port's production policy is JAX's opt-in path, not its
-default. This file runs the port at its production policy on the CPU (the
-plain versions round exactly as the kernels do) against both JAX paths, on
-the synthetic scene and the faithful ``skip_bg_inside`` renderer of
+The port runs the colour head, the depth head and the background NeRF
+through K2-K5 in an operand mode (``models/precision.py``): bf16 operands
+under the bf16 policy or with ``VDNERF_FUSED=1``, JAX's opt-in fused path;
+f32 operands under JAX's default (``tests/test_torch_f32_mode.py``). This
+file builds the port's model in the bf16 mode explicitly (the plain versions
+round exactly as the kernels do) and runs it on the CPU against both JAX
+paths, on the synthetic scene and the faithful ``skip_bg_inside`` renderer of
 ``tests/test_torch_train.py``:
 
 - against JAX's fused path (bf16 against bf16): one step's loss within 1e-5
@@ -48,9 +47,9 @@ from torch_parity import jax_params, one_torch_thread, port_model, port_nets  # 
 from vdnerf_tpu.models import precision
 from vdnerf_tpu.train import SceneStatic, init_state, make_train_step
 from vdnerf_tpu.train.step import make_loss_fn
-from vdnerf_tpu_torch.ops.kernels import fused_mlp
 from vdnerf_tpu_torch.train.step import Trainer
 
+BF16 = torch.bfloat16  # the port's operand mode throughout this file
 JAX_PATHS = {"jax_fused_bf16": True, "jax_default_f32": False}
 STEP_LOSS_TOL = {"jax_fused_bf16": 1e-5, "jax_default_f32": 1e-4}
 GRAD_L2_TOL = {"jax_fused_bf16": 2e-4, "jax_default_f32": 0.15}
@@ -90,12 +89,12 @@ def _jax_step(nets, jcfg, jcams, params, batch, step, fused: bool):
 
 @pytest.mark.parametrize("jax_path", list(JAX_PATHS), indirect=True)
 def test_bf16_step_against_jax(scene, jax_path):
-    assert fused_mlp._MM_DTYPE == torch.bfloat16  # the port's production policy
     jcfg, tcfg = _cfgs(scene)
     params = jax_params(NETS)
     (jb,), (tb,) = _batches(scene, 1)
     loss, want = _jax_step(NETS, jcfg, scene["jcams"], params, jb, 30, JAX_PATHS[jax_path])
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, BF16)
+    assert model.color_network_fine.mm_dtype == model.nerf.mm_dtype == BF16
     got = Trainer(tcfg, model, scene["tcams"], None).gradients(port_nets(NETS), tb, 30)
 
     loss_gap = abs(float(got["loss"]) - loss) / abs(loss)
@@ -110,7 +109,6 @@ def test_bf16_step_against_jax(scene, jax_path):
 
 @pytest.mark.parametrize("jax_path", list(JAX_PATHS), indirect=True)
 def test_bf16_trajectory_against_jax(scene, jax_path):
-    assert fused_mlp._MM_DTYPE == torch.bfloat16
     jcfg, tcfg = _cfgs(scene, warm_up_end=5)
     params = jax_params(NETS)
     jbs, tbs = _batches(scene, 20, seed=4)
@@ -120,7 +118,7 @@ def test_bf16_trajectory_against_jax(scene, jax_path):
     for b in jbs:
         state, m = step_fn(state, b)
         want.append(float(m["loss"]))
-    trainer = Trainer(tcfg, port_model(NETS, params), scene["tcams"], None)
+    trainer = Trainer(tcfg, port_model(NETS, params, BF16), scene["tcams"], None)
     got = [float(trainer.step(port_nets(NETS), b, i)["loss"]) for i, b in enumerate(tbs)]
     gaps = np.abs(np.subtract(got, want)) / np.abs(want)
     print(f"\n{jax_path}: 20-step loss trajectory, largest relative gap {gaps.max():.3e} "
@@ -132,7 +130,6 @@ def test_bf16_trajectory_against_jax(scene, jax_path):
 def test_port_adds_no_gap_of_its_own(request, regime):
     """Per tensor: |port - JAX default| <= 1.5 |JAX fused - JAX default| +
     1e-4, relative L2 against JAX default's gradient."""
-    assert fused_mlp._MM_DTYPE == torch.bfloat16
     if regime == "womsk":
         sc, nets = request.getfixturevalue("scene"), NETS
         jcfg, tcfg = _cfgs(sc)
@@ -143,7 +140,7 @@ def test_port_adds_no_gap_of_its_own(request, regime):
     params = jax_params(nets)
     _, default = _jax_step(nets, jcfg, sc["jcams"], params, jb, 30, fused=False)
     _, fused = _jax_step(nets, jcfg, sc["jcams"], params, jb, 30, fused=True)
-    model = port_model(nets, params)
+    model = port_model(nets, params, BF16)
     Trainer(tcfg, model, sc["tcams"], None).gradients(port_nets(nets), tb, 30)
     grads = _port_grads(model)
     assert set(grads) == set(default)

@@ -66,8 +66,8 @@ def _jax_render(nets, params, o, d, fused: bool):
     return {k: np.asarray(v) for k, v in out.items() if v is not None}
 
 
-def _port_render(nets, params, o, d):
-    model = port_model(nets, params)
+def _port_render(nets, params, o, d, mm):
+    model = port_model(nets, params, mm)
     ro, rd = torch.from_numpy(o), torch.from_numpy(d)
     near, far = port_near_far(ro, rd)
     with torch.no_grad():
@@ -81,7 +81,7 @@ def _compare(mode, policy):
     params = jax_params(nets, seed=3)
     o, d = rays(N_RAYS, seed=5)
     want = _jax_render(nets, params, o, d, fused=policy == "bf16")
-    got = _port_render(nets, params, o, d)
+    got = _port_render(nets, params, o, d, torch.float32 if policy == "f32" else torch.bfloat16)
 
     n_core = MODES[mode].get("n_render_samples", 32)
     assert got["color_fine"].shape == (N_RAYS, 3)

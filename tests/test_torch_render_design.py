@@ -117,14 +117,13 @@ def test_render_ring_image_holds_every_stage(d_out):
 @pytest.mark.parametrize("d_out", [3, 96])
 @pytest.mark.parametrize("mode,squeeze_out", [("idr", True), ("no_view_dir", True),
                                               ("no_normal", False)])
-def test_render_schedule_emulation_equals_plain(monkeypatch, mode, squeeze_out, d_out):
+def test_render_schedule_emulation_equals_plain(mode, squeeze_out, d_out):
     """K2's passes over the ring image, in f32, give the plain version's
     output at full width: layer 0 at Kp 304 (idr, a half last slab), 272
     (no_view_dir, half) and 288 (no_normal, whole)."""
-    monkeypatch.setattr(fused_mlp, "_MM_DTYPE", torch.float32)
     plan, x, ws, bs = _case(mode, d_out, squeeze_out=squeeze_out)
     got = _emulate_k2(_f32_pack(plan, x, ws, bs), plan, *x)
-    want = fused_mlp.render_net_plain(plan, *x, ws, bs)
+    want = fused_mlp.render_net_plain(plan, *x, ws, bs, mm=torch.float32)
     assert got.shape == want.shape == (x[0].shape[0], d_out)
     torch.testing.assert_close(got, want, atol=2e-5 * max(1.0, float(want.abs().max())),
                                rtol=1e-4)
@@ -218,7 +217,7 @@ def test_k3_takes_k2s_pack(monkeypatch):
     packs, seen = [], []
     _stub_launches(monkeypatch, packs, seen)
     leaves = [t.clone().requires_grad_(True) for t in ws + bs]
-    out = fused_mlp.render_net(plan, *x, leaves[:len(ws)], leaves[len(ws):])
+    out = fused_mlp.render_net(plan, *x, leaves[:len(ws)], leaves[len(ws):], torch.bfloat16)
     torch.autograd.grad(out.sum(), leaves)
     assert len(packs) == 1 and len(seen) == 1 and seen[0][0] is packs[0]
 
@@ -233,8 +232,8 @@ def test_each_head_hands_k3_its_own_pack(monkeypatch):
     _stub_launches(monkeypatch, packs, seen)
     depth_leaves = [t.clone().requires_grad_(True) for t in ws + bs]
     color_leaves = [t.clone().requires_grad_(True) for t in cws + cbs]
-    feats = fused_mlp.render_net(plan, *x, depth_leaves[:5], depth_leaves[5:])
-    rgb = fused_mlp.render_net(plan, *x, color_leaves[:5], color_leaves[5:])
+    feats = fused_mlp.render_net(plan, *x, depth_leaves[:5], depth_leaves[5:], torch.bfloat16)
+    rgb = fused_mlp.render_net(plan, *x, color_leaves[:5], color_leaves[5:], torch.bfloat16)
     torch.autograd.grad(feats.sum() + rgb.sum(), depth_leaves + color_leaves)
     assert len(packs) == 2 and len(seen) == 2
     assert {id(w) for w, _ in seen} == {id(w) for w in packs}
@@ -244,24 +243,31 @@ def test_each_head_hands_k3_its_own_pack(monkeypatch):
 
 def test_depth_before_color_is_refused_before_launch(monkeypatch):
     """At full width, ``depth_before_color`` widens the colour head's input to
-    289 + 96 = 385 (400 padded): K2's plan would need 249,920 bytes of shared
-    memory, past the 232,448 a block has. The wrapper refuses it with a
-    ValueError before any launch, and never falls back to the plain
+    289 + 96 = 385 (400 padded): at K2's 5 ring stages its plan would need
+    249,920 bytes of shared memory, past the 232,448 a block has, so the plan
+    takes 3 stages (217,136 bytes), the most that fit. A first layer too wide
+    for even 3 stages (449 inputs, 464 padded) is refused with a ValueError
+    before any launch, and the wrapper never falls back to the plain
     version."""
     plan, x, ws, bs = _case("idr", 3, n=5, d_feat=256 + 96)
     meta = fused_mlp._render_meta(plan, x[3], ws, bs, CPU)[2]
     with pytest.raises(ValueError, match=r"385 inputs \(padded to 400\) needs 249920 bytes.*232448"):
-        fused_mlp.render_launch_plan(meta, 5, 132)
+        fused_mlp.render_launch_plan(meta, 5, 132, stages=5)
+    assert fused_mlp.render_ring_stages(meta) == 3
+    assert fused_mlp.render_launch_plan(meta, 5, 132) == (128, 1, 217_136)
+    assert 2 * (3 * 32 * 256 + 128 * (400 + 256)) + 48 == 217_136
     calls = []
     monkeypatch.setattr(fused_mlp, "_on", lambda t, name: "cuda")
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: type("P", (), {"multi_processor_count": 132}))
     monkeypatch.setattr(fused_mlp.build, "library", lambda name: calls.append(name))
     monkeypatch.setattr(fused_mlp, "render_net_plain", lambda *a: calls.append("plain"))
-    with pytest.raises(ValueError, match="depth_before_color"):
-        fused_mlp.render_net(plan, *x, ws, bs)
+    plan, x, ws, bs = _case("idr", 3, n=5, d_feat=449 - 33)
+    with pytest.raises(ValueError, match=r"449 inputs \(padded to 464\).*3 ring stages"):
+        fused_mlp.render_net(plan, *x, ws, bs, torch.bfloat16)
     assert calls == []
-    # the widest first layer K2 takes: 320 padded inputs
+    # the widest first layer K2 takes at 5 stages: 320 padded inputs
     plan, x, ws, bs = _case("idr", 3, n=5, d_feat=320 - 33)
     meta = fused_mlp._render_meta(plan, x[3], ws, bs, CPU)[2]
+    assert fused_mlp.render_ring_stages(meta) == 5
     assert fused_mlp.render_launch_plan(meta, 5, 132)[2] == 229_440

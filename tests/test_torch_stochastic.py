@@ -47,7 +47,7 @@ def test_render_jitter_is_uniform_per_ray():
     nets = jax_nets()
     rcfg = tr.RendererConfig(n_samples=16, n_importance=0, n_outside=0, perturb=1.0)
     pnets = dataclasses.replace(port_nets(nets), renderer=rcfg)
-    model = port_model(nets, jax_params(nets))
+    model = port_model(nets, jax_params(nets), torch.bfloat16)
     o, d = (torch.from_numpy(a) for a in rays(N))
     near, far = near_far_from_sphere(o, d)
     outs = []

@@ -134,7 +134,7 @@ def test_one_step_loss_metrics_and_gradients_match_jax(scene, f32_matmuls, fused
     (jb,), (tb,) = _batches(scene, 1)
     loss, metrics, g = _jax_value_and_grad(scene, jcfg, params, jb, step)
 
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, f32_matmuls)
     got = Trainer(tcfg, model, scene["tcams"], None).gradients(port_nets(NETS), tb, step)
     for k, v in metrics.items():
         assert abs(float(got[k]) - v) <= 1e-5 * max(abs(v), 1e-3), (k, float(got[k]), v)
@@ -157,7 +157,7 @@ def test_eikonal_gradient_reaches_the_sdf_through_the_second_order_path(scene, f
         return m["eikonal_loss"], m
 
     want_loss, _, g = _jax_value_and_grad(scene, jcfg, params, jb, 5, eik_only)
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, f32_matmuls)
     loss = _eikonal_loss(model, tcfg, scene, tb)
     sdf_params = list(model.sdf_network_fine.named_parameters())
     # the last bias does not reach the spatial gradient: its gradient is 0
@@ -194,7 +194,7 @@ def test_grad_accum_2_matches_jax(scene, f32_matmuls, fused):
     step_fn = jax.jit(make_train_step(NETS, jcfg, SceneStatic(H=H, W=W), grad_accum=2))
     state, metrics = step_fn(state, jb)
 
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, f32_matmuls)
     got = Trainer(tcfg, model, scene["tcams"], None).step(port_nets(NETS), tb, 0)
     for k, v in metrics.items():
         assert abs(float(got[k]) - float(v)) <= 1e-5 * max(abs(float(v)), 1e-3), k
@@ -207,7 +207,7 @@ def test_adam_and_schedule_match_optax(scene, warm_up_end):
     params = jax_params(NETS)
     opt = make_optimizers(jcfg)[0]
     opt_state = opt.init(params)
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, torch.bfloat16)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     rng = np.random.default_rng(3)
     for step in range(5):
@@ -226,7 +226,8 @@ def test_adam_and_schedule_match_optax(scene, warm_up_end):
     if warm_up_end:
         # the first update under warm-up has lr = 0: Adam's moments move, the
         # parameters do not
-        first = Trainer(tcfg, port_model(NETS, jax_params(NETS)), scene["tcams"], None)
+        first = Trainer(tcfg, port_model(NETS, jax_params(NETS), torch.bfloat16), scene["tcams"],
+                        None)
         before = [p.detach().clone() for p in first.params]
         for p in first.params:
             p.grad = torch.ones_like(p)
@@ -245,7 +246,7 @@ def test_twenty_step_trajectory_matches_jax(scene, f32_matmuls, fused):
         state, m = step_fn(state, b)
         want.append(float(m["loss"]))
 
-    model = port_model(NETS, params)
+    model = port_model(NETS, params, f32_matmuls)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     got = [float(trainer.step(port_nets(NETS), b, i)["loss"]) for i, b in enumerate(tbs)]
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)

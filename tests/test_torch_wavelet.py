@@ -247,6 +247,20 @@ def test_decoder_outputs(name):
     _compare_outputs(got, want)
 
 
+@pytest.mark.parametrize("padding,mode", [("reflection", "reflect"), ("replicate", "replicate")])
+def test_slice_pad_is_torchs_pad(padding, mode):
+    """The decoders' reflect and replicate pads by 1, built from slices (no
+    atomics in the backward on the card): torch's own pad bit for bit
+    forward, and its VJP within the f32 rounding of each sum (an input sums
+    at most four cotangents)."""
+    x = torch.randn(2, 3, 5, 7, generator=torch.Generator().manual_seed(8), requires_grad=True)
+    got, want = tdec._pad1(x, padding), torch.nn.functional.pad(x, (1, 1, 1, 1), mode=mode)
+    assert torch.equal(got, want)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(9))
+    (dg,), (dw,) = torch.autograd.grad(got, x, g), torch.autograd.grad(want, x, g)
+    torch.testing.assert_close(dg, dw, rtol=0, atol=2.0**-20 * float(g.abs().max()))
+
+
 @pytest.mark.parametrize("thresh_ratio", [-1.0, 0.05, 0.2])
 def test_sparse_decoder_masks_and_sparsity(thresh_ratio):
     jd = jdec.SparseDecoderWave(ENC, 0.5)

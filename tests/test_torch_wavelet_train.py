@@ -123,6 +123,31 @@ def test_resize_matches_the_align_corners_gather():
     np.testing.assert_allclose(nhwc(got), want, atol=1e-5)
 
 
+@pytest.mark.parametrize("scale", [1, 2, 3])
+def test_resize_as_two_products_matches_f64_interpolate(scale):
+    """The resize runs as two products with the interpolation weights (a
+    backward without atomics on the card), at the finetune's shapes: a
+    disparity scale of a 400^2 target resized to it. Against torch's own
+    align-corners interpolate in f64, forward and backward (the cotangent's
+    VJP) within 1e-6; interpolate in f32 is 1e-6 to 2e-5 off, its weights
+    being computed in f32."""
+    gen = torch.Generator().manual_seed(7 + scale)
+    x = torch.rand(2, 1, 400 >> scale, 400 >> scale, generator=gen, dtype=torch.float64)
+    g = torch.rand(2, 1, 400, 400, generator=gen, dtype=torch.float64)
+
+    def value_and_vjp(fn, t):
+        t = t.clone().requires_grad_(True)
+        y = fn(t)
+        (gx,) = torch.autograd.grad(y, t, g.to(t.dtype))
+        return y.double(), gx.double()
+
+    want = value_and_vjp(lambda t: torch.nn.functional.interpolate(
+        t, (400, 400), mode="bilinear", align_corners=True), x)
+    got = value_and_vjp(lambda t: ttl.resize_bilinear_align_corners(t, 400, 400), x.float())
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6
+    assert float((got[1] - want[1]).abs().max()) <= 1e-6 * float(want[1].abs().max())
+
+
 @pytest.mark.parametrize("epochs,warmup", [(100, 0), (3, 0), (20, 4), (1, 0)])
 def test_cosine_epoch_lr(epochs, warmup):
     want = jtl.cosine_epoch_lr(1e-4, epochs, warmup=warmup)

@@ -199,7 +199,8 @@ def _renders(nets, dbc, policy):
                 if v is not None}
     finally:
         precision.set_fused_mlp(False)
-    return _port_render_np(nets, port_model(nets, params), o, d, dbc), want, params
+    mm = torch.float32 if policy == "f32" else torch.bfloat16
+    return _port_render_np(nets, port_model(nets, params, mm), o, d, dbc), want, params
 
 
 def _port_render_np(nets, model, o, d, dbc):
@@ -231,7 +232,7 @@ def test_wdepth_render_matches_jax(request, policy, dbc):
 def test_render_without_depth_head_has_no_render_feats():
     nets = jax_nets(perturb=0.0)
     o, d = rays(8)
-    out = _port_render_np(nets, port_model(nets, jax_params(nets)), o, d, False)
+    out = _port_render_np(nets, port_model(nets, jax_params(nets), torch.bfloat16), o, d, False)
     assert "render_feats" not in out
 
 
@@ -259,7 +260,7 @@ def test_wdepth_step_matches_jax(scene, f32_matmuls, fused, step):
     params = jax_params(STEP_NETS)
     (jb,), (tb,) = _batches(scene, 1)
     loss, metrics, g = _jax_step(scene, params, jb, step)
-    model = port_model(STEP_NETS, params)
+    model = port_model(STEP_NETS, params, f32_matmuls)
     got = Trainer(scene["tcfg"], model, scene["tcams"], None).gradients(
         port_nets(STEP_NETS), tb, step)
     assert {"depth_loss", "psnr_dfeat"} <= set(got) and set(got) == set(metrics)
@@ -290,7 +291,7 @@ def test_wdepth_twenty_step_trajectory_matches_jax(scene, f32_matmuls, fused):
     for b in jbs:
         state, m = step_fn(state, b)
         want.append((float(m["loss"]), float(m["depth_loss"])))
-    trainer = Trainer(tcfg, port_model(STEP_NETS, params), scene["tcams"], None)
+    trainer = Trainer(tcfg, port_model(STEP_NETS, params, f32_matmuls), scene["tcams"], None)
     got = []
     for i, b in enumerate(tbs):
         m = trainer.step(port_nets(STEP_NETS), b, i)
@@ -308,7 +309,7 @@ def test_wdepth_checkpoint_reads_into_jax_and_renders_the_same(scene, tmp_path, 
     from vdnerf_tpu.io.checkpoints import import_torch_checkpoint
     from vdnerf_tpu_torch.io.checkpoints import from_jax_params, save_training_checkpoint
 
-    model = port_model(STEP_NETS, jax_params(STEP_NETS))
+    model = port_model(STEP_NETS, jax_params(STEP_NETS), f32_matmuls)
     tcfg = dataclasses.replace(scene["tcfg"], depth_start_iter=0)
     trainer = Trainer(tcfg, model, scene["tcams"], None)
     _, tbs = _batches(scene, 3, seed=6)

@@ -90,10 +90,10 @@ def run(fn: str, world_size: int = 2, timeout: float = 300.0, device: str = "cpu
 # ---------------------------------------------------------------------------
 
 
-def _model(nets, state: dict, device):
+def _model(nets, state: dict, device, mlp_dtype):
     from vdnerf_tpu_torch.ops.renderer import NeuSModel
 
-    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0))
+    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(0), mlp_dtype=mlp_dtype)
     model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
     return model.to(device)
 
@@ -116,16 +116,15 @@ def step_cases(world, cases: list[dict], f32: bool = True, device: str = "cpu") 
     the port's ``nets``, a ``state`` dict of numpy arrays, the ``tcfg``, the
     ``cams`` spec, the full ``batch`` and the ``step``. ``f32``: the fused
     MLPs' operands in f32 (the plain versions, as the CPU parity tests run
-    them)."""
-    from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
+    them), else in bf16."""
+    from vdnerf_tpu_torch.ops.kernels import build
     from vdnerf_tpu_torch.parallel import shard_batch
     from vdnerf_tpu_torch.train.step import Trainer
 
-    if f32:
-        fused_mlp._MM_DTYPE = torch.float32
     out = []
     for case in cases:
-        model = _model(case["nets"], case["state"], device)
+        model = _model(case["nets"], case["state"], device,
+                       torch.float32 if f32 else torch.bfloat16)
         cams = _cams(case["cams"], device)
         tcfg = case["tcfg"]
         build.reset_launches()

@@ -50,8 +50,11 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def port_model(nets: jr.NeuSNetworks, params) -> tr.NeuSModel:
-    model = tr.NeuSModel(port_nets(nets), 0.3, torch.Generator().manual_seed(0))
+def port_model(nets: jr.NeuSNetworks, params, mlp_dtype) -> tr.NeuSModel:
+    """The port's model holding JAX ``params``; ``mlp_dtype``: K2-K5's operand
+    mode (``torch.bfloat16``, JAX's fused path, or ``torch.float32``)."""
+    model = tr.NeuSModel(port_nets(nets), 0.3, torch.Generator().manual_seed(0),
+                         mlp_dtype=mlp_dtype)
     model.load_state_dict(from_jax_params(to_numpy(params)))
     return model
 
@@ -80,15 +83,15 @@ def one_torch_thread():
 
 @pytest.fixture
 def f32_matmuls(monkeypatch):
-    """Both sides' fused-MLP matmul operands in f32 instead of bf16."""
+    """Both sides' fused-MLP matmul operands in f32 instead of bf16: JAX's
+    Pallas kernels patched, and the port's operand mode, ``torch.float32``,
+    returned for the test to pass to the port."""
     import jax.numpy as jnp
 
     from vdnerf_tpu.ops.pallas import fused_mlp as jax_fused
-    from vdnerf_tpu_torch.ops.kernels import fused_mlp as port_fused
 
     monkeypatch.setattr(jax_fused, "_BF16", jnp.float32)
-    monkeypatch.setattr(port_fused, "_MM_DTYPE", torch.float32)
-    yield
+    return torch.float32
 
 
 # --- the wavelet monodepth side-car -----------------------------------------

@@ -26,6 +26,11 @@ caller's ``device="cpu"``) for the length of the run, and rank r trains on
 device and refuse ``WORLD_SIZE`` > 1, as the JAX package serves on one.
 ``VDNERF_DEBUG_NANS=1`` runs the mode under autograd's anomaly detection
 with its NaN check (``utils/debug.py``).
+
+Precision, as the JAX CLI's: ``VDNERF_BF16=1`` (or ``train.bf16`` for
+``--mode train``) runs the SDF block in bf16; K2-K5 run f32 operands under
+the f32 policy (JAX's default), bf16 operands under the bf16 policy or with
+``VDNERF_FUSED=1`` (the runner reads both, ``models/precision.py``).
 """
 
 from __future__ import annotations

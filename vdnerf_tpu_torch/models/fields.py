@@ -230,11 +230,13 @@ class SDFNetwork(nn.Module):
 
 class RenderingNetwork(nn.Module):
     """IDR head over [pts, embedded view dirs, normals, features]: the colour
-    head, and the wdepth confs' depth-feature head (96 outputs)."""
+    head, and the wdepth confs' depth-feature head (96 outputs). ``mm_dtype``:
+    K2/K3's operand mode (``models/precision.py`` ``mlp_operand_dtype``)."""
 
-    def __init__(self, cfg: RenderConfig, generator: torch.Generator):
+    def __init__(self, cfg: RenderConfig, generator: torch.Generator, mm_dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
+        self.mm_dtype = mm_dtype
         dims = cfg.dims
         self.n_linear = len(dims) - 1
         for l in range(self.n_linear):
@@ -248,17 +250,20 @@ class RenderingNetwork(nn.Module):
         """-> [N, d_out] f32, through K2 (its plain version on the CPU)."""
         ws, bs = self.weights()
         plan = (self.cfg.mode, self.cfg.multires_view, self.cfg.squeeze_out)
-        return fused_mlp.render_net(plan, points, normals, view_dirs, feature_vectors, ws, bs)
+        return fused_mlp.render_net(plan, points, normals, view_dirs, feature_vectors, ws, bs,
+                                    self.mm_dtype)
 
 
 class NeRF(nn.Module):
-    """Background NeRF over inverted-sphere coordinates."""
+    """Background NeRF over inverted-sphere coordinates; ``mm_dtype`` as
+    :class:`RenderingNetwork`'s (K4/K5)."""
 
-    def __init__(self, cfg: NeRFConfig, generator: torch.Generator):
+    def __init__(self, cfg: NeRFConfig, generator: torch.Generator, mm_dtype: torch.dtype):
         super().__init__()
         if not cfg.use_viewdirs:
             raise NotImplementedError("the reference NeRF asserts use_viewdirs=True")
         self.cfg = cfg
+        self.mm_dtype = mm_dtype
         W = cfg.W
         pts = [make_linear(cfg.input_ch, W, False, generator)]
         for i in range(cfg.D - 1):
@@ -285,7 +290,7 @@ class NeRF(nn.Module):
         return fused_mlp.nerf(
             plan, input_pts, input_views,
             [m.weight.t() for m in self.pts_linears], [m.bias for m in self.pts_linears],
-            [m.weight.t() for m in heads], [m.bias for m in heads],
+            [m.weight.t() for m in heads], [m.bias for m in heads], self.mm_dtype,
         )
 
 

@@ -1,4 +1,5 @@
-"""Matmul precision policy of the SDF value+gradient+feature block.
+"""Matmul precision policy of the SDF value+gradient+feature block, and the
+operand mode of K2-K5.
 
 Counterpart of ``vdnerf_tpu/models/precision.py``. The policy is the matmul
 dtype: ``None`` (full f32) or ``torch.bfloat16``. Under bf16 each linear of
@@ -20,10 +21,20 @@ under either policy (the JAX package runs them through ``linear`` and so in
 bf16 under the policy): their sample positions are not differentiated, and
 f32 is the more accurate of the two.
 
-The JAX module's ``VDNERF_FUSED`` / ``set_fused_mlp`` switch has no
-counterpart: on the card the port always runs the colour head, the depth
-head and the background NeRF through K2-K5, whose matmul operands are bf16
-with f32 accumulation under either policy.
+The colour head, the depth head and the background NeRF run through K2-K5
+in an operand mode (:func:`mlp_operand_dtype`), as the JAX package runs them
+through ``linear`` or, with ``VDNERF_FUSED`` (``set_fused_mlp``), through
+its Pallas kernels:
+
+- f32 policy, ``VDNERF_FUSED`` unset (JAX's default, and every shipped
+  conf's): f32 operands, the split-operand mode of K2-K5 on the card;
+- f32 policy, ``VDNERF_FUSED=1``: bf16 operands with f32 accumulation, as the
+  Pallas kernels' ``_mm``;
+- bf16 policy: bf16 operands (JAX casts every ``linear`` to bf16 there).
+
+The mode is a value too: :class:`~vdnerf_tpu_torch.ops.renderer.NeuSModel`
+takes it (``mlp_dtype``) and hands it to those three networks. The entry
+points read ``VDNERF_FUSED`` once (:func:`env_fused`), beside ``VDNERF_BF16``.
 """
 
 from __future__ import annotations
@@ -41,3 +52,16 @@ def matmul_dtype(bf16: bool) -> torch.dtype | None:
 def env_matmul_dtype() -> torch.dtype | None:
     """The policy ``VDNERF_BF16`` asks for (``1``/``true``/``True``)."""
     return matmul_dtype(os.environ.get("VDNERF_BF16", "") in ("1", "true", "True"))
+
+
+def env_fused() -> bool:
+    """Whether ``VDNERF_FUSED`` asks for JAX's fused path
+    (``1``/``true``/``True``)."""
+    return os.environ.get("VDNERF_FUSED", "") in ("1", "true", "True")
+
+
+def mlp_operand_dtype(policy: torch.dtype | None, fused: bool) -> torch.dtype:
+    """K2-K5's operand mode under the SDF policy ``policy`` (None: f32) and
+    ``VDNERF_FUSED`` (``fused``): ``torch.float32`` under the f32 policy
+    without it, else ``torch.bfloat16``."""
+    return torch.bfloat16 if policy is not None or fused else torch.float32

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = {"sdf_fwd": 0, "render_fwd": 0, "nerf_fwd": 0, "render_bwd": 0, "nerf_bwd": 0,
-            "dw_contract": 0}
+            "dw_contract": 0, "render_fwd_f32": 0, "nerf_fwd_f32": 0, "render_bwd_f32": 0,
+            "nerf_bwd_f32": 0, "dw_contract_f32": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,11 +46,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "sdf_fwd_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_float, _P],
-    "render_fwd_launch": [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _P],
+    "render_fwd_launch": [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _I, _P],
     "nerf_fwd_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I, _P],
     "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7,
     "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 4 + [_I] + [_P] * 4,
     "dw_finish_launch": [_P, _I] + [_P] * 4 + [_I, _I] + [_P] * 3,
+    "split_mm_launch": [_P, _I, _I, _I, _I, _P],
+    "split_embed_launch": [_P, ctypes.c_longlong, _I, _I, _I, _P, ctypes.c_longlong, _I, _P],
+    "split_embed_vjp_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "split_colsum_launch": [_P, _I, _I, _I, _I, _P, _P],
+    "split_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
 }
 
 

@@ -5,7 +5,11 @@
 // _render_kernel_fwd; backward, _render_kernel_bwd) and ::nerf_fused
 // (forward, _nerf_kernel_fwd; backward, _nerf_kernel_bwd).
 //
-// Numerics follow the Pallas kernels' _mm/_mm_dx/_mm_dw: every matmul
+// Two operand modes. The bf16 mode (JAX's fused path, these kernels' tiles)
+// and, at the end of this file, the split-operand f32 mode (JAX's default
+// f32 `linear`s: 3xTF32 products, one launch a layer).
+//
+// Numerics of the bf16 mode follow the Pallas kernels' _mm/_mm_dx/_mm_dw: every matmul
 // operand is rounded to bf16 and products accumulate in f32; bias,
 // activations, the heads' outputs, deltas before rounding, db and the input
 // cotangents are f32. Because every consumer of an activation is a matmul,
@@ -275,10 +279,12 @@ struct Ring {
 // nerf_launch_plan); the 128 accumulator registers a thread of a 128-row
 // tile holds leave ptxas too few to keep a slab's wgmma in flight (it
 // serialises them), so the rings of K2 and K4 are synchronous. K2's has five
-// stages (its CTA keeps a second activation tile) and a named barrier (its
-// CTA has a third warpgroup that does not run the products)
+// stages or three, as many as its second activation tile leaves room for (a
+// launch argument: five for 304 padded inputs, three for 400), and a named
+// barrier (its CTA has a third warpgroup that does not run the products)
 using K3Ring = Ring<3, false, false>;  // two CTAs per SM
-using K2Ring = Ring<5, false, true, true>;
+template <int ST>
+using K2Ring = Ring<ST, false, true, true>;  // ST: fused_mlp.render_launch_plan's stages
 using K4Ring = Ring<6, false, true>;
 using K5Ring = Ring<6, true, true>;
 static_assert(K4Ring::kStages == K5Ring::kStages, "nerf_launch_plan sizes one ring for both");
@@ -833,7 +839,9 @@ render_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
 // passes on the hidden tile H. Two mbarriers hand X over: `full` (the
 // producer's 128 threads arrive after their writes) and `empty` (the 256
 // product threads arrive once layer 0 has read it). 220 KB of shared memory:
-// a 5-stage ring (16 KB a stage), X [128, 304] and H [128, 256] in bf16.
+// a 5-stage ring (16 KB a stage), X [128, 304] and H [128, 256] in bf16;
+// the colour head under depth_before_color (X [128, 400]) runs a 3-stage ring
+// in 217,136 bytes.
 
 constexpr int kK2Threads = kThreads + 128;  // two product warpgroups, one producer
 
@@ -930,6 +938,7 @@ struct K2Input {
 };
 static_assert(3 * K2Input::kR % K2Input::kT == 0, "the small columns split evenly");
 
+template <int ST>
 __global__ void __launch_bounds__(kK2Threads, 1)
 render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                   const float* __restrict__ dirs, const float* __restrict__ feat,
@@ -938,7 +947,7 @@ render_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
   constexpr int NCH = 4;
   constexpr int R = TileMap<NCH>::kRows;
   static_assert(R == K2Input::kR, "one input tile per product tile");
-  using RG = K2Ring;
+  using RG = K2Ring<ST>;
   const int L = p.n_layers;
   const int ldx = p.L[0].Kp;
   int ldh = 0;
@@ -1690,24 +1699,400 @@ int nerf_plan(Plan* p, const long long* sched) {
   return 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// The split-operand f32 mode of K2-K5 and of the dW contraction
+// ---------------------------------------------------------------------------
+//
+// JAX's default f32 policy runs the colour head, the depth head and the
+// background NeRF through f32 `linear`s; the kernels above round every
+// operand to bf16. The split mode keeps f32 accuracy on the tensor cores by
+// 3xTF32, as K1 does (sdf_fwd.cu): each operand x is split in registers into
+// big = tf32(x) and small = tf32(x - big), and big*big + big*small +
+// small*big accumulate in f32 through mma.sync.m16n8k8.tf32 (the dropped
+// small*small is below 2^-21 of the product). Each 32-deep slab sums from
+// zero in the tensor cores and its sum adds into the running accumulators in
+// f32, since the tensor cores' accumulation truncates.
+//
+// Why not the wgmma tiles above: hi/lo copies of both operands double K2's
+// 128-row tiles to 286,720 bytes, more than a block's 232,448, and at 64 rows
+// leave room for two ring stages only; K4's and K5's carves do the same. So
+// the split mode is one tiled product kernel (split_mm_kernel) whose
+// epilogues carry the layers' bias, relu, sigmoid, the relu masks of the
+// backward and the output's delta, launched once per layer (and once for
+// every layer's dW), with the activations and deltas in f32 in global memory
+// between the launches. The wrapper (fused_mlp._SplitOps) lists the
+// launches. A layer's activations are 1 KB a row against 0.5-1.5 MFLOP of
+// split products a row, so the products still bound it: 3x a layer's
+// operations at the TF32 peak (495 TFLOP/s) against the bytes at 3.35 TB/s.
+//
+// split_mm_kernel: C = op(A) op(B) over a group of problems (one launch:
+// every dW of a backward, or one layer's product), A [M, K] row-major (TA:
+// stored [K, M]), B [K, N] (TB: stored [N, K]); tiles of 64 x 128 outputs,
+// 8 warps of 32 x 32, K in 32-deep slabs through a 3-stage cp.async ring
+// with zero fill past the problem; blockIdx.y splits K into ranges of
+// k_per_split for the dW contraction, each split writing its own partial at
+// C + split * c_split (summed in split order by reduce_dw_kernel). Shared
+// strides keep the fragment loads free of bank conflicts: 36 words a row
+// where k runs along the row, 72 or 136 where m or n does. No atomics: two
+// launches give the same bits.
+
+constexpr int kSmM = 64, kSmN = 128, kSmK = 32, kSmStages = 3, kSmThreads = 256;
+constexpr int kSmMaxProbs = 16;
+
+enum SplitEpi { kEpiNone = 0, kEpiRelu = 1, kEpiSigmoid = 2, kEpiMask = 3, kEpiDSigmoid = 4,
+                kEpiDRelu = 5 };
+
+// one product: epilogue `epi` on z = acc (+ bias[col]); aux: the relu mask's
+// source (kEpiMask: columns < aux_n zeroed where aux <= 0) or the output's
+// cotangent (kEpiDSigmoid / kEpiDRelu: columns < aux_n, zero past them).
+// Columns < n_store go to C, the next n_store2 to C2 (from its column 0).
+struct SplitProb {
+  const float* A;
+  const float* B;
+  float* C;
+  float* C2;
+  const float* bias;
+  const float* aux;
+  long long lda, ldb, ldc, ldc2, ldaux, c_split;
+  int M, N, K, k_per_split, epi, aux_n, n_store, n_store2;
+};
+
+struct SplitProbs {
+  int n;
+  int tile0[kSmMaxProbs + 1];
+  SplitProb q[kSmMaxProbs];
+};
+
+template <bool TA, bool TB>
+struct SmLayout {
+  static constexpr int kLdA = TA ? kSmM + 8 : kSmK + 4;   // As[k][m] or As[m][k]
+  static constexpr int kLdB = TB ? kSmK + 4 : kSmN + 8;   // Bs[n][k] or Bs[k][n]
+  static constexpr int kA = TA ? kSmK * kLdA : kSmM * kLdA;
+  static constexpr int kB = TB ? kSmN * kLdB : kSmK * kLdB;
+  static constexpr int kStage = kA + kB;  // floats
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// slab [k0, k0 + 32) of both operands into one stage, zero past M, N, k_end
+template <bool TA, bool TB>
+__device__ __forceinline__ void split_mm_load(const SplitProb& q, int m0, int n0, int k0,
+                                              int k_end, float* As, float* Bs) {
+  using Lay = SmLayout<TA, TB>;
+  // A: 512 chunks of 4 floats
+  for (int idx = threadIdx.x; idx < kSmM * kSmK / 4; idx += kSmThreads) {
+    int r, c, gm, gk;
+    if (TA) {  // 32 k-rows of 64 m
+      r = idx / (kSmM / 4); c = (idx % (kSmM / 4)) * 4; gk = k0 + r; gm = m0 + c;
+    } else {   // 64 m-rows of 32 k
+      r = idx / (kSmK / 4); c = (idx % (kSmK / 4)) * 4; gm = m0 + r; gk = k0 + c;
+    }
+    const bool ok = gm < q.M && gk < k_end;
+    const float* src = TA ? q.A + gk * q.lda + gm : q.A + gm * q.lda + gk;
+    cp_async16_zfill(As + r * Lay::kLdA + c, ok ? src : q.A, ok ? 16 : 0);
+  }
+  // B: 1024 chunks of 4 floats
+  for (int idx = threadIdx.x; idx < kSmN * kSmK / 4; idx += kSmThreads) {
+    int r, c, gn, gk;
+    if (TB) {  // 128 n-rows of 32 k
+      r = idx / (kSmK / 4); c = (idx % (kSmK / 4)) * 4; gn = n0 + r; gk = k0 + c;
+    } else {   // 32 k-rows of 128 n
+      r = idx / (kSmN / 4); c = (idx % (kSmN / 4)) * 4; gk = k0 + r; gn = n0 + c;
+    }
+    const bool ok = gn < q.N && gk < k_end;
+    const float* src = TB ? q.B + gn * q.ldb + gk : q.B + gk * q.ldb + gn;
+    cp_async16_zfill(Bs + r * Lay::kLdB + c, ok ? src : q.B, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ float split_epilogue(const SplitProb& q, int m, int col, float v) {
+  const float z = q.bias != nullptr ? v + q.bias[col] : v;
+  switch (q.epi) {
+    case kEpiRelu:
+      return fmaxf(z, 0.0f);
+    case kEpiSigmoid:
+      return 1.0f / (1.0f + expf(-z));
+    case kEpiMask:
+      return col < q.aux_n && !(q.aux[m * q.ldaux + col] > 0.0f) ? 0.0f : z;
+    case kEpiDSigmoid: {
+      const float y = 1.0f / (1.0f + expf(-z));
+      const float gv = col < q.aux_n ? q.aux[m * q.ldaux + col] : 0.0f;
+      return gv * y * (1.0f - y);
+    }
+    case kEpiDRelu: {
+      const float gv = col < q.aux_n ? q.aux[m * q.ldaux + col] : 0.0f;
+      return gv * (z > 0.0f ? 1.0f : 0.0f);
+    }
+    default:
+      return z;
+  }
+}
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kSmThreads, 2) split_mm_kernel(SplitProbs P) {
+  using Lay = SmLayout<TA, TB>;
+  extern __shared__ __align__(128) float smf[];  // [stages][A | B]
+  int t = blockIdx.x;
+  int pi = 0;
+  while (t >= P.tile0[pi + 1]) ++pi;
+  t -= P.tile0[pi];
+  const SplitProb& q = P.q[pi];
+  const int tiles_n = (q.N + kSmN - 1) / kSmN;
+  const int m0 = (t / tiles_n) * kSmM;
+  const int n0 = (t % tiles_n) * kSmN;
+  const int k_begin = blockIdx.y * q.k_per_split;
+  const int k_end = min(q.K, k_begin + q.k_per_split);
+  const int n_slabs = k_end > k_begin ? (k_end - k_begin + kSmK - 1) / kSmK : 0;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 2;  // rows wm*32 .. +31 of the tile
+  const int wn = warp & 3;   // columns wn*32 .. +31
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int i = 0; i < kSmStages - 1; ++i) {
+    if (i < n_slabs)
+      split_mm_load<TA, TB>(q, m0, n0, k_begin + i * kSmK, k_end, smf + i * Lay::kStage,
+                            smf + i * Lay::kStage + Lay::kA);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<kSmStages - 2>();
+    __syncthreads();  // slab s landed; every warp is done with slab s - 1
+    const int nxt = s + kSmStages - 1;
+    if (nxt < n_slabs) {
+      float* st = smf + (nxt % kSmStages) * Lay::kStage;
+      split_mm_load<TA, TB>(q, m0, n0, k_begin + nxt * kSmK, k_end, st, st + Lay::kA);
+    }
+    cp_async_commit();
+    const float* As = smf + (s % kSmStages) * Lay::kStage;
+    const float* Bs = As + Lay::kA;
+    float part[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kSmK; kk += 8) {
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn * 32 + j * 8 + g;
+        const float b0 = TB ? Bs[n * Lay::kLdB + kk + tq] : Bs[(kk + tq) * Lay::kLdB + n];
+        const float b1 = TB ? Bs[n * Lay::kLdB + kk + tq + 4] : Bs[(kk + tq + 4) * Lay::kLdB + n];
+        split_tf32(b0, bb[j][0], bs[j][0]);
+        split_tf32(b1, bb[j][1], bs[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = wm * 32 + i * 16 + g;
+        float a[4];
+        if (TA) {
+          a[0] = As[(kk + tq) * Lay::kLdA + m];
+          a[1] = As[(kk + tq) * Lay::kLdA + m + 8];
+          a[2] = As[(kk + tq + 4) * Lay::kLdA + m];
+          a[3] = As[(kk + tq + 4) * Lay::kLdA + m + 8];
+        } else {
+          a[0] = As[m * Lay::kLdA + kk + tq];
+          a[1] = As[(m + 8) * Lay::kLdA + kk + tq];
+          a[2] = As[m * Lay::kLdA + kk + tq + 4];
+          a[3] = As[(m + 8) * Lay::kLdA + kk + tq + 4];
+        }
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(part[i][j], as, bb[j][0], bb[j][1]);
+          mma_tf32(part[i][j], ab, bs[j][0], bs[j][1]);
+          mma_tf32(part[i][j], ab, bb[j][0], bb[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+  cp_async_wait<0>();
+
+  float* C = q.C + (size_t)blockIdx.y * q.c_split;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 32 + i * 16 + g + (e >> 1) * 8;
+        const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+        if (m >= q.M || col >= q.N) continue;
+        const float v = split_epilogue(q, m, col, acc[i][j][e]);
+        if (col < q.n_store)
+          C[(size_t)m * q.ldc + col] = v;
+        else if (col - q.n_store < q.n_store2)
+          q.C2[(size_t)m * q.ldc2 + col - q.n_store] = v;
+      }
+}
+
+// dst[r, c] for c < width: embedding column c of src row r (d values, `freqs`
+// bands; freqs 0 copies the row), zero from the embedding's width on
+__global__ void split_embed_kernel(const float* __restrict__ src, long long lds, int d,
+                                   int freqs, int n, float* __restrict__ dst, long long ldd,
+                                   int width) {
+  const int e = freqs > 0 ? d * (1 + 2 * freqs) : d;
+  const long long total = (long long)n * width;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / width);
+    const int c = (int)(i % width);
+    dst[r * ldd + c] = c < e ? embed_at(src + r * lds, d, c) : 0.0f;
+  }
+}
+
+// out[r, j] = the embedding's VJP for input dim j of x (d values, `freqs`
+// bands) of the cotangent sum over the sources (each [n, e] at src[k] with
+// stride ld[k]), summed in source order
+struct SplitVjpSrc {
+  int n_src;
+  const float* src[4];
+  long long ld[4];
+};
+
+__global__ void split_embed_vjp_kernel(SplitVjpSrc S, const float* __restrict__ x, int d,
+                                       int freqs, int n, float* __restrict__ out) {
+  const long long total = (long long)n * d;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / d);
+    const int j = (int)(i % d);
+    auto demb = [&](int c) {
+      float v = S.src[0][r * S.ld[0] + c];
+      for (int k = 1; k < S.n_src; ++k) v += S.src[k][r * S.ld[k] + c];
+      return v;
+    };
+    out[i] = freqs > 0 ? embed_vjp(demb, x + (long long)r * d, d, j, freqs) : demb(j);
+  }
+}
+
+// dbpart[split, boff_l + j] = sum of column j of D_l over the split's rows,
+// in row order; one thread per packed column
+struct SplitColsum {
+  int n_layers, n_rows, rows_per_split, total_b;
+  const float* D[kMaxLayers];
+  long long ld[kMaxLayers];
+  int boff[kMaxLayers + 1];
+};
+
+__global__ void split_colsum_kernel(SplitColsum S, float* __restrict__ dbpart) {
+  const int jj = blockIdx.x * blockDim.x + threadIdx.x;
+  if (jj >= S.total_b) return;
+  int l = 0;
+  while (jj >= S.boff[l + 1]) ++l;
+  const int j = jj - S.boff[l];
+  const int r0 = blockIdx.y * S.rows_per_split;
+  const int r1 = min(S.n_rows, r0 + S.rows_per_split);
+  float s = 0.0f;
+  for (int r = r0; r < r1; ++r) s += S.D[l][r * S.ld[l] + j];
+  dbpart[(size_t)blockIdx.y * S.total_b + jj] = s;
+}
+
+// the int64 records of split_mm_launch: 20 values a problem
+constexpr int kSplitProbWords = 20;
+
+int read_split_probs(const long long* w, int n, int ta, int tb, SplitProbs* P, int* splits_out,
+                     int splits) {
+  if (n < 1 || n > kSmMaxProbs) return 1;
+  P->n = n;
+  P->tile0[0] = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* v = w + kSplitProbWords * i;
+    SplitProb& q = P->q[i];
+    q.A = reinterpret_cast<const float*>(v[0]);
+    q.lda = v[1];
+    q.B = reinterpret_cast<const float*>(v[2]);
+    q.ldb = v[3];
+    q.C = reinterpret_cast<float*>(v[4]);
+    q.ldc = v[5];
+    q.M = (int)v[6];
+    q.N = (int)v[7];
+    q.K = (int)v[8];
+    q.bias = reinterpret_cast<const float*>(v[9]);
+    q.epi = (int)v[10];
+    q.aux = reinterpret_cast<const float*>(v[11]);
+    q.ldaux = v[12];
+    q.aux_n = (int)v[13];
+    q.n_store = (int)v[14];
+    q.C2 = reinterpret_cast<float*>(v[15]);
+    q.ldc2 = v[16];
+    q.n_store2 = (int)v[17];
+    q.c_split = v[18];
+    q.k_per_split = (int)v[19];
+    // 16-byte copies: operand strides and bases aligned to 4 floats, and
+    // the dimension each operand's rows run along a multiple of 4
+    const bool ok = q.A && q.B && q.C && q.M >= 0 && q.N > 0 && q.K > 0 && q.lda % 4 == 0 &&
+                    q.ldb % 4 == 0 && (v[0] & 15) == 0 && (v[2] & 15) == 0 &&
+                    (ta ? q.M % 4 == 0 : q.K % 4 == 0) && (tb ? q.K % 4 == 0 : q.N % 4 == 0) &&
+                    q.epi >= 0 && q.epi <= 5 &&
+                    (q.epi < kEpiMask || q.aux) && (q.n_store2 == 0 || q.C2) &&
+                    q.k_per_split > 0 && q.k_per_split % kSmK == 0 &&
+                    (long long)splits * q.k_per_split >= q.K && (splits == 1 || q.c_split > 0);
+    if (!ok) return 1;
+    P->tile0[i + 1] = P->tile0[i] + ((q.M + kSmM - 1) / kSmM) * ((q.N + kSmN - 1) / kSmN);
+  }
+  *splits_out = splits;
+  return 0;
+}
+
 }  // namespace
 
 // meta packed by fused_mlp._render_meta, img the ring image of its weights
 // and sched K2's passes (fused_mlp._render_pack); ctas (persistent, each
 // running every ctas-th 128-row tile) and smem, the dynamic shared memory:
-// fused_mlp.render_launch_plan
+// fused_mlp.render_launch_plan, which also gives the ring's stages (5 or 3)
 extern "C" int render_fwd_launch(const float* pts, const float* nrm, const float* dirs,
                                  const float* feat, float* out, int n, const void* img,
                                  const float* B, const long long* meta, const long long* sched,
-                                 int ctas, int smem, void* stream) {
+                                 int ctas, int smem, int stages, void* stream) {
   Plan p;
   if (read_plan(meta, &p) || render_plan(&p, sched) || smem <= 0 || smem % 16)
     return (int)cudaErrorInvalidValue;
-  int err = prepare(render_fwd_kernel, smem);
+  void (*kernel)(const float*, const float*, const float*, const float*, float*, int,
+                 const bf16*, const float*, Plan) = nullptr;
+  switch (stages) {
+    case 5: kernel = render_fwd_kernel<5>; break;
+    case 3: kernel = render_fwd_kernel<3>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int err = prepare(kernel, smem);
   if (err) return err;
   if (n == 0) return 0;
   if (ctas < 1 || ctas > (n + 127) / 128) return (int)cudaErrorInvalidValue;
-  render_fwd_kernel<<<ctas, kK2Threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<ctas, kK2Threads, smem, (cudaStream_t)stream>>>(
       pts, nrm, dirs, feat, out, n, reinterpret_cast<const bf16*>(img), B, p);
   return (int)cudaGetLastError();
 }
@@ -1819,5 +2204,106 @@ extern "C" int dw_finish_launch(const long long* meta, int n, const void* acts,
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_db_kernel<<<(p.total_b + 7) / 8, 256, 0, st>>>(dbpart, n_tiles, p.total_b, dB);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the split-operand f32 mode (fused_mlp._SplitOps lists the launches)
+// ---------------------------------------------------------------------------
+
+// probs: n_probs records of 20 int64 (fused_mlp._SplitOps.mm): A, lda, B,
+// ldb, C, ldc, M, N, K, bias, epi, aux, ldaux, aux_n, n_store, C2, ldc2,
+// n_store2, c_split, k_per_split; ta / tb: A stored [K, M] / B stored [N, K]
+extern "C" int split_mm_launch(const long long* probs, int n_probs, int ta, int tb, int splits,
+                               void* stream) {
+  SplitProbs P;
+  int sp = 1;
+  if (splits < 1 || read_split_probs(probs, n_probs, ta, tb, &P, &sp, splits))
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(SplitProbs) = nullptr;
+  size_t smem = 0;
+  if (!ta && !tb) {
+    kernel = split_mm_kernel<false, false>;
+    smem = sizeof(float) * kSmStages * SmLayout<false, false>::kStage;
+  } else if (!ta && tb) {
+    kernel = split_mm_kernel<false, true>;
+    smem = sizeof(float) * kSmStages * SmLayout<false, true>::kStage;
+  } else if (ta && !tb) {
+    kernel = split_mm_kernel<true, false>;
+    smem = sizeof(float) * kSmStages * SmLayout<true, false>::kStage;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  int err = prepare(kernel, smem);
+  if (err) return err;
+  if (P.tile0[P.n] == 0) return 0;
+  kernel<<<dim3(P.tile0[P.n], sp), kSmThreads, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+static int grid_of(long long total) {
+  const long long b = (total + 255) / 256;
+  return (int)(b < 4096 ? (b > 0 ? b : 1) : 4096);
+}
+
+// dst[:, :width] (row stride ldd) <- the embedding of src [n, d] (row stride
+// lds, `freqs` bands; 0 copies), zero past the embedding's width
+extern "C" int split_embed_launch(const float* src, long long lds, int d, int freqs, int n,
+                                  float* dst, long long ldd, int width, void* stream) {
+  const int e = freqs > 0 ? d * (1 + 2 * freqs) : d;
+  if (n < 0 || d < 1 || freqs < 0 || width < e || ldd < width || lds < d)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  split_embed_kernel<<<grid_of((long long)n * width), 256, 0, (cudaStream_t)stream>>>(
+      src, lds, d, freqs, n, dst, ldd, width);
+  return (int)cudaGetLastError();
+}
+
+// out [n, d] <- the embedding's VJP at x [n, d] of the sum of n_src
+// cotangents, srcs = (pointer, row stride) per source
+extern "C" int split_embed_vjp_launch(const long long* srcs, int n_src, const float* x, int d,
+                                      int freqs, int n, float* out, void* stream) {
+  if (n_src < 1 || n_src > 4 || n < 0 || d < 1 || freqs < 0) return (int)cudaErrorInvalidValue;
+  SplitVjpSrc S{};
+  S.n_src = n_src;
+  for (int k = 0; k < n_src; ++k) {
+    S.src[k] = reinterpret_cast<const float*>(srcs[2 * k]);
+    S.ld[k] = srcs[2 * k + 1];
+  }
+  if (n == 0) return 0;
+  split_embed_vjp_kernel<<<grid_of((long long)n * d), 256, 0, (cudaStream_t)stream>>>(
+      S, x, d, freqs, n, out);
+  return (int)cudaGetLastError();
+}
+
+// dbpart [splits, sum N] <- each split's column sums of every layer's delta
+// (layers: pointer, row stride, N per layer), rows [split * rows_per_split,
+// ...) of n_rows
+extern "C" int split_colsum_launch(const long long* layers, int n_layers, int n_rows,
+                                   int rows_per_split, int splits, float* dbpart, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 1 || rows_per_split < 1 || splits < 1 ||
+      (long long)splits * rows_per_split < n_rows)
+    return (int)cudaErrorInvalidValue;
+  SplitColsum S{};
+  S.n_layers = n_layers;
+  S.n_rows = n_rows;
+  S.rows_per_split = rows_per_split;
+  S.boff[0] = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    S.D[l] = reinterpret_cast<const float*>(layers[3 * l]);
+    S.ld[l] = layers[3 * l + 1];
+    S.boff[l + 1] = S.boff[l] + (int)layers[3 * l + 2];
+  }
+  S.total_b = S.boff[n_layers];
+  split_colsum_kernel<<<dim3((S.total_b + 127) / 128, splits), 128, 0, (cudaStream_t)stream>>>(
+      S, dbpart);
+  return (int)cudaGetLastError();
+}
+
+// out [total] <- part [splits, total] summed over splits in split order
+extern "C" int split_reduce_launch(const float* part, int splits, long long total, float* out,
+                                   void* stream) {
+  if (splits < 1 || total < 1) return (int)cudaErrorInvalidValue;
+  reduce_dw_kernel<<<grid_of(total), 256, 0, (cudaStream_t)stream>>>(part, splits, total, out);
   return (int)cudaGetLastError();
 }

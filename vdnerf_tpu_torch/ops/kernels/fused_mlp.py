@@ -4,12 +4,19 @@ Functions that join them.
 
 Replace ``vdnerf_tpu/ops/pallas/fused_mlp.py::render_net_fused`` and
 ``::nerf_fused`` with their custom VJPs. Numerics follow the Pallas kernels'
-``_mm`` / ``_mm_dx`` / ``_mm_dw``: matmul operands rounded to ``_MM_DTYPE``
-(bf16), f32 accumulation, f32 bias/activations/outputs/deltas. The relu masks
-of the backward come from the rounded stored activations, as in the Pallas
-backward. A test may set ``_MM_DTYPE`` to f32 to hold the plain versions to
-the JAX kernels' f32 mode; the CUDA kernels compute in bf16 only and refuse
-any other setting.
+``_mm`` / ``_mm_dx`` / ``_mm_dw`` in one of two operand modes, a value the
+callers pass (``mm``; ``models/precision.py`` derives it from the policy and
+``VDNERF_FUSED``):
+
+- bf16 (JAX's fused path): matmul operands rounded to bf16, f32
+  accumulation, f32 bias/activations/outputs/deltas; the relu masks of the
+  backward come from the rounded stored activations, as in the Pallas
+  backward. K2-K5 and the dW contraction (``csrc/fused_mlp.cu``).
+- f32 (JAX's default path, f32 ``linear``s): operands unrounded. On the card
+  the split-operand mode of the same kernels (3xTF32 products,
+  ``_SplitOps``), never a library product.
+
+Every entry takes the mode; there is no default.
 
 Weight norm stays outside: callers pass effective ``[in, out]`` weights, and
 the backward returns cotangents for those, which autograd chains to
@@ -34,28 +41,34 @@ import torch
 from vdnerf_tpu_torch.models.embedder import embed, freqs
 from vdnerf_tpu_torch.ops.kernels import build
 
-_MM_DTYPE = torch.bfloat16
 _MODES = {"idr": 0, "no_view_dir": 1, "no_normal": 2}
 
 
-def _r(x: torch.Tensor) -> torch.Tensor:
-    """A matmul operand as the kernels see it: rounded to _MM_DTYPE."""
-    return x.to(_MM_DTYPE).float()
+def _mode(mm):
+    """The operand mode a caller asked for, checked."""
+    if mm not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_mlp: operands are bf16 or f32, not {mm}")
+    return mm
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[T, K] @ [K, N] with operands rounded to _MM_DTYPE, f32 accumulation."""
-    return _r(a) @ _r(b)
+def _r(x: torch.Tensor, mm) -> torch.Tensor:
+    """A matmul operand as the kernels see it: rounded to the mode's type."""
+    return x.to(_mode(mm)).float()
 
 
-def _mm_dx(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mm(a: torch.Tensor, b: torch.Tensor, mm) -> torch.Tensor:
+    """[T, K] @ [K, N] with operands rounded to the mode, f32 accumulation."""
+    return _r(a, mm) @ _r(b, mm)
+
+
+def _mm_dx(d: torch.Tensor, w: torch.Tensor, mm) -> torch.Tensor:
     """d @ w^T: [T, N] x [K, N] -> [T, K], operands rounded."""
-    return _r(d) @ _r(w).t()
+    return _r(d, mm) @ _r(w, mm).t()
 
 
-def _mm_dw(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+def _mm_dw(a: torch.Tensor, d: torch.Tensor, mm) -> torch.Tensor:
     """a^T @ d: [T, K] x [T, N] -> [K, N], operands rounded."""
-    return _r(a).t() @ _r(d)
+    return _r(a, mm).t() @ _r(d, mm)
 
 
 def _d_embed(d_emb: torch.Tensor, x: torch.Tensor, multires: int) -> torch.Tensor:
@@ -84,7 +97,7 @@ def _render_concat(pts, emb_view, normals, feat, mode):
 # ---------------------------------------------------------------------------
 
 
-def _render_forward(plan, pts, normals, dirs, feat, ws, bs):
+def _render_forward(plan, pts, normals, dirs, feat, ws, bs, mm):
     """-> (output [N, d_out], each layer's f32 input, emb_view)."""
     mode, multires_view, squeeze_out = plan
     emb_view = embed(dirs, multires_view)
@@ -92,31 +105,32 @@ def _render_forward(plan, pts, normals, dirs, feat, ws, bs):
     acts = []
     for l, (w, b) in enumerate(zip(ws, bs)):
         acts.append(x)
-        x = _mm(x, w) + b
+        x = _mm(x, w, mm) + b
         if l < len(ws) - 1:
             x = torch.relu(x)
     y = torch.sigmoid(x) if squeeze_out else torch.relu(x)
     return y, acts, emb_view
 
 
-def render_net_plain(plan, pts, normals, dirs, feat, ws, bs) -> torch.Tensor:
-    """plan = (mode, multires_view, squeeze_out) -> [N, d_out] f32."""
-    return _render_forward(plan, pts, normals, dirs, feat, ws, bs)[0]
+def render_net_plain(plan, pts, normals, dirs, feat, ws, bs, *, mm) -> torch.Tensor:
+    """plan = (mode, multires_view, squeeze_out) -> [N, d_out] f32; ``mm``:
+    the operand mode (``torch.bfloat16`` or ``torch.float32``)."""
+    return _render_forward(plan, pts, normals, dirs, feat, ws, bs, mm)[0]
 
 
-def render_net_bwd_plain(plan, pts, normals, dirs, feat, ws, bs, g):
+def render_net_bwd_plain(plan, pts, normals, dirs, feat, ws, bs, g, *, mm):
     """Cotangent g [N, d_out] -> (d_pts, d_normals, d_dirs, d_feat, dws, dbs),
     step by step as ``_render_kernel_bwd``."""
     mode, multires_view, squeeze_out = plan
-    y, acts, emb_view = _render_forward(plan, pts, normals, dirs, feat, ws, bs)
+    y, acts, emb_view = _render_forward(plan, pts, normals, dirs, feat, ws, bs, mm)
     d = g * y * (1.0 - y) if squeeze_out else g * (y > 0.0).float()
     dws, dbs = [None] * len(ws), [None] * len(ws)
     for l in range(len(ws) - 1, -1, -1):
-        dws[l] = _mm_dw(acts[l], d)
+        dws[l] = _mm_dw(acts[l], d, mm)
         dbs[l] = d.sum(0)
-        d = _mm_dx(d, ws[l])
+        d = _mm_dx(d, ws[l], mm)
         if l > 0:
-            d = d * (_r(acts[l]) > 0).float()
+            d = d * (_r(acts[l], mm) > 0).float()
     n_emb = emb_view.shape[-1]
     zeros = torch.zeros_like(pts)
     if mode == "idr":
@@ -129,7 +143,7 @@ def render_net_bwd_plain(plan, pts, normals, dirs, feat, ws, bs, g):
     return d_pts, d_nrm, d_dirs, d_feat, dws, dbs
 
 
-def _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
+def _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b, mm):
     """-> (alpha, rgb, dpt | None, residuals of the backward)."""
     multires, multires_view, skips, _, has_dpt = plan
     emb_pts = embed(pts, multires)
@@ -138,55 +152,56 @@ def _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
     acts = []
     for i, (w, b) in enumerate(zip(trunk_w, trunk_b)):
         acts.append(h)
-        h = torch.relu(_mm(h, w) + b)
+        h = torch.relu(_mm(h, w, mm) + b)
         if i in skips:
             h = torch.cat([emb_pts, h], dim=-1)
-    alpha = _mm(h, head_w[0]) + head_b[0]
-    feature = _mm(h, head_w[1]) + head_b[1]
+    alpha = _mm(h, head_w[0], mm) + head_b[0]
+    feature = _mm(h, head_w[1], mm) + head_b[1]
     h2_in = torch.cat([feature, emb_view], dim=-1)
-    h2 = torch.relu(_mm(h2_in, head_w[2]) + head_b[2])
-    rgb = _mm(h2, head_w[3]) + head_b[3]
-    dpt = _mm(h2, head_w[4]) + head_b[4] if has_dpt else None
+    h2 = torch.relu(_mm(h2_in, head_w[2], mm) + head_b[2])
+    rgb = _mm(h2, head_w[3], mm) + head_b[3]
+    dpt = _mm(h2, head_w[4], mm) + head_b[4] if has_dpt else None
     res = {"acts": acts, "h": h, "h2_in": h2_in, "h2": h2, "emb_pts": emb_pts,
            "emb_view": emb_view}
     return alpha, rgb, dpt, res
 
 
-def nerf_plain(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
+def nerf_plain(plan, pts, views, trunk_w, trunk_b, head_w, head_b, *, mm):
     """plan = (multires, multires_view, skips, D, has_dpt); heads ordered
-    alpha, feature, views0, rgb[, dpt] -> (alpha, rgb, dpt | None)."""
-    return _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b)[:3]
+    alpha, feature, views0, rgb[, dpt] -> (alpha, rgb, dpt | None); ``mm``:
+    the operand mode (``torch.bfloat16`` or ``torch.float32``)."""
+    return _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b, mm)[:3]
 
 
 def nerf_bwd_plain(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
-                   g_alpha, g_rgb, g_dpt=None):
+                   g_alpha, g_rgb, g_dpt=None, *, mm):
     """Cotangents of (alpha, rgb[, dpt]) -> (d_pts, d_views, dtw, dtb, dhw,
     dhb), step by step as ``_nerf_kernel_bwd``."""
     multires, multires_view, skips, D, has_dpt = plan
-    _, _, _, res = _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b)
+    _, _, _, res = _nerf_forward(plan, pts, views, trunk_w, trunk_b, head_w, head_b, mm)
     acts, h, h2_in, h2 = res["acts"], res["h"], res["h2_in"], res["h2"]
     n_emb = res["emb_pts"].shape[-1]
     w_dim = head_w[1].shape[1]
     dhw, dhb = [None] * len(head_w), [None] * len(head_w)
 
     def head(idx, a_in, d):
-        dhw[idx] = _mm_dw(a_in, d)
+        dhw[idx] = _mm_dw(a_in, d, mm)
         dhb[idx] = d.sum(0)
 
-    d_h2 = _mm_dx(g_rgb, head_w[3])
+    d_h2 = _mm_dx(g_rgb, head_w[3], mm)
     head(3, h2, g_rgb)
     if has_dpt:
         if g_dpt is None:
             g_dpt = torch.zeros(pts.shape[0], head_w[4].shape[1], device=pts.device)
-        d_h2 = d_h2 + _mm_dx(g_dpt, head_w[4])
+        d_h2 = d_h2 + _mm_dx(g_dpt, head_w[4], mm)
         head(4, h2, g_dpt)
     d_h2 = d_h2 * (h2 > 0).float()
     head(2, h2_in, d_h2)
-    d_h2_in = _mm_dx(d_h2, head_w[2])
+    d_h2_in = _mm_dx(d_h2, head_w[2], mm)
     d_feature, d_emb_view = d_h2_in[:, :w_dim], d_h2_in[:, w_dim:]
     head(0, h, g_alpha)
     head(1, h, d_feature)
-    d_h = _mm_dx(g_alpha, head_w[0]) + _mm_dx(d_feature, head_w[1])
+    d_h = _mm_dx(g_alpha, head_w[0], mm) + _mm_dx(d_feature, head_w[1], mm)
 
     # trunk in reverse, unstitching the skip concats; the relu mask comes
     # from the stored next-layer input (minus the skip prefix)
@@ -199,11 +214,11 @@ def nerf_bwd_plain(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
         if i == D - 1:
             relu_out = h
         else:
-            relu_out = _r(acts[i + 1][:, n_emb:] if i in skips else acts[i + 1])
+            relu_out = _r(acts[i + 1][:, n_emb:] if i in skips else acts[i + 1], mm)
         d_h = d_h * (relu_out > 0).float()
-        dtw[i] = _mm_dw(acts[i], d_h)
+        dtw[i] = _mm_dw(acts[i], d_h, mm)
         dtb[i] = d_h.sum(0)
-        d_h = _mm_dx(d_h, trunk_w[i])
+        d_h = _mm_dx(d_h, trunk_w[i], mm)
     d_emb_pts = d_emb_pts + d_h
     d_pts = _d_embed(d_emb_pts, pts, multires)
     d_views = _d_embed(d_emb_view, views, multires_view)
@@ -255,8 +270,6 @@ def _pack_index(shapes: tuple, device: torch.device):
 
 
 def _check_inputs(name, *tensors):
-    if _MM_DTYPE != torch.bfloat16:
-        raise RuntimeError(f"{name}: the CUDA kernel computes in bf16 only")
     for t in tensors:
         if t.dtype != torch.float32 or t.dim() != 2:
             raise ValueError(f"{name}: inputs must be 2-D f32, got {t.dtype} {tuple(t.shape)}")
@@ -344,9 +357,11 @@ def nerf_grads_from_packed(meta, grads):
 # The weight rings of the 128-row and the NeRF tile kernels (csrc/fused_mlp.cu,
 # K2Ring, K4Ring, K5Ring): stages of one slab each, a slab being _KS reduction
 # rows of a product pass of at most _MAX_OUT output columns, as wgmma reads it
-# from shared memory. K2 keeps one stage fewer for its second input tile.
+# from shared memory. K2's stage count is a launch argument, the most of
+# _K2_RING_STAGES that its two input tiles leave room for: 5 for the 304
+# padded inputs of the colour and depth heads, 3 for depth_before_color's 400.
 _RING_STAGES = 6
-_K2_RING_STAGES = 5
+_K2_RING_STAGES = (5, 3)
 _KS = 32
 _MAX_OUT = 256
 _THREADS = 256
@@ -354,33 +369,55 @@ _THREADS = 256
 _SMEM_MAX = 232_448
 
 
-def render_launch_plan(meta, n: int, sms: int) -> tuple[int, int, int]:
-    """-> (rows per tile, CTAs, dynamic shared-memory bytes) of K2 on ``n``
-    rows of a ``_render_meta`` layer list, on a card of ``sms`` SMs. The CTAs
-    are persistent, one per SM (or per tile, if fewer), CTA i running tiles
-    i, i + CTAs, ...; the bytes are its carve (csrc/fused_mlp.cu,
+def _render_smem(layers, stages: int) -> int:
+    rows = 128
+    ldh = max((Kp for _, _, Kp, _, _, _ in layers[1:]), default=0)
+    smem = 2 * (stages * _KS * _MAX_OUT + rows * (layers[0][2] + ldh))
+    return smem + -(-8 * (stages + 2) // 16) * 16
+
+
+def render_ring_stages(meta) -> int:
+    """K2's ring stages for a ``_render_meta`` layer list in the bf16 mode: the
+    most of ``_K2_RING_STAGES`` whose carve fits (5 for the 304 padded inputs
+    of the colour and depth heads; 3 for the colour head's 400 under
+    ``depth_before_color``, 217,136 bytes); the fewest when none fits, which
+    :func:`render_launch_plan` then refuses."""
+    layers = _layers_of(meta)
+    fits = [st for st in _K2_RING_STAGES if _render_smem(layers, st) <= _SMEM_MAX]
+    return fits[0] if fits else _K2_RING_STAGES[-1]
+
+
+def render_launch_plan(meta, n: int, sms: int, stages: int | None = None) -> tuple[int, int, int]:
+    """-> (rows per tile, CTAs, dynamic shared-memory bytes) of K2 in the bf16
+    mode on ``n`` rows of a ``_render_meta`` layer list, on a card of ``sms``
+    SMs, its ring of ``stages`` stages (None: :func:`render_ring_stages`).
+    The CTAs are persistent, one per SM (or per tile, if fewer), CTA i running
+    tiles i, i + CTAs, ...; the bytes are its carve (csrc/fused_mlp.cu,
     render_fwd_kernel): the ring, then two bf16 tiles in the core layout,
     layer 0's input [rows, Kp0] and the hidden layers' [rows, max Kp of the
     later layers], then an mbarrier per ring stage and the two that hand the
     input tile from the producer warpgroup to the product warpgroups (the
     bytes rounded up to 16). The launcher takes both as given.
 
-    A first layer wider than 320 inputs (padded) does not fit: the colour head
-    under ``depth_before_color`` (289 + the depth head's 96 = 385 inputs at
-    full width) is refused here, before any launch, with a ValueError."""
+    At 5 stages a first layer wider than 320 inputs (padded) does not fit; at
+    3 one wider than 448. The colour head under ``depth_before_color`` (289 +
+    the depth head's 96 = 385 inputs at full width, 400 padded) runs at 3. A
+    plan that does not fit is refused here, before any launch, with a
+    ValueError. (The split f32 mode has no such limit: ``_SplitOps``.)"""
     layers = _layers_of(meta)
-    rows = 128
-    ldh = max((Kp for _, _, Kp, _, _, _ in layers[1:]), default=0)
-    smem = 2 * (_K2_RING_STAGES * _KS * _MAX_OUT + rows * (layers[0][2] + ldh))
-    smem += -(-8 * (_K2_RING_STAGES + 2) // 16) * 16
+    stages = render_ring_stages(meta) if stages is None else stages
+    if stages not in _K2_RING_STAGES:
+        raise ValueError(f"render_fwd: {stages} ring stages; K2 runs {_K2_RING_STAGES}")
+    smem = _render_smem(layers, stages)
     if smem > _SMEM_MAX:
         K0, _, Kp0 = layers[0][:3]
         raise ValueError(
             f"render_fwd: a first layer of {K0} inputs (padded to {Kp0}) needs {smem} bytes of "
-            f"shared memory, more than the {_SMEM_MAX} a block has; K2 takes at most 320 "
-            "padded inputs beside 256-wide hidden layers (depth_before_color, which widens the "
-            "colour head's input by the depth features, does not run on the card)")
-    return rows, min(-(-n // rows), sms), smem
+            f"shared memory at {stages} ring stages, more than the {_SMEM_MAX} a block has; "
+            "K2 takes at most 320 padded inputs beside 256-wide hidden layers at 5 stages, "
+            "448 at 3 (depth_before_color widens the colour head's input by the depth "
+            "features)")
+    return 128, min(-(-n // 128), sms), smem
 
 
 def render_schedule(meta):
@@ -399,7 +436,12 @@ def nerf_launch_plan(meta, bwd: bool) -> tuple[int, int]:
     K4 adds alpha's weight column in f32, K5 the relu-mask bits of the trunk
     and views0 (two 32-bit words per thread each), the db column sums of four
     warps and the f32 cotangents of the two embeddings; then one mbarrier per
-    ring stage. The launchers take these bytes as given."""
+    ring stage. The launchers take these bytes as given.
+
+    This plan is the bf16 mode's. The split f32 mode has no ring and no tile
+    kernel: each product is one launch of ``split_mm_kernel`` on 64 x 128
+    output tiles with a 3-stage ring of 32-deep f32 slabs, 79,872 or 82,944
+    bytes a CTA, two CTAs an SM (``_SPLIT_TILE``, ``split_dw_plan``)."""
     layers = _layers_of(meta)
     multires, multires_view, d_a, D = meta[3], meta[4], meta[5], meta[8]
     e_a, e_b = _emb_width(d_a, multires), _emb_width(3, multires_view)
@@ -504,11 +546,12 @@ def _render_fwd_run(pts, normals, dirs, feat, packed):
     _, B, meta, (img, sched) = packed
     out = torch.empty(n, _layers_of(meta)[-1][1], device=pts.device, dtype=torch.float32)
     sms = torch.cuda.get_device_properties(pts.device).multi_processor_count
-    _, ctas, smem = render_launch_plan(meta, n, sms)
+    stages = render_ring_stages(meta)
+    _, ctas, smem = render_launch_plan(meta, n, sms, stages)
     err = build.library("fused_mlp").render_fwd_launch(
         pts.data_ptr(), normals.data_ptr(), dirs.data_ptr(), feat.data_ptr(), out.data_ptr(), n,
         img.data_ptr(), B.data_ptr(), build.int64_array(meta), build.int64_array(sched), ctas,
-        smem, build.stream_ptr(pts.device),
+        smem, stages, build.stream_ptr(pts.device),
     )
     build.LAUNCHES["render_fwd"] += 1
     build.check(err, "render_fwd")
@@ -695,6 +738,333 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
 
 
 # ---------------------------------------------------------------------------
+# the split-operand f32 mode (csrc/fused_mlp.cu, split_*)
+# ---------------------------------------------------------------------------
+#
+# K2-K5 and the dW contraction with f32-accurate operands: each layer's
+# product is one launch of split_mm_kernel (3xTF32 on the tensor cores) whose
+# epilogue applies the layer's bias and activation (or, backward, the relu
+# mask or the output's delta), the activations and deltas live in f32 [n,
+# width] buffers between launches, and every layer's dW is one grouped,
+# row-split launch summed in split order. The schedules below list the
+# launches on an ``ops`` object: ``_SplitOps`` launches them on the card; a
+# test may pass one that computes them in torch, to hold the schedules to the
+# plain versions on the CPU.
+
+EPI_NONE, EPI_RELU, EPI_SIGMOID, EPI_MASK, EPI_DSIGMOID, EPI_DRELU = range(6)
+# the split kernel's tile: 64 output rows x 128 columns, 32-deep slabs
+_SPLIT_TILE = (64, 128, 32)
+
+
+def split_dw_plan(n: int, layers, sms: int) -> tuple[int, int]:
+    """Row splits of the split mode's dW contraction -> (splits,
+    rows_per_split): about two CTAs per SM (``sms``) over every layer's
+    64 x 128 output tiles, each split a multiple of 32 rows."""
+    tm, tn, tk = _SPLIT_TILE
+    tiles = sum(-(-Kp // tm) * -(-Np // tn) for _, _, Kp, Np, _, _ in layers)
+    splits = max(1, min(-(-n // tk), 2 * sms // tiles))
+    rows = -(-(-(-n // splits)) // tk) * tk
+    return -(-n // rows), rows
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _ld(t) -> int:
+    return 0 if t is None else t.stride(0)
+
+
+class _SplitOps:
+    """The split mode's launches on the card, on 2-D f32 views whose rows are
+    contiguous (any row stride that keeps 16-byte alignment), for the kernel
+    ``name`` (``render_fwd_f32``, ...). Each launch adds one to
+    ``build.LAUNCHES[name]`` where it is made, a launch of the dW contraction
+    (:meth:`dw`: the products, the bias columns' sums, two reductions) to
+    ``dw_contract_f32``; each launcher runs one grid."""
+
+    def __init__(self, device, name):
+        self.device = device
+        self.name = name
+        self.lib = build.library("fused_mlp")
+        self.stream = build.stream_ptr(device)
+        self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def _launched(self, err, what, counter=None):
+        build.LAUNCHES[counter or self.name] += 1
+        build.check(err, what)
+
+    def mm(self, A, B, C, *, ta=False, tb=False, bias=None, epi=EPI_NONE, aux=None, aux_n=0,
+           n_store=None, C2=None, n_store2=0):
+        """C[:, :n_store] (then C2[:, :n_store2]) <- epi(op(A) op(B) + bias):
+        A [M, K] (ta: stored [K, M]), B [K, N] (tb: stored [N, K])."""
+        M, K = (A.shape[1], A.shape[0]) if ta else A.shape
+        N = B.shape[0] if tb else B.shape[1]
+        rec = [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(), C.stride(0),
+               M, N, K, _ptr(bias), epi, _ptr(aux), _ld(aux), aux_n,
+               N if n_store is None else n_store, _ptr(C2), _ld(C2), n_store2, 0,
+               -(-K // 32) * 32]
+        self._launched(self.lib.split_mm_launch(build.int64_array(rec), 1, int(ta), int(tb), 1,
+                                                self.stream), "split_mm")
+
+    def embed(self, src, freqs, dst):
+        """dst [n, width] <- src's embedding (``freqs`` bands; 0 copies), zero
+        past it."""
+        self._launched(self.lib.split_embed_launch(
+            src.data_ptr(), src.stride(0), src.shape[1], freqs, src.shape[0], dst.data_ptr(),
+            dst.stride(0), dst.shape[1], self.stream), "split_embed")
+
+    def embed_vjp(self, srcs, x, freqs, out):
+        """out [n, d] <- the embedding's VJP at x of sum(srcs) ([n, e] views)."""
+        rec = [v for s in srcs for v in (s.data_ptr(), s.stride(0))]
+        self._launched(self.lib.split_embed_vjp_launch(
+            build.int64_array(rec), len(srcs), x.data_ptr(), x.shape[1], freqs, x.shape[0],
+            out.data_ptr(), self.stream), "split_embed_vjp")
+
+    def dw(self, pairs, layers):
+        """Per layer (its input [n, Kp], its delta [n, Np]) -> (dW packed as
+        the weights, db packed as the biases): one grouped launch of the
+        contraction, split over rows, the splits summed in order."""
+        n = pairs[0][0].shape[0]
+        total_w = sum(Kp * Np for _, _, Kp, Np, _, _ in layers)
+        total_b = sum(Np for _, _, _, Np, _, _ in layers)
+        dev = self.device
+        dW = torch.empty(total_w, device=dev)
+        dB = torch.empty(total_b, device=dev)
+        if n == 0:
+            return dW.zero_(), dB.zero_()
+        splits, rows = split_dw_plan(n, layers, self.sms)
+        part = torch.empty(splits, total_w, device=dev)
+        dbpart = torch.empty(splits, total_b, device=dev)
+        recs, cols = [], []
+        for (x, d), (_, _, Kp, Np, woff, _) in zip(pairs, layers):
+            recs += [x.data_ptr(), x.stride(0), d.data_ptr(), d.stride(0),
+                     part.data_ptr() + 4 * woff, Np, Kp, Np, n, 0, EPI_NONE, 0, 0, 0, Np, 0, 0,
+                     0, total_w, rows]
+            cols += [d.data_ptr(), d.stride(0), Np]
+        lib, st, dw = self.lib, self.stream, "dw_contract_f32"
+        self._launched(lib.split_mm_launch(build.int64_array(recs), len(layers), 1, 0, splits,
+                                           st), "split_dw", dw)
+        self._launched(lib.split_colsum_launch(build.int64_array(cols), len(layers), n, rows,
+                                               splits, dbpart.data_ptr(), st), "split_db", dw)
+        self._launched(lib.split_reduce_launch(part.data_ptr(), splits, total_w, dW.data_ptr(),
+                                               st), "split_dw_reduce", dw)
+        self._launched(lib.split_reduce_launch(dbpart.data_ptr(), splits, total_b, dB.data_ptr(),
+                                               st), "split_db_reduce", dw)
+        return dW, dB
+
+
+def _w_of(W, B, layer):
+    """A packed layer's weights [Kp, Np] and bias [Np] as views."""
+    _, _, Kp, Np, woff, boff = layer
+    return W[woff:woff + Kp * Np].view(Kp, Np), B[boff:boff + Np]
+
+
+def _grads_of(dW, dB, layers):
+    return [(dW[woff:woff + Kp * Np].view(Kp, Np)[:K, :N], dB[boff:boff + N])
+            for K, N, Kp, Np, woff, boff in layers]
+
+
+def split_render(ops, plan, pts, normals, dirs, feat, packed, g=None):
+    """K2 in the split mode -> [n, d_out]; given the output's cotangent ``g``,
+    K3 -> (d_pts, d_normals, d_dirs, d_feat, per-layer (dW, db)). ``packed``:
+    ``_render_meta``'s (W, B, meta) in f32. The backward recomputes the
+    forward keeping every layer's input; the output layer's epilogue gives
+    its delta at once."""
+    mode, freqs_v, squeeze = plan
+    W, B, meta = packed
+    layers = _layers_of(meta)
+    n, dev, L = pts.shape[0], pts.device, len(layers)
+    e_view = _emb_width(3, freqs_v)
+    c_nrm = 3 + (e_view if mode != "no_view_dir" else 0)
+    c_feat = c_nrm + (3 if mode != "no_normal" else 0)
+    x = torch.empty(n, layers[0][2], device=dev)
+    ops.embed(pts, 0, x[:, :3])
+    if mode != "no_view_dir":
+        ops.embed(dirs, freqs_v, x[:, 3:3 + e_view])
+    if mode != "no_normal":
+        ops.embed(normals, 0, x[:, c_nrm:c_nrm + 3])
+    ops.embed(feat, 0, x[:, c_feat:])
+    acts = [x]
+    for l, layer in enumerate(layers):
+        w, b = _w_of(W, B, layer)
+        N, Np = layer[1], layer[3]
+        if l + 1 < L:
+            x = torch.empty(n, Np, device=dev)
+            ops.mm(acts[-1], w, x, bias=b, epi=EPI_RELU)
+            acts.append(x)
+            if g is None:
+                acts[-2] = None
+        elif g is None:
+            out = torch.empty(n, N, device=dev)
+            ops.mm(acts[-1], w, out, bias=b, epi=EPI_SIGMOID if squeeze else EPI_RELU, n_store=N)
+            return out
+        else:
+            d = torch.empty(n, Np, device=dev)
+            ops.mm(acts[-1], w, d, bias=b, epi=EPI_DSIGMOID if squeeze else EPI_DRELU, aux=g,
+                   aux_n=N)
+    dels = [None] * L
+    dels[L - 1] = d
+    for l in range(L - 1, -1, -1):
+        w, _ = _w_of(W, B, layers[l])
+        dx = torch.empty(n, layers[l][2], device=dev)
+        if l > 0:
+            ops.mm(dels[l], w, dx, tb=True, epi=EPI_MASK, aux=acts[l], aux_n=layers[l][2])
+            dels[l - 1] = dx
+        else:
+            ops.mm(dels[0], w, dx, tb=True)
+    d_pts = torch.empty(n, 3, device=dev)
+    ops.embed_vjp([dx[:, :3]], pts, 0, d_pts)
+    d_dirs = torch.zeros(n, 3, device=dev)
+    if mode != "no_view_dir":
+        ops.embed_vjp([dx[:, 3:3 + e_view]], dirs, freqs_v, d_dirs)
+    d_nrm = torch.zeros(n, 3, device=dev)
+    if mode != "no_normal":
+        ops.embed_vjp([dx[:, c_nrm:c_nrm + 3]], normals, 0, d_nrm)
+    d_feat = torch.empty(n, feat.shape[1], device=dev)
+    ops.embed_vjp([dx[:, c_feat:c_feat + feat.shape[1]]], feat, 0, d_feat)
+    dW, dB = ops.dw(list(zip(acts, dels)), layers)
+    return d_pts, d_nrm, d_dirs, d_feat, _grads_of(dW, dB, layers)
+
+
+def split_nerf(ops, pts, views, packed, grads_out=None):
+    """K4 in the split mode -> (alpha, rgb, dpt | None); given the outputs'
+    cotangents ``grads_out`` = (g_alpha, g_rgb, g_dpt | None), K5 -> (d_pts,
+    d_views, per packed layer (dW, db)). ``packed``: ``_nerf_meta``'s (W, B,
+    meta) in f32: the trunk (after a skip layer its input is [h | emb_pts]),
+    [feature | alpha], views0 over [feature | emb_view], [rgb | dpt]."""
+    W, B, meta = packed
+    layers = _layers_of(meta)
+    multires, multires_view, d_a, skip_mask, T, d_rgb, d_dpt = (
+        meta[k] for k in (3, 4, 5, 7, 8, 9, 10))
+    n, dev = pts.shape[0], pts.device
+    wt, wf = layers[0][1], layers[T][1] - 1
+    bwd = grads_out is not None
+    skip_in = [i + 1 for i in range(T - 1) if (skip_mask >> i) & 1]  # inputs [h | emb_pts]
+    X = [None] * (T + 3)
+    X[0] = torch.empty(n, layers[0][2], device=dev)
+    ops.embed(pts, multires, X[0])
+    for i in skip_in:
+        X[i] = torch.empty(n, layers[i][2], device=dev)
+        ops.embed(pts, multires, X[i][:, wt:])
+    X[T + 1] = torch.empty(n, layers[T + 1][2], device=dev)
+    ops.embed(views, multires_view, X[T + 1][:, wf:])
+    for i in range(T):
+        w, b = _w_of(W, B, layers[i])
+        if X[i + 1] is None:
+            X[i + 1] = torch.empty(n, layers[i][3], device=dev)
+        ops.mm(X[i], w, X[i + 1], bias=b, epi=EPI_RELU, n_store=wt)
+        if not bwd:
+            X[i] = None
+    alpha = torch.empty(n, 1, device=dev)
+    w, b = _w_of(W, B, layers[T])
+    ops.mm(X[T], w, X[T + 1], bias=b, n_store=wf, C2=alpha, n_store2=1)
+    X[T + 2] = torch.empty(n, layers[T + 1][3], device=dev)
+    w, b = _w_of(W, B, layers[T + 1])
+    ops.mm(X[T + 1], w, X[T + 2], bias=b, epi=EPI_RELU)
+    if not bwd:
+        rgb = torch.empty(n, d_rgb, device=dev)
+        dpt = torch.empty(n, d_dpt, device=dev) if d_dpt else None
+        w, b = _w_of(W, B, layers[T + 2])
+        ops.mm(X[T + 2], w, rgb, bias=b, n_store=d_rgb, C2=dpt, n_store2=d_dpt)
+        return alpha, rgb, dpt
+    g_alpha, g_rgb, g_dpt = grads_out
+    D = [None] * (T + 3)  # each layer's delta, [n, Np] views
+    D[T + 2] = torch.empty(n, layers[T + 2][3], device=dev)
+    if d_dpt:
+        ops.embed(g_rgb, 0, D[T + 2][:, :d_rgb])
+        ops.embed(g_dpt, 0, D[T + 2][:, d_rgb:])
+    else:
+        ops.embed(g_rgb, 0, D[T + 2])
+    # views0's delta under its relu mask, then its dx: [d_feature | d_emb_view]
+    D[T + 1] = torch.empty(n, layers[T + 2][2], device=dev)
+    w, _ = _w_of(W, B, layers[T + 2])
+    ops.mm(D[T + 2], w, D[T + 1], tb=True, epi=EPI_MASK, aux=X[T + 2], aux_n=layers[T + 2][2])
+    dv = torch.empty(n, layers[T + 1][2], device=dev)
+    w, _ = _w_of(W, B, layers[T + 1])
+    ops.mm(D[T + 1], w, dv, tb=True)
+    D[T] = torch.empty(n, layers[T][3], device=dev)
+    ops.embed(dv[:, :wf], 0, D[T][:, :wf])
+    ops.embed(g_alpha, 0, D[T][:, wf:])
+    # the trunk in reverse: dx of layer i under layer i-1's relu mask (the
+    # first wt columns; a skip input's embedding columns unmasked)
+    skip_dx = []  # the embedding columns of the skip inputs' dx, deepest first
+    for i in range(T, 0, -1):
+        w, _ = _w_of(W, B, layers[i])
+        dx = torch.empty(n, layers[i][2], device=dev)
+        ops.mm(D[i], w, dx, tb=True, epi=EPI_MASK, aux=X[i], aux_n=wt)
+        D[i - 1] = dx[:, :wt]
+        if i in skip_in:
+            skip_dx.append(dx[:, wt:])
+    dx0 = torch.empty(n, layers[0][2], device=dev)
+    w, _ = _w_of(W, B, layers[0])
+    ops.mm(D[0], w, dx0, tb=True)
+    e_a = _emb_width(d_a, multires)
+    d_pts = torch.empty(n, d_a, device=dev)
+    ops.embed_vjp([s[:, :e_a] for s in skip_dx] + [dx0[:, :e_a]], pts, multires, d_pts)
+    d_views = torch.empty(n, 3, device=dev)
+    ops.embed_vjp([dv[:, wf:wf + _emb_width(3, multires_view)]], views, multires_view, d_views)
+    dW, dB = ops.dw(list(zip(X, D)), layers)
+    return d_pts, d_views, _grads_of(dW, dB, layers)
+
+
+def _render_launch_f32(plan, pts, normals, dirs, feat, ws, bs):
+    """K2 in the split mode -> (output [n, d_out], its f32 pack)."""
+    _check_inputs("render_fwd", pts, normals, dirs, feat)
+    _check_shapes("render_fwd", pts.shape[0], (pts, 3), (normals, 3), (dirs, 3),
+                  (feat, feat.shape[1]))
+    packed = _render_meta(plan, feat, ws, bs, pts.device, torch.float32)
+    ins = (t.contiguous() for t in (pts, normals, dirs, feat))
+    return split_render(_SplitOps(pts.device, "render_fwd_f32"), plan, *ins, packed), packed
+
+
+def _render_bwd_launch_f32(plan, pts, normals, dirs, feat, ws, bs, g, packed=None):
+    """K3 and its dW contraction in the split mode -> (d_pts, d_normals,
+    d_dirs, d_feat, dws, dbs); ``packed``: the forward's f32 pack."""
+    _check_inputs("render_bwd", pts, normals, dirs, feat, g)
+    n = pts.shape[0]
+    _check_shapes("render_bwd", n, (pts, 3), (normals, 3), (dirs, 3), (feat, feat.shape[1]),
+                  (g, ws[-1].shape[1]))
+    if packed is None:
+        packed = _render_meta(plan, feat, ws, bs, pts.device, torch.float32)
+    ins = tuple(t.contiguous() for t in (pts, normals, dirs, feat))
+    *outs, grads = split_render(_SplitOps(pts.device, "render_bwd_f32"), plan, *ins, packed,
+                                g=g.contiguous())
+    return (*outs, [dw for dw, _ in grads], [db for _, db in grads])
+
+
+def _nerf_launch_f32(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
+    """K4 in the split mode -> ((alpha, rgb, dpt | None), its f32 pack)."""
+    _check_inputs("nerf_fwd", pts, views)
+    packed = _nerf_meta(plan, pts.shape[1], trunk_w, trunk_b, head_w, head_b, pts.device,
+                        torch.float32)
+    ops = _SplitOps(pts.device, "nerf_fwd_f32")
+    return split_nerf(ops, pts.contiguous(), views.contiguous(), packed), packed
+
+
+def _nerf_bwd_launch_f32(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
+                         g_alpha, g_rgb, g_dpt=None, packed=None):
+    """K5 and its dW contraction in the split mode -> (d_pts, d_views, dtw,
+    dtb, dhw, dhb); ``packed``: the forward's f32 pack."""
+    has_dpt = plan[4]
+    _check_inputs("nerf_bwd", pts, views, g_alpha, g_rgb)
+    n, d_a = pts.shape
+    if packed is None:
+        packed = _nerf_meta(plan, d_a, trunk_w, trunk_b, head_w, head_b, pts.device,
+                            torch.float32)
+    meta = packed[2]
+    d_rgb, d_dpt = meta[9], meta[10]
+    if has_dpt and g_dpt is None:
+        g_dpt = torch.zeros(n, d_dpt, device=pts.device)
+    _check_shapes("nerf_bwd", n, (views, 3), (g_alpha, 1), (g_rgb, d_rgb),
+                  *([(g_dpt, d_dpt)] if has_dpt else []))
+    gs = (g_alpha.contiguous(), g_rgb.contiguous(), g_dpt.contiguous() if has_dpt else None)
+    d_pts, d_views, grads = split_nerf(_SplitOps(pts.device, "nerf_bwd_f32"), pts.contiguous(),
+                                       views.contiguous(), packed, gs)
+    return (d_pts, d_views, *nerf_grads_from_packed(meta, grads))
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions and wrappers
 # ---------------------------------------------------------------------------
 
@@ -706,20 +1076,22 @@ def _on(t: torch.Tensor, name: str) -> str:
 
 
 class _RenderNet(torch.autograd.Function):
-    """Forward K2 (or its plain version), backward K3 (or its plain version);
-    cotangents for the four inputs and every effective weight and bias."""
+    """Forward K2 (or its plain version), backward K3 (or its plain version),
+    in the operand mode ``mm``; cotangents for the four inputs and every
+    effective weight and bias."""
 
     @staticmethod
-    def forward(ctx, plan, pts, normals, dirs, feat, *wb):
+    def forward(ctx, plan, mm, pts, normals, dirs, feat, *wb):
         n = len(wb) // 2
         ws, bs = list(wb[:n]), list(wb[n:])
-        ctx.plan = plan
+        ctx.plan, ctx.mm = plan, mm
         ctx.save_for_backward(pts, normals, dirs, feat, *wb)
         ctx.packed = None
         if _on(pts, "render_net") == "cpu":
-            return render_net_plain(plan, pts, normals, dirs, feat, ws, bs)
+            return render_net_plain(plan, pts, normals, dirs, feat, ws, bs, mm=mm)
         # the backward launches K3 on the weights K2 was launched with
-        out, ctx.packed = _render_launch(plan, pts, normals, dirs, feat.float(), ws, bs)
+        launch = _render_launch if mm == torch.bfloat16 else _render_launch_f32
+        out, ctx.packed = launch(plan, pts, normals, dirs, feat.float(), ws, bs)
         return out
 
     @staticmethod
@@ -729,43 +1101,48 @@ class _RenderNet(torch.autograd.Function):
         ws, bs = wb[:n], wb[n:]
         args = (ctx.plan, pts, normals, dirs, feat.float(), ws, bs, g.float())
         if _on(g, "render_net") == "cpu":
-            out = render_net_bwd_plain(*args)
-        else:
+            out = render_net_bwd_plain(*args, mm=ctx.mm)
+        elif ctx.mm == torch.bfloat16:
             out = _render_bwd_launch(*args, packed=ctx.packed)
+        else:
+            out = _render_bwd_launch_f32(*args, packed=ctx.packed)
         d_pts, d_nrm, d_dirs, d_feat, dws, dbs = out
-        return (None, d_pts, d_nrm, d_dirs, d_feat.to(feat.dtype), *dws, *dbs)
+        return (None, None, d_pts, d_nrm, d_dirs, d_feat.to(feat.dtype), *dws, *dbs)
 
 
 class _NeRF(torch.autograd.Function):
-    """Forward K4 (or its plain version), backward K5 (or its plain version);
-    cotangents for pts, views and every effective weight and bias."""
+    """Forward K4 (or its plain version), backward K5 (or its plain version),
+    in the operand mode ``mm``; cotangents for pts, views and every effective
+    weight and bias."""
 
     @staticmethod
-    def forward(ctx, plan, pts, views, *weights):
+    def forward(ctx, plan, mm, pts, views, *weights):
         D, n_head = plan[3], 5 if plan[4] else 4
-        ctx.plan = plan
+        ctx.plan, ctx.mm = plan, mm
         ctx.save_for_backward(pts, views, *weights)
         args = _split_nerf(weights, D, n_head)
         ctx.packed = None
         if _on(pts, "nerf") == "cpu":
-            alpha, rgb, dpt = nerf_plain(plan, pts, views, *args)
+            alpha, rgb, dpt = nerf_plain(plan, pts, views, *args, mm=mm)
         else:
             # the backward launches K5 on the weights K4 was launched with
-            (alpha, rgb, dpt), ctx.packed = _nerf_launch(plan, pts, views, *args)
+            launch = _nerf_launch if mm == torch.bfloat16 else _nerf_launch_f32
+            (alpha, rgb, dpt), ctx.packed = launch(plan, pts, views, *args)
         return (alpha, rgb) if dpt is None else (alpha, rgb, dpt)
 
     @staticmethod
     def backward(ctx, g_alpha, g_rgb, g_dpt=None):
         pts, views, *weights = ctx.saved_tensors
         D, n_head = ctx.plan[3], 5 if ctx.plan[4] else 4
-        args = _split_nerf(weights, D, n_head)
+        args = (ctx.plan, pts, views, *_split_nerf(weights, D, n_head), g_alpha, g_rgb, g_dpt)
         if _on(g_alpha, "nerf") == "cpu":
-            out = nerf_bwd_plain(ctx.plan, pts, views, *args, g_alpha, g_rgb, g_dpt)
+            out = nerf_bwd_plain(*args, mm=ctx.mm)
+        elif ctx.mm == torch.bfloat16:
+            out = _nerf_bwd_launch(*args, packed=ctx.packed)
         else:
-            out = _nerf_bwd_launch(ctx.plan, pts, views, *args, g_alpha, g_rgb, g_dpt,
-                                   packed=ctx.packed)
+            out = _nerf_bwd_launch_f32(*args, packed=ctx.packed)
         d_pts, d_views, dtw, dtb, dhw, dhb = out
-        return (None, d_pts, d_views, *dtw, *dtb, *dhw, *dhb)
+        return (None, None, d_pts, d_views, *dtw, *dtb, *dhw, *dhb)
 
 
 def _split_nerf(weights, D, n_head):
@@ -773,14 +1150,17 @@ def _split_nerf(weights, D, n_head):
     return w[:D], w[D:2 * D], w[2 * D:2 * D + n_head], w[2 * D + n_head:]
 
 
-def render_net(plan, pts, normals, dirs, feat, ws, bs) -> torch.Tensor:
+def render_net(plan, pts, normals, dirs, feat, ws, bs, mm) -> torch.Tensor:
     """Colour head. plan = (mode, multires_view, squeeze_out); ws/bs
-    effective [in, out] weights and biases. -> [N, d_out] f32."""
-    return _RenderNet.apply(plan, pts, normals, dirs, feat, *ws, *bs)
+    effective [in, out] weights and biases; ``mm``: the operand mode
+    (``torch.bfloat16`` or ``torch.float32``).
+    -> [N, d_out] f32."""
+    return _RenderNet.apply(plan, _mode(mm), pts, normals, dirs, feat, *ws, *bs)
 
 
-def nerf(plan, pts, views, trunk_w, trunk_b, head_w, head_b):
-    """Background NeRF. plan = (multires, multires_view, skips, D, has_dpt).
+def nerf(plan, pts, views, trunk_w, trunk_b, head_w, head_b, mm):
+    """Background NeRF. plan = (multires, multires_view, skips, D, has_dpt);
+    ``mm`` as :func:`render_net`'s.
     -> (alpha [N,1], rgb [N,rgb_dims], dpt [N,dpt_dim] | None)."""
-    out = _NeRF.apply(plan, pts, views, *trunk_w, *trunk_b, *head_w, *head_b)
+    out = _NeRF.apply(plan, _mode(mm), pts, views, *trunk_w, *trunk_b, *head_w, *head_b)
     return out[0], out[1], out[2] if len(out) > 2 else None

@@ -73,18 +73,19 @@ class NeuSModel(nn.Module):
     """The networks under the reference checkpoint's names, registered (and
     drawn from ``generator``) in the reference's ``params_to_train`` order:
     nerf, sdf, variance, colour, then the depth head when ``nets.depth`` is
-    set. ``matmul_dtype``: the SDF network's precision policy
-    (``models/precision.py``)."""
+    set. ``matmul_dtype``: the SDF network's precision policy; ``mlp_dtype``:
+    the operand mode of the colour head, the depth head and the NeRF (K2-K5),
+    both from ``models/precision.py``."""
 
     def __init__(self, nets: NeuSNetworks, variance_init: float, generator: torch.Generator,
-                 matmul_dtype: torch.dtype | None = None):
+                 matmul_dtype: torch.dtype | None = None, *, mlp_dtype: torch.dtype):
         super().__init__()
-        self.nerf = NeRF(nets.nerf, generator)
+        self.nerf = NeRF(nets.nerf, generator, mlp_dtype)
         self.sdf_network_fine = SDFNetwork(nets.sdf, generator, matmul_dtype)
         self.variance_network_fine = SingleVarianceNetwork(variance_init)
-        self.color_network_fine = RenderingNetwork(nets.color, generator)
+        self.color_network_fine = RenderingNetwork(nets.color, generator, mlp_dtype)
         if nets.depth is not None:
-            self.depth_network_fine = RenderingNetwork(nets.depth, generator)
+            self.depth_network_fine = RenderingNetwork(nets.depth, generator, mlp_dtype)
 
 
 def render_core_outside(

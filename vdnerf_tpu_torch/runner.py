@@ -52,7 +52,10 @@ Precision: the SDF block is f32 unless ``VDNERF_BF16`` asks for bf16 (read
 once, here); a training runner switches it to bf16 when the conf sets
 ``train.bf16``, for the run's steps and its validation renders, as the JAX
 runner switches its policy on in ``train()`` (``models/precision.py``). The
-serving modes run under the first of the two.
+serving modes run under the first of the two. K2-K5 take their operand mode
+from that policy and ``VDNERF_FUSED`` (also read once, here): f32 operands
+under the f32 policy, as JAX's default, bf16 under ``VDNERF_FUSED`` or the
+bf16 policy.
 """
 
 from __future__ import annotations
@@ -88,7 +91,12 @@ from vdnerf_tpu_torch.io import (
     save_training_checkpoint,
 )
 from vdnerf_tpu_torch.mesh import extract_geometry, save_ply
-from vdnerf_tpu_torch.models.precision import env_matmul_dtype, matmul_dtype
+from vdnerf_tpu_torch.models.precision import (
+    env_fused,
+    env_matmul_dtype,
+    matmul_dtype,
+    mlp_operand_dtype,
+)
 from vdnerf_tpu_torch.parallel import World, broadcast_parameters, rank_seed, shard_batch
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
@@ -161,9 +169,12 @@ class Runner:
 
         self.scene_data = SceneData(self.conf["dataset"])
         self.nets = build_networks(self.conf, self.tcfg.extract_depth)
-        # the SDF block's precision: train.bf16 for a training run, else VDNERF_BF16
+        # the SDF block's precision: train.bf16 for a training run, else
+        # VDNERF_BF16; K2-K5's operands follow it and VDNERF_FUSED
         policy = matmul_dtype(True) if mode == "train" and self.tcfg.bf16 else env_matmul_dtype()
-        self.model = build_model(self.conf, self.nets, seed, policy).to(self.device)
+        self.mlp_dtype = mlp_operand_dtype(policy, env_fused())
+        self.model = build_model(self.conf, self.nets, seed, policy,
+                                 mlp_dtype=self.mlp_dtype).to(self.device)
         self.iter_step = 0
         self.store = None
         if "mesh" not in mode:

@@ -26,7 +26,8 @@ Training goes through :class:`~vdnerf_tpu_torch.train.step.Trainer` and
 a replay of the captured step) in windows of 10 steps (fewer where 10 does
 not divide ``--val-every``, ``--iters`` and ``--resample-from``), on the
 faithful core before ``--resample-from`` and the resampled core after it.
-The SDF block is bf16 unless ``--fp32`` (``models/precision.py``).
+The SDF block is bf16 unless ``--fp32`` (``models/precision.py``); K2-K5
+then run f32 operands (the split mode), or bf16 ones with ``VDNERF_FUSED=1``.
 
 Train modes: ``womsk`` (the womsk_white loss: no mask, white background, a
 textured backdrop the background NeRF must model), ``masked`` (mask BCE on
@@ -71,7 +72,7 @@ from vdnerf_tpu_torch.io import (
 )
 from vdnerf_tpu_torch.mesh.qc import geometry_qc
 from vdnerf_tpu_torch.models.fields import NeRFConfig, RenderConfig, SDFConfig
-from vdnerf_tpu_torch.models.precision import matmul_dtype
+from vdnerf_tpu_torch.models.precision import env_fused, matmul_dtype, mlp_operand_dtype
 from vdnerf_tpu_torch.ops.kernels import build
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, RendererConfig
 from vdnerf_tpu_torch.train.config import TrainConfig
@@ -307,8 +308,10 @@ def main(argv=None, device=None) -> dict:
     perturbed = None
     if args.learn or args.learn_frozen:
         perturbed = perturb_poses(sd.pose_all, np.random.default_rng(5))
-    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(args.seed),
-                      matmul_dtype(tcfg.bf16)).to(dev)
+    policy = matmul_dtype(tcfg.bf16)
+    mlp_dtype = mlp_operand_dtype(policy, env_fused())
+    model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(args.seed), policy,
+                      mlp_dtype=mlp_dtype).to(dev)
     if args.learn:
         cams = LearnedCameras(perturbed, float(sd.focal), sd.H, sd.W).to(dev)
     else:
@@ -474,9 +477,10 @@ def main(argv=None, device=None) -> dict:
             "learn_cameras": args.learn,
             "learn_frozen_control": args.learn_frozen,
             "gauge_aligned_geometry": bool(args.learn),
-            # the colour head, depth head and background NeRF always run
-            # through K2-K5 (bf16 operands, f32 accumulation)
+            # the colour head, depth head and background NeRF run through
+            # K2-K5: bf16 operands under --fp32 only with VDNERF_FUSED=1
             "bf16": not args.fp32, "fused_mlp": True,
+            "mlp_operands": "bf16" if mlp_dtype == torch.bfloat16 else "f32",
             "fast_bg": args.fast_bg,
             "render_samples": args.render_samples,
             "resample_from": args.resample_from,

@@ -20,8 +20,9 @@ teacher features and the steps come after ``depth_start_iter``, so the depth
 head trains; on a learnable conf the camera's pose and focal are learned and
 the steps come after ``start_refine_pose_iter``, so they update; a conf
 without a resampled core has its faithful core only. With ``--bf16`` (or a
-conf that sets ``train.bf16``) the SDF block runs under the bf16 policy. For
-each it reports:
+conf that sets ``train.bf16``) the SDF block runs under the bf16 policy;
+K2-K5 run f32 operands under the f32 policy unless ``VDNERF_FUSED=1``
+(``models/precision.py``). For each it reports:
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``
   chunks, or over two windows of ``--iters`` steps);
@@ -63,7 +64,7 @@ from vdnerf_tpu_torch.data.cameras import LearnedCameras
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.kernels import build, fused_mlp
 from vdnerf_tpu_torch.ops.renderer import render
-from vdnerf_tpu_torch.models.precision import matmul_dtype
+from vdnerf_tpu_torch.models.precision import env_fused, matmul_dtype, mlp_operand_dtype
 from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
@@ -220,7 +221,8 @@ def _train_steps(conf, nets, dev, iters: int, trace: str, bf16: bool = False) ->
         cores.append((f"core_{rcfg.n_render_samples}", nets))
     out = {}
     for name, core in cores:
-        model = build_model(conf, nets, seed=0, matmul_dtype=policy).to(dev)
+        model = build_model(conf, nets, seed=0, matmul_dtype=policy,
+                            mlp_dtype=mlp_operand_dtype(policy, env_fused())).to(dev)
         trainer = Trainer(tcfg, model, cams, torch.Generator(device=dev).manual_seed(0))
         # one trainer, two per-step calls: a replay, and the eager step
         dispatch = {"replay": StepDispatch(trainer), "eager": StepDispatch(trainer)}
@@ -275,7 +277,8 @@ def main(argv=None) -> int:
                                                         args.bf16)}))
         return 0
 
-    model = build_model(conf, nets, seed=0).to(dev).eval()
+    model = build_model(conf, nets, seed=0,
+                        mlp_dtype=mlp_operand_dtype(None, env_fused())).to(dev).eval()
     rng = np.random.default_rng(0)
     o = rng.normal(size=(args.rays, 3))
     o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)

@@ -40,7 +40,9 @@ Precision: one policy for every stage, as the JAX tool switches bf16 on for
 its process: the SDF block is bf16 unless ``--fp32``, through
 ``VDNERF_BF16``, which the port's training and serving runners both read
 (``models/precision.py``); the tool sets it for the length of :func:`main`
-and restores it after. The ``.conf`` text is the JAX tool's.
+and restores it after. K2-K5's operands follow the policy there: bf16 by
+default, f32 (the split mode) under ``--fp32`` unless ``VDNERF_FUSED=1``, as
+the JAX tool's ``linear``s. The ``.conf`` text is the JAX tool's.
 
 Card memory: before each stage the tool collects the previous stage's
 objects (a training run's CUDA graphs and their shared pool, the eval

@@ -42,10 +42,12 @@ def build_networks(conf: Config, extract_depth: bool = False) -> NeuSNetworks:
 
 
 def build_model(conf: Config, nets: NeuSNetworks, seed: int = 0,
-                matmul_dtype: torch.dtype | None = None) -> NeuSModel:
+                matmul_dtype: torch.dtype | None = None, *, mlp_dtype: torch.dtype) -> NeuSModel:
     """A freshly initialised model (geometric-init SDF), on the CPU, its SDF
-    network under the precision policy ``matmul_dtype``
-    (``models/precision.py``). One generator seeded with ``seed`` draws the
-    networks' weights in the order nerf, sdf, colour, depth head."""
+    network under the precision policy ``matmul_dtype`` and K2-K5 in the
+    operand mode ``mlp_dtype`` (``models/precision.py``). One generator seeded
+    with ``seed`` draws the networks' weights in the order nerf, sdf, colour,
+    depth head."""
     gen = torch.Generator().manual_seed(seed)
-    return NeuSModel(nets, conf.get_float("model.variance_network.init_val"), gen, matmul_dtype)
+    return NeuSModel(nets, conf.get_float("model.variance_network.init_val"), gen, matmul_dtype,
+                     mlp_dtype=mlp_dtype)

@@ -31,13 +31,33 @@ from torch import nn
 
 from vdnerf_tpu_torch.wavelet.haar import haar_idwt2
 
-_PAD = {"reflection": "reflect", "replicate": "replicate", "zero": "zeros"}
+def _pad1(x: torch.Tensor, padding: str) -> torch.Tensor:
+    """x padded by 1 on both spatial axes, "reflection" or "replicate", from
+    slices: torch's reflect and replicate pads accumulate their backward
+    with atomics on the card, a concatenation of slices does not."""
+    for dim in (-2, -1):
+        n = x.shape[dim]
+        lo, hi = (1, n - 2) if padding == "reflection" else (0, n - 1)
+        x = torch.cat([x.narrow(dim, lo, 1), x, x.narrow(dim, hi, 1)], dim)
+    return x
+
+
+class Conv3x3(nn.Conv2d):
+    """Pad by 1 (reflect / replicate / zero) + 3x3 conv with bias
+    (reference layers.py:11-32)."""
+
+    def __init__(self, c_in: int, c_out: int, padding: str = "zero"):
+        if padding not in ("reflection", "replicate", "zero"):
+            raise ValueError(f"conv3x3: padding {padding!r}")
+        super().__init__(c_in, c_out, 3, padding=1 if padding == "zero" else 0)
+        self.pad = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x if self.pad == "zero" else _pad1(x, self.pad))
 
 
 def conv3x3(c_in: int, c_out: int, padding: str = "zero") -> nn.Conv2d:
-    """Pad by 1 (reflect / replicate / zero) + 3x3 conv with bias
-    (reference layers.py:11-32)."""
-    return nn.Conv2d(c_in, c_out, 3, padding=1, padding_mode=_PAD[padding])
+    return Conv3x3(c_in, c_out, padding)
 
 
 def upsample_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -82,8 +82,10 @@ def finetune(argv=None, device=None) -> str:
     args = parse_argument(argv)
     device = resolve_device(device, args.gpu)
     configure_numerics()
-    # shapes are fixed within a run: let cuDNN time its f32 algorithms once
-    torch.backends.cudnn.benchmark = True
+    # shapes are fixed within a run: let cuDNN time its f32 algorithms once,
+    # unless the caller asked for deterministic ones (then the step repeats
+    # bit for bit: train_lib's resize has no atomics)
+    torch.backends.cudnn.benchmark = not torch.backends.cudnn.deterministic
 
     logpath = os.path.join(
         args.logdir, args.model_name,

@@ -22,15 +22,34 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from vdnerf_tpu_torch.wavelet.haar import haar_dwt2_multi
 
 
+def _align_corners_weights(n_in: int, n_out: int, like: torch.Tensor) -> torch.Tensor:
+    """[n_out, n_in]: row i holds the two linear-interpolation weights of
+    source position i (n_in - 1) / (n_out - 1)."""
+    src = torch.arange(n_out, dtype=torch.float64) * ((n_in - 1) / max(n_out - 1, 1))
+    i0 = src.floor().long().clamp(0, n_in - 1)
+    w1 = src - i0
+    rows = torch.arange(n_out)
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    m[rows, i0] += 1.0 - w1
+    m[rows, (i0 + 1).clamp(max=n_in - 1)] += w1
+    return m.to(like.device, like.dtype)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    if tuple(x.shape[-2:]) == (out_h, out_w):
+    """``F.interpolate(x, (out_h, out_w), mode="bilinear", align_corners=True)``
+    as two products with the interpolation weights, along the width, then
+    the height. Its backward is two products too, where interpolate's
+    accumulates with atomics on the card: the finetune step repeats bit for
+    bit under deterministic cuDNN."""
+    h, w = x.shape[-2:]
+    if (h, w) == (out_h, out_w):
         return x
-    return F.interpolate(x, (out_h, out_w), mode="bilinear", align_corners=True)
+    rows = x @ _align_corners_weights(w, out_w, x).t()
+    return _align_corners_weights(h, out_h, x) @ rows
 
 
 def multiscale_depth_loss(outputs: dict, depth_n: torch.Tensor, mask: torch.Tensor,
