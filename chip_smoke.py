@@ -37,8 +37,12 @@
    cameras, and the same cameras with COLMAP-grade noise for the learn
    confs), the conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
-   port's CLI on ``cuda`` with the launch counts set to 0 just before and read
-   just after. Fails if a forward kernel was not launched.
+   port's CLI on ``cuda`` in JAX's default precision (``VDNERF_FUSED``
+   unset: K2 and K4 in their split f32 mode at a serving chunk's 393,216 and
+   135,168 rows) with the launch counts set to 0 just before and read just
+   after; prints each mode's rays/s beside the bf16 mode's
+   (``BF16_SERVING_RAYS_S``). Fails if K1 or a split forward was not
+   launched, or a bf16 K2-K5 was.
 5. Output check: the summaries are finite, every depth ``.npy`` was written at
    full resolution, and a 512-ray render through the kernels agrees with the
    same render through the plain versions on the CPU.
@@ -169,10 +173,11 @@
     launches (the tool's ``_card.json``). Fails unless K1-K5 and the
     contraction launched in both wdepth legs, and every report value the CPU
     tests hold is present and finite.
-18. Split phase (JAX's default precision): phases 3-17 run with
+18. Split phase (JAX's default precision): phases 5-17 run with
     ``VDNERF_FUSED=1``, so K2-K5 keep the bf16 operand mode they ran in
-    before the split mode existed. After phase 3, the split-operand f32 mode
-    of K2-K5 and of the contraction at full width against the plain versions
+    before the split mode existed (phase 4 serves in the split mode). After
+    phase 3, the split-operand f32 mode of K2-K5 and of the contraction
+    (``split_gemm_kernel``) at full width against the plain versions
     with f32 operands: K2 at a chunk's 393,216 rows and a step's 65,536 (3
     and 96 outputs), K3 at each core width with 3 and 96 outputs, K4 at
     16,896 and 81,920 rows with and without dpt and at 655,360, K5 at 16,896
@@ -834,8 +839,17 @@ def write_conf(tmp: str, exp: str = "exp", train: dict | None = None,
     return path
 
 
+# the bf16 operand mode's serving rates on this phase's scene, from this
+# script's earlier runs on an H100 80GB HBM3 at 700 W, printed beside the
+# default mode's
+BF16_SERVING_RAYS_S = {"valimg_0": "23,267-25,834", "getfeats_0": "45,133-46,284"}
+
+
 def slice_phase(tmp: str) -> dict:
-    """valimg_0 and getfeats_0 through the port's CLI on the card."""
+    """valimg_0 and getfeats_0 through the port's CLI on the card, in JAX's
+    default precision: ``VDNERF_FUSED`` unset under the f32 policy, so K2 and
+    K4 run their split-operand mode at a serving chunk's rows (393,216 and
+    135,168); no bf16 K2-K5 launch, every split one counted."""
     import numpy as np
     import torch
 
@@ -850,30 +864,37 @@ def slice_phase(tmp: str) -> dict:
     noisy_c2w = write_scene(data_dir)
     conf_path = write_conf(tmp)
     conf = load_conf(conf_path, case)
-    model = build_model(conf, build_networks(conf), seed=0, mlp_dtype=torch.bfloat16)
+    model = build_model(conf, build_networks(conf), seed=0, mlp_dtype=torch.float32)
     exp_dir = conf.get_string("general.base_exp_dir")
     save_training_checkpoint(os.path.join(exp_dir, "checkpoints", "ckpt_000000.pth"), model, 0)
 
     base = ["--conf", conf_path, "--case", case]
     res = {"launches": {}, "summary": {}, "rays_per_s": {}}
-    build.reset_launches()
-    for mode, level in (("valimg_0", 2), ("getfeats_0", 1)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        summary = cli.main(base + ["--mode", mode])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rays = SCENE_VIEWS * (SCENE_H // level) * (SCENE_W // level)
-        res["summary"][mode] = summary
-        res["rays_per_s"][mode] = rays / wall
-        print(f"[slice] {mode}: {summary} rays={rays} wall_s={wall:.3f} rays/s={rays / wall:.1f}")
-        if not all(math.isfinite(v) for v in summary.values()):
-            raise SystemExit(f"{mode}: non-finite summary {summary}")
-    res["launches"] = dict(build.LAUNCHES)
+    fused = os.environ.pop("VDNERF_FUSED")
+    try:
+        build.reset_launches()
+        for mode, level in (("valimg_0", 2), ("getfeats_0", 1)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = cli.main(base + ["--mode", mode])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rays = SCENE_VIEWS * (SCENE_H // level) * (SCENE_W // level)
+            res["summary"][mode] = summary
+            res["rays_per_s"][mode] = rays / wall
+            print(f"[slice] {mode} (split f32 mode): {summary} rays={rays} wall_s={wall:.3f} "
+                  f"rays/s={rays / wall:.1f} (bf16 mode: {BF16_SERVING_RAYS_S[mode]})")
+            if not all(math.isfinite(v) for v in summary.values()):
+                raise SystemExit(f"{mode}: non-finite summary {summary}")
+        res["launches"] = dict(build.LAUNCHES)
+    finally:
+        os.environ["VDNERF_FUSED"] = fused
     print(f"[slice] launches on the serving path: {res['launches']}")
-    missing = [k for k in ("sdf_fwd", "render_fwd", "nerf_fwd") if res["launches"][k] == 0]
-    if missing:
-        raise SystemExit(f"the serving path launched no {missing}")
+    missing = [k for k in ("sdf_fwd", "render_fwd_f32", "nerf_fwd_f32")
+               if res["launches"][k] == 0]
+    bf16 = [k for k in BF16_NAMES if res["launches"][k]]
+    if missing or bf16:
+        raise SystemExit(f"the serving path launched no {missing}, or bf16 {bf16}")
 
     depth_dir = os.path.join(data_dir, "image", "depth_from_sdf")
     names = sorted(os.listdir(depth_dir))
@@ -1778,15 +1799,10 @@ def cycle_phase(tmp: str, train: dict, device) -> dict:
     check's card gradient repeat from run to run: the check's gate compares
     two f32 distances from f64 that a different algorithm or weight draw
     moves by tens of percent."""
-    import torch
+    from vdnerf_tpu_torch.tools.vdn_cycle_run import deterministic_cudnn
 
-    cudnn = torch.backends.cudnn
-    saved = cudnn.benchmark, cudnn.deterministic
-    cudnn.benchmark, cudnn.deterministic = False, True
-    try:
+    with deterministic_cudnn():
         return _cycle_phase(tmp, train, device)
-    finally:
-        cudnn.benchmark, cudnn.deterministic = saved
 
 
 def _cycle_phase(tmp: str, train: dict, device) -> dict:
@@ -2909,12 +2925,14 @@ def main() -> int:
         main_shape = r["shapes"][0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name[:-4]],
-            "replaces": REPLACES[name[:-4]], "launches": split["train"]["launches"][name],
+            "replaces": REPLACES[name[:-4]],
+            "launches": res["launches"][name] + split["train"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
             "bf16_ms": main_shape.get("bf16_ms"), "operands": "f32 (3xTF32 split)",
-            "launches_by_path": {"train_f32": split["train"]["launches"][name]},
+            "launches_by_path": {"serve_f32": res["launches"][name],
+                                 "train_f32": split["train"]["launches"][name]},
             "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
         })
     print(json.dumps({"phase_s": phase_s, "rays_per_s": res["rays_per_s"],

@@ -25,7 +25,12 @@ The split-operand f32 mode of K2-K5 (3xTF32 products) is held to the plain
 versions with f32 operands: forwards within 1e-4 * max(1, max|plain|), every
 backward output within 1e-4 relative L2, two launches bit for bit equal; and
 under that mode no bf16 kernel and no plain version runs
-(``build.LAUNCHES``).
+(``build.LAUNCHES``). Its one product kernel (``split_gemm_kernel``) is held
+alone against f32 ``torch.matmul`` with TF32 off: every transpose variant,
+ragged M, N and K, a grouped launch of unequal problems, every epilogue and
+the row-split contraction with its column sums, with 1 and with many splits,
+at the split tolerances (products 1e-4 * max(1, max|matmul|), the
+contraction 1e-4 relative L2), two launches bit for bit equal.
 
 The monodepth side-car (cuDNN convolutions, no kernel of the port's own) is
 held on the card against the same module on the CPU: DenseNet-161's taps
@@ -292,7 +297,7 @@ def test_f32_mode_launches_only_the_split_kernels(card, monkeypatch):
     the split-operand kernels: never the bf16 ones, never a plain version.
     Each launch of a split kernel adds one to its count, and nothing else
     does: the counts grow by the launcher calls the schedules made, the dW
-    contraction's (four a backward) under ``dw_contract_f32``."""
+    contraction's (two a backward) under ``dw_contract_f32``."""
     rng = np.random.default_rng(4)
     ws, bs = _weights(rng, [(3 + 27 + 3 + 8, 16), (16, 3)], card)
     x = [torch.tensor(rng.normal(size=(5, c)), dtype=torch.float32, device=card)
@@ -334,7 +339,7 @@ def test_f32_mode_launches_only_the_split_kernels(card, monkeypatch):
     torch.autograd.grad(alpha.sum() + rgb.square().sum() + dpt.sum(), nleaves)
     grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
     assert grew == made, (grew, made)
-    assert made["dw_contract_f32"] == 8 and all(made[k] for k in made if k.endswith("_f32"))
+    assert made["dw_contract_f32"] == 4 and all(made[k] for k in made if k.endswith("_f32"))
     assert not any(made[k] for k in made if not k.endswith("_f32"))
     with pytest.raises(ValueError, match="bf16 or f32"):
         fused_mlp.render_net(("idr", 4, True), *x, ws, bs, torch.float16)
@@ -394,6 +399,152 @@ def test_split_nerf_kernels_match_plain(card, has_dpt, n):
         assert torch.equal(a, b), i
         if float(w.abs().max()) > 0:
             assert _rel_l2(a, w) <= 1e-4, (i, _rel_l2(a, w))
+
+
+# ---------------------------------------------------------------------------
+# split_gemm_kernel alone
+# ---------------------------------------------------------------------------
+
+
+def _t(rng, *shape, device, relu=False):
+    x = rng.normal(size=shape)
+    return torch.tensor(np.maximum(x, 0.0) if relu else x, dtype=torch.float32, device=device)
+
+
+def _split_ref(A, B, *, ta=False, tb=False, bias=None, epi=fused_mlp.EPI_NONE, aux=None,
+               aux_n=0):
+    """What one split product computes, in f32 torch (TF32 off)."""
+    z = (A.t() if ta else A) @ (B.t() if tb else B)
+    if bias is not None:
+        z = z + bias
+    g = torch.zeros_like(z)
+    if aux is not None:
+        g[:, :aux_n] = aux[:, :aux_n]
+    if epi == fused_mlp.EPI_RELU:
+        return torch.relu(z)
+    if epi == fused_mlp.EPI_SIGMOID:
+        return torch.sigmoid(z)
+    if epi == fused_mlp.EPI_MASK:
+        keep = torch.ones_like(z, dtype=torch.bool)
+        keep[:, :aux_n] = aux[:, :aux_n] > 0
+        return torch.where(keep, z, torch.zeros_like(z))
+    if epi == fused_mlp.EPI_DSIGMOID:
+        y = torch.sigmoid(z)
+        return g * y * (1.0 - y)
+    if epi == fused_mlp.EPI_DRELU:
+        return g * (z > 0).float()
+    return z
+
+
+def _product_close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("ta,tb,M,N,K", [
+    (False, False, 77, 96, 44), (False, False, 300, 292, 300), (False, False, 1, 4, 4),
+    (False, True, 77, 3, 44), (False, True, 130, 96, 300), (False, True, 257, 289, 52),
+    (True, False, 96, 96, 77), (True, False, 300, 16, 5000), (True, False, 4, 292, 1)])
+def test_split_gemm_variants_match_matmul(card, ta, tb, M, N, K):
+    """Each transpose variant at ragged M, N and K (K not a multiple of the
+    32-deep slab; N of 3, 96 and 289 where B's rows run along K)."""
+    rng = np.random.default_rng(M * 7 + N * 3 + K)
+    A = _t(rng, *((K, M) if ta else (M, K)), device=card)
+    B = _t(rng, *((N, K) if tb else (K, N)), device=card)
+    ops = fused_mlp._SplitOps(card, "render_fwd_f32")
+    C, again = (torch.full((M, N), float("nan"), device=card) for _ in range(2))
+    ops.mm(A, B, C, ta=ta, tb=tb)
+    ops.mm(A, B, again, ta=ta, tb=tb)
+    assert torch.equal(C, again)
+    _product_close(C, _split_ref(A, B, ta=ta, tb=tb))
+
+
+@pytest.mark.parametrize("epi", ["none", "bias", "relu", "sigmoid", "mask", "dsigmoid", "drelu",
+                                 "column split"])
+def test_split_gemm_epilogues(card, epi):
+    """Every epilogue on a ragged 333 x 300 output (K 276), with the bias;
+    the relu mask and the output's delta read an aux of 200 columns (zero
+    past them); the column split stores 290 columns to C and the next 7 to
+    C2, as the NeRF's [feature | alpha] and [rgb | dpt] layers do."""
+    rng = np.random.default_rng(31)
+    M, N, K = 333, 300, 276
+    A, B = _t(rng, M, K, device=card), _t(rng, K, N, device=card) / np.sqrt(K)
+    bias = None if epi == "none" else _t(rng, N, device=card) * 0.1
+    code = {"none": 0, "bias": 0, "relu": 1, "sigmoid": 2, "mask": 3, "dsigmoid": 4,
+            "drelu": 5, "column split": 0}[epi]
+    aux = _t(rng, M, 200, device=card) if code >= fused_mlp.EPI_MASK else None
+    aux_n = 200 if aux is not None else 0
+    ops = fused_mlp._SplitOps(card, "render_fwd_f32")
+    want = _split_ref(A, B, bias=bias, epi=code, aux=aux, aux_n=aux_n)
+    runs = []
+    for _ in range(2):
+        if epi == "column split":
+            C, C2 = torch.zeros(M, 290, device=card), torch.zeros(M, 7, device=card)
+            ops.mm(A, B, C, bias=bias, n_store=290, C2=C2, n_store2=7)
+            runs.append(torch.cat([C, C2], 1))
+        else:
+            C = torch.zeros(M, N, device=card)
+            ops.mm(A, B, C, bias=bias, epi=code, aux=aux, aux_n=aux_n)
+            runs.append(C)
+    assert torch.equal(runs[0], runs[1])
+    _product_close(runs[0], want[:, :runs[0].shape[1]])
+
+
+def test_split_gemm_grouped_launch_of_unequal_problems(card):
+    """One launch of three problems of unequal M, N and K, each with its own
+    epilogue, as one layer's record list: each against its own product."""
+    rng = np.random.default_rng(32)
+    shapes = [(517, 96, 44, fused_mlp.EPI_RELU), (77, 292, 300, fused_mlp.EPI_NONE),
+              (1, 16, 4, fused_mlp.EPI_SIGMOID)]
+    ops = fused_mlp._SplitOps(card, "render_fwd_f32")
+    probs = [(_t(rng, M, K, device=card), _t(rng, K, N, device=card) / np.sqrt(K),
+              _t(rng, N, device=card) * 0.1, epi) for M, N, K, epi in shapes]
+    outs = []
+    for _ in range(2):
+        Cs = [torch.full((A.shape[0], B.shape[1]), float("nan"), device=card)
+              for A, B, _, _ in probs]
+        rec = []
+        for (A, B, bias, epi), C in zip(probs, Cs):
+            M, K = A.shape
+            N = B.shape[1]
+            rec += [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(),
+                    C.stride(0), M, N, K, bias.data_ptr(), epi, 0, 0, 0, N, 0, 0, 0, 0,
+                    -(-K // 32) * 32, 0]
+        build.check(ops.lib.split_mm_launch(build.int64_array(rec), len(probs), 0, 0, 1, ops.sms,
+                                            ops.stream), "split_mm")
+        outs.append(Cs)
+    for (A, B, bias, epi), C, again in zip(probs, *outs):
+        assert torch.equal(C, again)
+        _product_close(C, _split_ref(A, B, bias=bias, epi=epi))
+
+
+@pytest.mark.parametrize("splits", ["one", "many"])
+@pytest.mark.parametrize("n", [37, 16_896 + 37])
+def test_split_contraction_row_splits(card, monkeypatch, n, splits):
+    """The dW contraction of a K3-like layer list: dW = acts^T dels and db,
+    the deltas' column sums taken in the product's pass, each within 1e-4
+    relative L2 of f32 ``torch.matmul`` and ``sum``, with one row split and
+    with a split every 32 rows (the most the plan allows), bit for bit
+    equal across two launches."""
+    rng = np.random.default_rng(33)
+    layers, woff, boff = [], 0, 0
+    for K, N in [(289, 256), (256, 256), (256, 3)]:
+        Kp, Np = -(-K // 16) * 16, -(-N // 16) * 16
+        layers.append((K, N, Kp, Np, woff, boff))
+        woff, boff = woff + Kp * Np, boff + Np
+    pairs = [(_t(rng, n, Kp, device=card, relu=True), _t(rng, n, Np, device=card))
+             for _, _, Kp, Np, _, _ in layers]
+    rows = -(-n // 32) * 32 if splits == "one" else 32
+    monkeypatch.setattr(fused_mlp, "split_dw_plan", lambda n_, layers_, sms: (-(-n_ // rows), rows))
+    ops = fused_mlp._SplitOps(card, "dw_contract_f32")
+    before = build.LAUNCHES["dw_contract_f32"]
+    dW, dB = ops.dw(pairs, layers)
+    dW2, dB2 = ops.dw(pairs, layers)
+    assert build.LAUNCHES["dw_contract_f32"] == before + 4  # a product and a reduction each
+    assert torch.equal(dW, dW2) and torch.equal(dB, dB2)
+    for (x, d), (_, _, Kp, Np, wo, bo) in zip(pairs, layers):
+        assert _rel_l2(dW[wo:wo + Kp * Np].view(Kp, Np), x.t() @ d) <= 1e-4
+        assert _rel_l2(dB[bo:bo + Np], d.sum(0)) <= 1e-4
 
 
 @pytest.mark.parametrize("n", [1, 77, 8192 + 37])

@@ -343,13 +343,84 @@ def test_split_nerf_schedule_matches_plain(has_dpt, skips):
 
 
 def test_split_dw_plan():
-    """About two CTAs per SM over every layer's 64 x 128 output tiles, each
-    split a multiple of 32 rows covering every row once."""
+    """At most two work items per SM over every layer's 128 x 128 output
+    tiles, each split a multiple of 32 rows covering every row once."""
     layers = [(K, N, -(-K // 16) * 16, -(-N // 16) * 16, 0, 0)
               for K, N in [(289, 256), (256, 256), (256, 256), (256, 256), (256, 3)]]
-    tiles = 10 + 8 + 8 + 8 + 4
+    tiles = 6 + 4 + 4 + 4 + 2
     for n in (1, 37, 65_536, 65_573):
         splits, rows = fused_mlp.split_dw_plan(n, layers, 132)
         assert rows % 32 == 0 and (splits - 1) * rows < n <= splits * rows
         assert splits <= max(1, 2 * 132 // tiles)
-    assert fused_mlp.split_dw_plan(65_536, layers, 132) == (6, 10_944)
+    assert fused_mlp.split_dw_plan(65_536, layers, 132) == (13, 5_056)
+
+
+# ---------------------------------------------------------------------------
+# split_gemm_kernel's arithmetic and layout, mirrored in torch
+# ---------------------------------------------------------------------------
+
+
+def _tf32_split(x: torch.Tensor):
+    """The kernel's split_tf32: big = x rounded to tf32 (ties away), small
+    the same of x - big."""
+    def tf32(v):
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+@pytest.mark.parametrize("n", [37, 4133])
+def test_split_contraction_arithmetic_emulated(n):
+    """The contraction as the kernel sums it: per row split of
+    ``split_dw_plan``, each 32-row slab's small*big + big*small + big*big
+    from zero (exact products, the slab's sum rounded to f32), slab sums
+    added in f32 in row order; db the deltas' column sums taken serially in
+    f32 in row order in the same pass; the splits summed in split order.
+    Within the contraction's 1e-4 relative L2 of the f64 product."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.relu(torch.randn(n, 48, generator=gen))
+    d = torch.randn(n, 32, generator=gen)
+    layers = [(48, 32, 48, 32, 0, 0)]
+    splits, rows = fused_mlp.split_dw_plan(n, layers, 8)
+    assert splits > 1 and (splits - 1) * rows < n <= splits * rows
+    xb, xs = _tf32_split(x)
+    db_, ds = _tf32_split(d)
+    dW = torch.zeros(48, 32)
+    dB = torch.zeros(32)
+    for s in range(splits):
+        acc, col = torch.zeros(48, 32), torch.zeros(32)
+        for k0 in range(s * rows, min(n, (s + 1) * rows), 32):
+            sl = slice(k0, min(n, (s + 1) * rows, k0 + 32))
+            part = (xs[sl].double().t() @ db_[sl].double() + xb[sl].double().t() @ ds[sl].double()
+                    + xb[sl].double().t() @ db_[sl].double())
+            acc = acc + part.float()
+            for r in range(sl.start, sl.stop):
+                col = col + d[r]
+        dW, dB = dW + acc, dB + col
+    want_w, want_b = x.double().t() @ d.double(), d.double().sum(0)
+    assert float((dW.double() - want_w).norm() / want_w.norm()) <= 1e-4
+    assert float((dB.double() - want_b).norm() / want_b.norm()) <= 1e-4
+
+
+def test_split_converted_b_layout_is_what_wgmma_reads():
+    """The producer's store of split B element (n, k) of a 128 x 32 slab,
+    (n / 8) * 256 + (k / 4) * 32 + (n % 8) * 4 + k % 4 words, is a bijection
+    onto the 4,096 words of a tile, and is the byte wgmma's K-major
+    no-swizzle descriptor of 8-deep step k / 8 addresses: start 256 bytes a
+    step, K-adjacent core matrices (8 rows x 16 bytes) LBO = 128 bytes apart,
+    8-row groups SBO = 1,024 bytes apart."""
+    n, k = torch.meshgrid(torch.arange(128), torch.arange(32), indexing="ij")
+    stored = (n // 8) * 256 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+    assert sorted(stored.flatten().tolist()) == list(range(128 * 32))
+    read = (k // 8) * 256 + ((k % 8) // 4) * 128 + (n // 8) * 1024 + (n % 8) * 16 + (k % 4) * 4
+    assert torch.equal(4 * stored, read)
+
+
+def test_profile_split_refuses_to_run_without_a_card(capsys):
+    """The launch-by-launch profile of the split mode measures the card
+    only: without one it exits non-zero and prints no result."""
+    from vdnerf_tpu_torch.tools import profile_split
+
+    assert profile_split.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "needs a CUDA device" in out.err

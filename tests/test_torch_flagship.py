@@ -18,7 +18,10 @@ to 24^3 and the Chamfer sampling to 2,000 points. Held:
 - the Chamfer ground truth: the grid of ``geometry_qc`` through the torch
   SDFs equals the numpy SDFs' within 1e-6;
 - the tool's window rule is the JAX tool's ``k_scan`` rule, and without a card
-  the tool refuses to run (only ``device="cpu"`` runs it on the CPU).
+  the tool refuses to run (only ``device="cpu"`` runs it on the CPU);
+- ``--fused`` (or ``VDNERF_FUSED=1``) selects K2-K5's bf16 operand mode
+  through ``mlp_operand_dtype``, and the report's ``fused_mlp`` is true
+  exactly then, as the JAX tool's is under ``--fused``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from vdnerf_tpu_torch.data import synthetic
 from vdnerf_tpu_torch.mesh import qc
 from vdnerf_tpu_torch.mesh.extract import extract_fields
 from vdnerf_tpu_torch.models.fields import RenderConfig, SDFConfig
+from vdnerf_tpu_torch.models.precision import matmul_dtype, mlp_operand_dtype
 from vdnerf_tpu_torch.tools import flagship_run
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +56,7 @@ RUNS = {
     "wdepth": ["--train-mode", "wdepth"],
     "learn": ["--learn"],
     "learn_frozen": ["--learn-frozen", "--fp32"],
+    "fp32_fused": ["--fp32", "--fused"],
 }
 
 
@@ -76,6 +81,7 @@ _FULL_NETS = flagship_run.flagship_nets
 @pytest.fixture(scope="module")
 def reports(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("VDNERF_FUSED", raising=False)
         mp.setattr(flagship_run, "flagship_nets", _small_nets)
         mp.setattr(flagship_run, "geometry_qc",
                    lambda *a, **k: qc.geometry_qc(*a, **k, n_points=2000))
@@ -112,7 +118,7 @@ def test_every_mode_runs_to_the_jax_report(reports, name):
     want = _jax_record(CURRENT)
     assert set(rep) == {RENAMED.get(k, k) for k in want} | {"card", "launches"}
     assert set(want["config"]) <= set(rep["config"])
-    assert rep["config"]["bf16"] is (name != "learn_frozen")
+    assert rep["config"]["bf16"] is ("--fp32" not in RUNS[name])
     assert rep["card"] is None and rep["config"]["device"] == "cpu"
     assert rep["launches"]["train"] == {k: 0 for k in rep["launches"]["train"]}  # plain versions
     assert [set(c) for c in rep["psnr_curve"]] == [set(want["psnr_curve"][0])]
@@ -177,3 +183,37 @@ def test_tool_refuses_to_run_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flagship_run.main(SMALL + ["--out", str(out)])
     assert not out.exists()
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_fused_flag_selects_the_operand_mode(reports, name):
+    cfg = reports[name][1]["config"]
+    fused = "--fused" in RUNS[name]
+    assert cfg["fused_mlp"] is fused
+    want = mlp_operand_dtype(matmul_dtype("--fp32" not in RUNS[name]), fused)
+    assert cfg["mlp_operands"] == {torch.bfloat16: "bf16", torch.float32: "f32"}[want]
+    # under --fp32, the split mode unless --fused
+    if "--fp32" in RUNS[name]:
+        assert cfg["mlp_operands"] == ("bf16" if fused else "f32")
+
+
+@pytest.mark.parametrize("flags,env,fused", [
+    ([], "", False), (["--fused"], "", True), ([], "1", True), (["--fused"], "1", True)])
+def test_fused_flag_and_env_select_the_operand_mode(monkeypatch, tmp_path, flags, env, fused):
+    """The flag or ``VDNERF_FUSED=1``, read where the model is built: the
+    run is stopped there, with the operand mode it chose."""
+    monkeypatch.setenv("VDNERF_FUSED", env)
+    monkeypatch.setattr(flagship_run, "flagship_nets", _small_nets)
+    chosen = []
+
+    class Stop(Exception):
+        pass
+
+    def model(*a, mlp_dtype, **k):
+        chosen.append(mlp_dtype)
+        raise Stop
+
+    monkeypatch.setattr(flagship_run, "NeuSModel", model)
+    with pytest.raises(Stop):
+        flagship_run.main(SMALL + ["--fp32", "--out", str(tmp_path)] + flags, device="cpu")
+    assert chosen == [torch.bfloat16 if fused else torch.float32]

@@ -21,7 +21,10 @@ training loop's own mesh to 16^3 (``runner.mesh_resolution``). Held:
 - the precision policy each stage ran under: every runner the tool makes
   (base training, its QC, ``getfeats``, the wdepth training, its QC) builds
   its SDF network under bf16 by default and under f32 with ``--fp32``, and
-  ``VDNERF_BF16`` is restored after the run.
+  ``VDNERF_BF16`` is restored after the run;
+- the side-car's finetune and predict run under deterministic cuDNN with
+  benchmarking off (entering and leaving each CLI), in every mode that runs
+  them, and both cuDNN flags are restored after each stage.
 """
 
 from __future__ import annotations
@@ -60,9 +63,37 @@ def runs(tmp_path_factory):
         init(self, *a, **k)
         policies.append((k.get("mode"), self.model.sdf_network_fine.matmul_dtype))
 
+    side_car = []  # (stage, cuDNN flags entering, leaving, after the tool's stage)
+
+    def cudnn_flags():
+        return torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+
+    def recording(name, fn):
+        def run(*a, **k):
+            enter = cudnn_flags()
+            result = fn(*a, **k)
+            side_car.append([name, enter, cudnn_flags()])
+            return result
+        return run
+
+    def restored(stage):
+        def run(self, *a, **k):
+            result = stage(self, *a, **k)
+            side_car[-1].append(cudnn_flags())
+            return result
+        return run
+
     env_before = os.environ.get(tool.BF16_ENV)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
+        # a caller that benchmarks nondeterministically: the tool must not
+        mp.setattr(torch.backends.cudnn, "deterministic", False)
+        mp.setattr(torch.backends.cudnn, "benchmark", True)
+        mp.setattr(tool.finetune_cli, "finetune",
+                   recording("finetune", tool.finetune_cli.finetune))
+        mp.setattr(tool.predict_cli, "main", recording("predict", tool.predict_cli.main))
+        mp.setattr(tool.Cycle, "finetune", restored(tool.Cycle.finetune))
+        mp.setattr(tool.Cycle, "predict", restored(tool.Cycle.predict))
         shrink(mp, tool)
         mp.setattr(tool, "run_qc", functools.partial(tool.run_qc, n_points=2000))
         mp.setattr(runner_mod, "mesh_resolution", lambda step: (16, False))
@@ -83,6 +114,7 @@ def runs(tmp_path_factory):
         out["policies_learn"] = list(policies)
         out["env_after"] = os.environ.get(tool.BF16_ENV)
     out["env_before"] = env_before
+    out["side_car"] = side_car
     out["dirs"] = {"main": d, "learn": learn}
     return out
 
@@ -222,3 +254,13 @@ def test_every_stage_runs_under_one_precision_policy(runs, name, dtype):
     assert modes == ["train", "eval", "getfeats", "train", "eval"]
     assert [p for _, p in runs[name]] == [dtype] * 5
     assert runs["env_after"] == runs["env_before"]
+
+
+def test_side_car_stages_run_under_deterministic_cudnn(runs):
+    # the full cycle, --cycle2 and --learn each run finetune then predict
+    names = [rec[0] for rec in runs["side_car"]]
+    assert names == ["finetune", "predict"] * 3
+    for name, enter, leave, after in runs["side_car"]:
+        assert enter == (True, False), name
+        assert leave == (True, False), name
+        assert after == (False, True), name

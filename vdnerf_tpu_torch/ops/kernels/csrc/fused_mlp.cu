@@ -57,6 +57,7 @@
 // splits x 2.5 MB. Padded rows carry a zero delta, so they add nothing to
 // dW/db.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1707,38 +1708,71 @@ int nerf_plan(Plan* p, const long long* sched) {
 // JAX's default f32 policy runs the colour head, the depth head and the
 // background NeRF through f32 `linear`s; the kernels above round every
 // operand to bf16. The split mode keeps f32 accuracy on the tensor cores by
-// 3xTF32, as K1 does (sdf_fwd.cu): each operand x is split in registers into
-// big = tf32(x) and small = tf32(x - big), and big*big + big*small +
-// small*big accumulate in f32 through mma.sync.m16n8k8.tf32 (the dropped
-// small*small is below 2^-21 of the product). Each 32-deep slab sums from
-// zero in the tensor cores and its sum adds into the running accumulators in
-// f32, since the tensor cores' accumulation truncates.
+// 3xTF32, as K1 does (sdf_fwd.cu): each operand x is split into big =
+// tf32(x) and small = tf32(x - big), and small*big + big*small + big*big
+// accumulate in f32 (the dropped small*small is below 2^-21 of the product).
+// Each 32-deep slab sums from zero in the tensor cores and its sum adds into
+// the running accumulators in f32, since the tensor cores' accumulation
+// truncates.
 //
-// Why not the wgmma tiles above: hi/lo copies of both operands double K2's
-// 128-row tiles to 286,720 bytes, more than a block's 232,448, and at 64 rows
-// leave room for two ring stages only; K4's and K5's carves do the same. So
-// the split mode is one tiled product kernel (split_mm_kernel) whose
-// epilogues carry the layers' bias, relu, sigmoid, the relu masks of the
-// backward and the output's delta, launched once per layer (and once for
-// every layer's dW), with the activations and deltas in f32 in global memory
-// between the launches. The wrapper (fused_mlp._SplitOps) lists the
-// launches. A layer's activations are 1 KB a row against 0.5-1.5 MFLOP of
-// split products a row, so the products still bound it: 3x a layer's
-// operations at the TF32 peak (495 TFLOP/s) against the bytes at 3.35 TB/s.
+// Why not the bf16 mode's tiles: hi/lo copies of both operands double K2's
+// 128-row tiles to 286,720 bytes, more than a block's 232,448. So the split
+// mode is one product kernel (split_gemm_kernel) whose epilogues carry the
+// layers' bias, relu, sigmoid, the relu masks of the backward and the
+// output's delta, launched once per layer (and once for every layer's dW),
+// with the activations and deltas in f32 in global memory between the
+// launches. The wrapper (fused_mlp._SplitOps) lists the launches. A layer's
+// activations are 1 KB a row against 0.5-1.5 MFLOP of split products a row,
+// so the products bound it: 3x a layer's operations at the TF32 peak (495
+// TFLOP/s) against the bytes at 3.35 TB/s.
 //
-// split_mm_kernel: C = op(A) op(B) over a group of problems (one launch:
+// split_gemm_kernel: C = op(A) op(B) over a group of problems (one launch:
 // every dW of a backward, or one layer's product), A [M, K] row-major (TA:
-// stored [K, M]), B [K, N] (TB: stored [N, K]); tiles of 64 x 128 outputs,
-// 8 warps of 32 x 32, K in 32-deep slabs through a 3-stage cp.async ring
-// with zero fill past the problem; blockIdx.y splits K into ranges of
-// k_per_split for the dW contraction, each split writing its own partial at
-// C + split * c_split (summed in split order by reduce_dw_kernel). Shared
-// strides keep the fragment loads free of bank conflicts: 36 words a row
-// where k runs along the row, 72 or 136 where m or n does. No atomics: two
-// launches give the same bits.
+// stored [K, M]), B [K, N] (TB: stored [N, K]), in 128 x 128 output tiles
+// and 32-deep slabs. A CTA of three warpgroups is persistent: it walks the
+// work items (tile, K split) blockIdx.x, + gridDim.x, ..., and its slabs
+// stream through two rings without a CTA-wide barrier:
+//  - one producer thread keeps TMA copies (cp.async.bulk.tensor.2d, a tensor
+//    map per operand, boxes of 32-float rows in the 128-byte swizzle, so that
+//    the fragment and column reads below are free of bank conflicts) of the
+//    f32 slabs of A and B in flight, two slabs ahead, into a 3-stage ring of
+//    mbarrier-guarded stages: one box a slab where the operand's rows run
+//    along K, four of 32 x 32 where they run along M or N (a box wholly past
+//    the matrix is not copied). TMA zero-fills past the matrix; a split's K
+//    range is masked where it is read. (A bulk copy per row segment, 160-256
+//    a slab, bound the kernel on an H100: about 55 ns each.);
+//  - the producer warpgroup's 128 threads split each landed B slab once for
+//    the CTA, a column a thread, into big and small tf32 tiles in the K-major
+//    no-swizzle core-matrix layout that wgmma reads (wgmma cannot transpose
+//    tf32 operands, so B stored N-major, the forward's [in, out] weights and
+//    the contraction's deltas, is transposed on the way), into a 2-stage
+//    ring; masked past N and past the split's K; the same pass sums each
+//    column of B over the split's K in row order where the problem asks for
+//    it (Cb: the contraction's db, from the CTAs of the first row tile), so
+//    db takes no second pass over the deltas;
+//  - two consumer warpgroups, 64 rows each, load their A fragments from the
+//    f32 stage in either layout, split them in registers (wgmma's register-A
+//    form) and issue wgmma.m64n128k8.tf32 three times per 8-deep step; they
+//    are not held to each other, so one's wgmma runs while the other loads
+//    or adds its slab sum.
+// setmaxnreg gives the consumers 224 registers (the slab's partial sums and
+// the running sums, 64 each, and 32 of A fragments) and the producers 56.
+// The epilogue goes through a staging block a consumer warpgroup (the
+// fragments' scattered columns cost 8 memory sectors a store, which made the
+// epilogue longer than the products): the aux rows in, the registers
+// through the epilogue, the rows out, 16 bytes a thread. The contraction's
+// partials go to C + split * c_split (summed in split order by
+// reduce_dw_kernel). The barriers count warps (each warp's lane 0 arrives
+// after the warp's __syncwarp), not threads. No atomics, and a fixed order
+// of every sum: two launches give the same bits.
 
-constexpr int kSmM = 64, kSmN = 128, kSmK = 32, kSmStages = 3, kSmThreads = 256;
+constexpr int kSgM = 128, kSgN = 128, kSgK = 32;
+constexpr int kSgStagesF = 3, kSgStagesC = 2, kSgLead = kSgStagesF - 1;
+constexpr int kSgThreads = 384;
+constexpr int kSgProducerRegs = 56, kSgConsumerRegs = 224;
 constexpr int kSmMaxProbs = 16;
+static_assert(kSgProducerRegs * 128 + kSgConsumerRegs * 256 <= 168 * kSgThreads,
+              "the register split fits the 168 registers a thread of 384 has");
 
 enum SplitEpi { kEpiNone = 0, kEpiRelu = 1, kEpiSigmoid = 2, kEpiMask = 3, kEpiDSigmoid = 4,
                 kEpiDRelu = 5 };
@@ -1747,216 +1781,460 @@ enum SplitEpi { kEpiNone = 0, kEpiRelu = 1, kEpiSigmoid = 2, kEpiMask = 3, kEpiD
 // source (kEpiMask: columns < aux_n zeroed where aux <= 0) or the output's
 // cotangent (kEpiDSigmoid / kEpiDRelu: columns < aux_n, zero past them).
 // Columns < n_store go to C, the next n_store2 to C2 (from its column 0).
+// Cb (or null): the column sums of op(B) over each split's K, at
+// Cb + split * c_split.
 struct SplitProb {
+  CUtensorMap amap, bmap;  // A and B, as split_mm_launch encodes them
   const float* A;
   const float* B;
   float* C;
   float* C2;
   const float* bias;
   const float* aux;
+  float* Cb;
   long long lda, ldb, ldc, ldc2, ldaux, c_split;
   int M, N, K, k_per_split, epi, aux_n, n_store, n_store2;
 };
 
 struct SplitProbs {
-  int n;
-  int tile0[kSmMaxProbs + 1];
+  int n, splits;
+  int tile0[kSmMaxProbs + 1];  // each problem's first tile; tile0[n]: tiles of a split
   SplitProb q[kSmMaxProbs];
 };
 
-template <bool TA, bool TB>
-struct SmLayout {
-  static constexpr int kLdA = TA ? kSmM + 8 : kSmK + 4;   // As[k][m] or As[m][k]
-  static constexpr int kLdB = TB ? kSmK + 4 : kSmN + 8;   // Bs[n][k] or Bs[k][n]
-  static constexpr int kA = TA ? kSmK * kLdA : kSmM * kLdA;
-  static constexpr int kB = TB ? kSmN * kLdB : kSmK * kLdB;
-  static constexpr int kStage = kA + kB;  // floats
-};
+// A stage of the f32 ring: A's slab, then B's, 16 KB each in TMA's 128-byte
+// swizzle (boxes of 32-float rows, 1024-byte aligned); the converted ring's
+// stage: B's big and small tf32 tiles
+constexpr int kSgStageF = 2 * kSgM * kSgK;  // floats
+constexpr int kSgStageC = 2 * kSgN * kSgK;
+constexpr int kSgStaging = 64 * kSgN;  // floats: a consumer warpgroup's output block
+constexpr size_t kSgBars = sizeof(float) * ((size_t)kSgStagesF * kSgStageF +
+                                            (size_t)kSgStagesC * kSgStageC + 2 * kSgStaging);
+constexpr size_t kSgSmem = 1024 + kSgBars + sizeof(uint64_t) * 2 * (kSgStagesF + kSgStagesC);
+static_assert(kSgSmem <= 232448, "a block's shared memory");
+static_assert(kSgM * kSgK == kSgN * kSgK, "A's and B's slabs are the same size");
+
+// float offset of (row r, column c) in TMA's 128-byte swizzle of 32-float
+// rows from a 1024-byte boundary: 16-byte chunk c / 4 of row r at chunk
+// (c / 4) ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+// A's (m, k) and B's (k, n) in their stage: one box of 128 rows of 32 k, or
+// four boxes of 32 rows of k, each 32 of m (n) wide
+template <bool TA>
+__device__ __forceinline__ int sg_at_a(int m, int k) {
+  return TA ? (m >> 5) * 1024 + swz(k, m & 31) : swz(m, k);
+}
+template <bool TB>
+__device__ __forceinline__ int sg_at_b(int k, int n) {
+  return TB ? swz(n, k) : (n >> 5) * 1024 + swz(k, n & 31);
+}
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   small = __float_as_uint(x - __uint_as_float(big)) & 0xFFFFE000u;
 }
 
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// the work item `item` of a launch: its problem, tile origin and K range
+struct SgItem {
+  int pi, m0, n0, split, k_begin, k_end, n_slabs;
+};
 
-// slab [k0, k0 + 32) of both operands into one stage, zero past M, N, k_end
-template <bool TA, bool TB>
-__device__ __forceinline__ void split_mm_load(const SplitProb& q, int m0, int n0, int k0,
-                                              int k_end, float* As, float* Bs) {
-  using Lay = SmLayout<TA, TB>;
-  // A: 512 chunks of 4 floats
-  for (int idx = threadIdx.x; idx < kSmM * kSmK / 4; idx += kSmThreads) {
-    int r, c, gm, gk;
-    if (TA) {  // 32 k-rows of 64 m
-      r = idx / (kSmM / 4); c = (idx % (kSmM / 4)) * 4; gk = k0 + r; gm = m0 + c;
-    } else {   // 64 m-rows of 32 k
-      r = idx / (kSmK / 4); c = (idx % (kSmK / 4)) * 4; gm = m0 + r; gk = k0 + c;
-    }
-    const bool ok = gm < q.M && gk < k_end;
-    const float* src = TA ? q.A + gk * q.lda + gm : q.A + gm * q.lda + gk;
-    cp_async16_zfill(As + r * Lay::kLdA + c, ok ? src : q.A, ok ? 16 : 0);
-  }
-  // B: 1024 chunks of 4 floats
-  for (int idx = threadIdx.x; idx < kSmN * kSmK / 4; idx += kSmThreads) {
-    int r, c, gn, gk;
-    if (TB) {  // 128 n-rows of 32 k
-      r = idx / (kSmK / 4); c = (idx % (kSmK / 4)) * 4; gn = n0 + r; gk = k0 + c;
-    } else {   // 32 k-rows of 128 n
-      r = idx / (kSmN / 4); c = (idx % (kSmN / 4)) * 4; gk = k0 + r; gn = n0 + c;
-    }
-    const bool ok = gn < q.N && gk < k_end;
-    const float* src = TB ? q.B + gn * q.ldb + gk : q.B + gk * q.ldb + gn;
-    cp_async16_zfill(Bs + r * Lay::kLdB + c, ok ? src : q.B, ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ float split_epilogue(const SplitProb& q, int m, int col, float v) {
-  const float z = q.bias != nullptr ? v + q.bias[col] : v;
-  switch (q.epi) {
-    case kEpiRelu:
-      return fmaxf(z, 0.0f);
-    case kEpiSigmoid:
-      return 1.0f / (1.0f + expf(-z));
-    case kEpiMask:
-      return col < q.aux_n && !(q.aux[m * q.ldaux + col] > 0.0f) ? 0.0f : z;
-    case kEpiDSigmoid: {
-      const float y = 1.0f / (1.0f + expf(-z));
-      const float gv = col < q.aux_n ? q.aux[m * q.ldaux + col] : 0.0f;
-      return gv * y * (1.0f - y);
-    }
-    case kEpiDRelu: {
-      const float gv = col < q.aux_n ? q.aux[m * q.ldaux + col] : 0.0f;
-      return gv * (z > 0.0f ? 1.0f : 0.0f);
-    }
-    default:
-      return z;
-  }
-}
-
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(kSmThreads, 2) split_mm_kernel(SplitProbs P) {
-  using Lay = SmLayout<TA, TB>;
-  extern __shared__ __align__(128) float smf[];  // [stages][A | B]
-  int t = blockIdx.x;
+__device__ __forceinline__ SgItem sg_item(const SplitProbs& P, int item) {
+  SgItem it;
+  const int tiles = P.tile0[P.n];
+  it.split = item / tiles;
+  int t = item - it.split * tiles;
   int pi = 0;
   while (t >= P.tile0[pi + 1]) ++pi;
   t -= P.tile0[pi];
   const SplitProb& q = P.q[pi];
-  const int tiles_n = (q.N + kSmN - 1) / kSmN;
-  const int m0 = (t / tiles_n) * kSmM;
-  const int n0 = (t % tiles_n) * kSmN;
-  const int k_begin = blockIdx.y * q.k_per_split;
-  const int k_end = min(q.K, k_begin + q.k_per_split);
-  const int n_slabs = k_end > k_begin ? (k_end - k_begin + kSmK - 1) / kSmK : 0;
+  const int tiles_n = (q.N + kSgN - 1) / kSgN;
+  it.pi = pi;
+  it.m0 = (t / tiles_n) * kSgM;
+  it.n0 = (t % tiles_n) * kSgN;
+  it.k_begin = it.split * q.k_per_split;
+  it.k_end = min(q.K, it.k_begin + q.k_per_split);
+  it.n_slabs = (it.k_end - it.k_begin + kSgK - 1) / kSgK;  // >= 1: read_split_probs
+  return it;
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 2;  // rows wm*32 .. +31 of the tile
-  const int wn = warp & 3;   // columns wn*32 .. +31
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int i = 0; i < kSmStages - 1; ++i) {
-    if (i < n_slabs)
-      split_mm_load<TA, TB>(q, m0, n0, k_begin + i * kSmK, k_end, smf + i * Lay::kStage,
-                            smf + i * Lay::kStage + Lay::kA);
-    cp_async_commit();
+// the CTA's slabs in order: (item, slab s of it); g counts them
+struct SgSeq {
+  SgItem it;
+  int item, s, g;
+  bool valid;
+  __device__ __forceinline__ void start(const SplitProbs& P, int total) {
+    item = blockIdx.x;
+    s = 0;
+    g = 0;
+    valid = item < total;
+    if (valid) it = sg_item(P, item);
   }
-  for (int s = 0; s < n_slabs; ++s) {
-    cp_async_wait<kSmStages - 2>();
-    __syncthreads();  // slab s landed; every warp is done with slab s - 1
-    const int nxt = s + kSmStages - 1;
-    if (nxt < n_slabs) {
-      float* st = smf + (nxt % kSmStages) * Lay::kStage;
-      split_mm_load<TA, TB>(q, m0, n0, k_begin + nxt * kSmK, k_end, st, st + Lay::kA);
+  __device__ __forceinline__ void next(const SplitProbs& P, int total) {
+    ++g;
+    if (++s < it.n_slabs) return;
+    s = 0;
+    item += gridDim.x;
+    valid = item < total;
+    if (valid) it = sg_item(P, item);
+  }
+};
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// box (c0 inner, c1 outer) of the tensor `map` into dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// the warp's arrival on bar, after every lane's earlier accesses
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// the copying thread: slab `sq` into its f32 stage, arriving on the stage's
+// `full` barrier with the bytes of the boxes it copies
+template <bool TA, bool TB>
+__device__ __forceinline__ void sg_copy(const SplitProbs& P, const SgSeq& sq, float* ringF,
+                                        uint64_t* full, uint64_t* empty) {
+  const int st = sq.g % kSgStagesF;
+  // the stage's previous slab, g - kSgStagesF, released by every reader
+  mbar_wait(&empty[st], ((sq.g / kSgStagesF) & 1) ^ 1);
+  const SplitProb& q = P.q[sq.it.pi];
+  const int k0 = sq.it.k_begin + sq.s * kSgK;
+  float* As = ringF + (size_t)st * kSgStageF;
+  float* Bs = As + kSgM * kSgK;
+  const int na = TA ? min(4, (q.M - sq.it.m0 + 31) / 32) : 1;
+  const int nb = TB ? 1 : min(4, (q.N - sq.it.n0 + 31) / 32);
+  mbar_expect_tx(&full[st], 4 * (na * (TA ? 32 * kSgK : kSgM * kSgK) +
+                                 nb * (TB ? kSgN * kSgK : 32 * kSgK)));
+  for (int b = 0; b < na; ++b) {
+    if (TA)
+      tma_load_2d(As + b * 1024, &q.amap, sq.it.m0 + 32 * b, k0, &full[st]);
+    else
+      tma_load_2d(As, &q.amap, k0, sq.it.m0, &full[st]);
+  }
+  for (int b = 0; b < nb; ++b) {
+    if (TB)
+      tma_load_2d(Bs, &q.bmap, k0, sq.it.n0, &full[st]);
+    else
+      tma_load_2d(Bs + b * 1024, &q.bmap, sq.it.n0 + 32 * b, k0, &full[st]);
+  }
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[8 x 128]: A from registers (4 tf32 a thread),
+// B a K-major shared-memory descriptor; scale_d 0 starts from zero
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_tf32_64x128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SCALE_D));
+}
+
+// the epilogue `EPI` of z, with `a` its aux value (past aux_n: 1 for the
+// relu mask, which keeps z, and 0 for the output's delta)
+template <int EPI>
+__device__ __forceinline__ float sg_act(float z, float a) {
+  if (EPI == kEpiRelu) return fmaxf(z, 0.0f);
+  if (EPI == kEpiSigmoid) return 1.0f / (1.0f + expf(-z));
+  if (EPI == kEpiMask) return a > 0.0f ? z : 0.0f;
+  if (EPI == kEpiDSigmoid) {
+    const float y = 1.0f / (1.0f + expf(-z));
+    return a * y * (1.0f - y);
+  }
+  if (EPI == kEpiDRelu) return a * (z > 0.0f ? 1.0f : 0.0f);
+  return z;
+}
+
+// (row r, column c) of a warpgroup's 64 x 128 staging block; the XOR keeps
+// the fragment writes and the row reads free of bank conflicts
+__device__ __forceinline__ int stg(int r, int c) { return r * kSgN + (c ^ ((r & 7) << 3)); }
+
+__device__ __forceinline__ void wg_bar(int wc) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wc) : "memory");
+}
+
+// A consumer warpgroup's epilogue of its 64 rows of the item's tile: the aux
+// block loaded by rows into the staging block (16-byte loads), each register
+// through bias and EPI into it, then the block stored by rows (16-byte
+// stores where the row's four columns go to C): the fragments' scattered
+// accesses stay in shared memory
+template <int EPI>
+__device__ __forceinline__ void sg_epilogue(const SplitProb& q, const SgItem& it, int wc,
+                                            float* staging, const float (&acc)[64]) {
+  const int tl = threadIdx.x & 127;
+  const int g = (tl & 31) >> 2, tq = tl & 3;
+  const int r0 = (tl >> 5) * 16 + g;  // staging rows r0 and r0 + 8
+  const int m_base = it.m0 + wc * 64;
+  float bv[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = it.n0 + 8 * j + 2 * tq + e;
+      bv[2 * j + e] = q.bias != nullptr && col < q.N ? q.bias[col] : 0.0f;
     }
-    cp_async_commit();
-    const float* As = smf + (s % kSmStages) * Lay::kStage;
-    const float* Bs = As + Lay::kA;
-    float part[2][4][4];
+  wg_bar(wc);  // the previous item's stores have read the block
+  if (EPI >= kEpiMask) {
+    const float dflt = EPI == kEpiMask ? 1.0f : 0.0f;
+    for (int i = tl; i < 64 * (kSgN / 4); i += 128) {
+      const int r = i / (kSgN / 4), c = (i % (kSgN / 4)) * 4;
+      const int m = m_base + r, col = it.n0 + c;
+      float4 v = make_float4(dflt, dflt, dflt, dflt);
+      if (m < q.M) {
+        const float* src = q.aux + (size_t)m * q.ldaux + col;
+        if (col + 3 < q.aux_n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+          v = *reinterpret_cast<const float4*>(src);
+        } else {
+          float* pv = &v.x;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+          for (int e = 0; e < 4; ++e)
+            if (col + e < q.aux_n) pv[e] = src[e];
+        }
+      }
+      *reinterpret_cast<float4*>(staging + stg(r, c)) = v;
+    }
+    wg_bar(wc);
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      float2* at = reinterpret_cast<float2*>(staging + stg(r0 + 8 * h, 8 * j + 2 * tq));
+      const float2 a = EPI >= kEpiMask ? *at : make_float2(0.0f, 0.0f);
+      *at = make_float2(sg_act<EPI>(acc[4 * j + 2 * h] + bv[2 * j], a.x),
+                        sg_act<EPI>(acc[4 * j + 2 * h + 1] + bv[2 * j + 1], a.y));
+    }
+  wg_bar(wc);
+  float* C = q.C + (size_t)it.split * q.c_split;
+  for (int i = tl; i < 64 * (kSgN / 4); i += 128) {
+    const int r = i / (kSgN / 4), c = (i % (kSgN / 4)) * 4;
+    const int m = m_base + r, col = it.n0 + c;
+    if (m >= q.M || col >= q.N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(staging + stg(r, c));
+    float* dst = C + (size_t)m * q.ldc + col;
+    if (col + 3 < q.n_store && col + 3 < q.N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      *reinterpret_cast<float4*>(dst) = v;
+      continue;
+    }
+    const float* pv = &v.x;
 #pragma unroll
-    for (int kk = 0; kk < kSmK; kk += 8) {
-      uint32_t bb[4][2], bs[4][2];
+    for (int e = 0; e < 4; ++e) {
+      const int cc = col + e;
+      if (cc >= q.N) break;
+      if (cc < q.n_store)
+        C[(size_t)m * q.ldc + cc] = pv[e];
+      else if (cc - q.n_store < q.n_store2)
+        q.C2[(size_t)m * q.ldc2 + cc - q.n_store] = pv[e];
+    }
+  }
+}
+
+// The producer warpgroup: thread 0 copies kSgLead slabs ahead; every thread
+// splits column t of each landed B slab into the converted ring.
+template <bool TA, bool TB>
+__device__ __forceinline__ void sg_producer(const SplitProbs& P, int total, float* ringF,
+                                            uint32_t* ringC, uint64_t* fullF, uint64_t* emptyF,
+                                            uint64_t* fullC, uint64_t* emptyC) {
+  const int t = threadIdx.x;  // 0..127
+  const bool copier = t == 0;
+  SgSeq sq, ahead;
+  sq.start(P, total);
+  ahead.start(P, total);
+  if (copier)
+    for (int i = 0; i < kSgLead && ahead.valid; ++i) {
+      sg_copy<TA, TB>(P, ahead, ringF, fullF, emptyF);
+      ahead.next(P, total);
+    }
+  float colsum = 0.0f;
+  for (; sq.valid; sq.next(P, total)) {
+    if (copier && ahead.valid) {
+      sg_copy<TA, TB>(P, ahead, ringF, fullF, emptyF);
+      ahead.next(P, total);
+    }
+    const SplitProb& q = P.q[sq.it.pi];
+    const int stF = sq.g % kSgStagesF, stC = sq.g % kSgStagesC;
+    mbar_wait(&fullF[stF], (sq.g / kSgStagesF) & 1);
+    mbar_wait(&emptyC[stC], ((sq.g / kSgStagesC) & 1) ^ 1);
+    const float* Bs = ringF + (size_t)stF * kSgStageF + kSgM * kSgK;
+    uint32_t* big = ringC + (size_t)stC * kSgStageC;
+    uint32_t* small = big + kSgN * kSgK;
+    const int k0 = sq.it.k_begin + sq.s * kSgK;
+    const bool col_ok = sq.it.n0 + t < q.N;
+    const bool sums = q.Cb != nullptr && sq.it.m0 == 0;
+#pragma unroll
+    for (int kq = 0; kq < kSgK / 4; ++kq) {
+      float v[4];
+      if (TB) {
+        const float4 x = *reinterpret_cast<const float4*>(Bs + sg_at_b<true>(4 * kq, t));
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = Bs[sg_at_b<false>(4 * kq + j, t)];
+      }
+      uint4 hb, hs;
+      uint32_t* pb = &hb.x;
+      uint32_t* ps = &hs.x;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + g;
-        const float b0 = TB ? Bs[n * Lay::kLdB + kk + tq] : Bs[(kk + tq) * Lay::kLdB + n];
-        const float b1 = TB ? Bs[n * Lay::kLdB + kk + tq + 4] : Bs[(kk + tq + 4) * Lay::kLdB + n];
-        split_tf32(b0, bb[j][0], bs[j][0]);
-        split_tf32(b1, bb[j][1], bs[j][1]);
+        const float x = col_ok && k0 + 4 * kq + j < sq.it.k_end ? v[j] : 0.0f;
+        split_tf32(x, pb[j], ps[j]);
+        if (sums) colsum += x;
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = wm * 32 + i * 16 + g;
-        float a[4];
-        if (TA) {
-          a[0] = As[(kk + tq) * Lay::kLdA + m];
-          a[1] = As[(kk + tq) * Lay::kLdA + m + 8];
-          a[2] = As[(kk + tq + 4) * Lay::kLdA + m];
-          a[3] = As[(kk + tq + 4) * Lay::kLdA + m + 8];
-        } else {
-          a[0] = As[m * Lay::kLdA + kk + tq];
-          a[1] = As[(m + 8) * Lay::kLdA + kk + tq];
-          a[2] = As[m * Lay::kLdA + kk + tq + 4];
-          a[3] = As[(m + 8) * Lay::kLdA + kk + tq + 4];
-        }
-        uint32_t ab[4], as[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_tf32(part[i][j], as, bb[j][0], bb[j][1]);
-          mma_tf32(part[i][j], ab, bs[j][0], bs[j][1]);
-          mma_tf32(part[i][j], ab, bb[j][0], bb[j][1]);
-        }
-      }
+      const int at = (t >> 3) * (8 * kSgK) + kq * 32 + (t & 7) * 4;
+      *reinterpret_cast<uint4*>(big + at) = hb;
+      *reinterpret_cast<uint4*>(small + at) = hs;
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    fence_async_smem();  // the converted tiles, to wgmma's async proxy
+    warp_arrive(&fullC[stC]);
+    warp_arrive(&emptyF[stF]);
+    if (sums && sq.s + 1 == sq.it.n_slabs) {
+      if (col_ok) q.Cb[(size_t)sq.it.split * q.c_split + sq.it.n0 + t] = colsum;
+      colsum = 0.0f;
+    }
   }
-  cp_async_wait<0>();
+}
 
-  float* C = q.C + (size_t)blockIdx.y * q.c_split;
+// A consumer warpgroup (wc 0 or 1): rows wc*64 .. +63 of each tile
+template <bool TA, bool TB>
+__device__ __forceinline__ void sg_consumer(const SplitProbs& P, int total, int wc,
+                                            const float* ringF, const uint32_t* ringC,
+                                            float* staging, uint64_t* fullF, uint64_t* emptyF,
+                                            uint64_t* fullC, uint64_t* emptyC) {
+  const int lane = threadIdx.x & 31;
+  const int q4 = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rA = wc * 64 + q4 * 16 + g;  // tile rows rA and rA + 8
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  SgSeq sq;
+  sq.start(P, total);
+  while (sq.valid) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    const SgItem it = sq.it;
+    const SplitProb& q = P.q[it.pi];
+    const bool row0 = it.m0 + rA < q.M, row1 = it.m0 + rA + 8 < q.M;
+    for (int s = 0; s < it.n_slabs; ++s, sq.next(P, total)) {
+      const int stF = sq.g % kSgStagesF, stC = sq.g % kSgStagesC;
+      mbar_wait(&fullF[stF], (sq.g / kSgStagesF) & 1);
+      const float* As = ringF + (size_t)stF * kSgStageF;
+      const int kr = it.k_end - (it.k_begin + s * kSgK);  // valid k of the slab
+      uint32_t ab[4][4], as[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm * 32 + i * 16 + g + (e >> 1) * 8;
-        const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
-        if (m >= q.M || col >= q.N) continue;
-        const float v = split_epilogue(q, m, col, acc[i][j][e]);
-        if (col < q.n_store)
-          C[(size_t)m * q.ldc + col] = v;
-        else if (col - q.n_store < q.n_store2)
-          q.C2[(size_t)m * q.ldc2 + col - q.n_store] = v;
+      for (int ks = 0; ks < 4; ++ks) {
+        const int c0 = 8 * ks + tq, c1 = c0 + 4;
+        float a[4];
+        a[0] = As[sg_at_a<TA>(rA, c0)];
+        a[1] = As[sg_at_a<TA>(rA + 8, c0)];
+        a[2] = As[sg_at_a<TA>(rA, c1)];
+        a[3] = As[sg_at_a<TA>(rA + 8, c1)];
+        a[0] = row0 && c0 < kr ? a[0] : 0.0f;
+        a[1] = row1 && c0 < kr ? a[1] : 0.0f;
+        a[2] = row0 && c1 < kr ? a[2] : 0.0f;
+        a[3] = row1 && c1 < kr ? a[3] : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[ks][e], as[ks][e]);
       }
+      warp_arrive(&emptyF[stF]);  // the warp is done with the f32 stage
+      mbar_wait(&fullC[stC], (sq.g / kSgStagesC) & 1);
+      const uint32_t* big = ringC + (size_t)stC * kSgStageC;
+      const uint32_t* small = big + kSgN * kSgK;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        // K-adjacent core matrices 128 bytes apart, 8-column groups 1 KB apart
+        const uint64_t dbig = wg_desc(big + 64 * ks, 128, 8 * kSgK * 4);
+        const uint64_t dsmall = wg_desc(small + 64 * ks, 128, 8 * kSgK * 4);
+        if (ks == 0)
+          wgmma_tf32_64x128<0>(part, as[ks], dbig);
+        else
+          wgmma_tf32_64x128<1>(part, as[ks], dbig);
+        wgmma_tf32_64x128<1>(part, ab[ks], dsmall);
+        wgmma_tf32_64x128<1>(part, ab[ks], dbig);
+      }
+      wg_commit();
+      wg_wait<0>();
+      warp_arrive(&emptyC[stC]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    // register 4j + 2h + e holds row rA + 8h, column 8j + 2tq + e
+    switch (q.epi) {
+      case kEpiRelu: sg_epilogue<kEpiRelu>(q, it, wc, staging, acc); break;
+      case kEpiSigmoid: sg_epilogue<kEpiSigmoid>(q, it, wc, staging, acc); break;
+      case kEpiMask: sg_epilogue<kEpiMask>(q, it, wc, staging, acc); break;
+      case kEpiDSigmoid: sg_epilogue<kEpiDSigmoid>(q, it, wc, staging, acc); break;
+      case kEpiDRelu: sg_epilogue<kEpiDRelu>(q, it, wc, staging, acc); break;
+      default: sg_epilogue<kEpiNone>(q, it, wc, staging, acc); break;
+    }
+  }
+}
+
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kSgThreads, 1)
+    split_gemm_kernel(const __grid_constant__ SplitProbs P) {
+  extern __shared__ __align__(128) float smf[];
+  // the rings from the first 1024-byte boundary (TMA's swizzle repeats there)
+  char* base = reinterpret_cast<char*>(smf) + ((1024 - (smem_u32(smf) & 1023)) & 1023);
+  float* ringF = reinterpret_cast<float*>(base);
+  uint32_t* ringC = reinterpret_cast<uint32_t*>(ringF + (size_t)kSgStagesF * kSgStageF);
+  float* staging = reinterpret_cast<float*>(ringC + (size_t)kSgStagesC * kSgStageC);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + kSgBars);
+  uint64_t* fullF = bars;
+  uint64_t* emptyF = fullF + kSgStagesF;
+  uint64_t* fullC = emptyF + kSgStagesF;
+  uint64_t* emptyC = fullC + kSgStagesC;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSgStagesF; ++i) {
+      mbar_init(&fullF[i], 1);       // the copying thread
+      mbar_init(&emptyF[i], 4 + 8);  // every producer and consumer warp
+    }
+    for (int i = 0; i < kSgStagesC; ++i) {
+      mbar_init(&fullC[i], 4);   // the producer warps
+      mbar_init(&emptyC[i], 8);  // the consumer warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int total = P.tile0[P.n] * P.splits;
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kSgProducerRegs));
+    sg_producer<TA, TB>(P, total, ringF, ringC, fullF, emptyF, fullC, emptyC);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSgConsumerRegs));
+    sg_consumer<TA, TB>(P, total, wg - 1, ringF, ringC, staging + (wg - 1) * kSgStaging, fullF,
+                        emptyF, fullC, emptyC);
+  }
 }
 
 // dst[r, c] for c < width: embedding column c of src row r (d values, `freqs`
@@ -1999,35 +2277,50 @@ __global__ void split_embed_vjp_kernel(SplitVjpSrc S, const float* __restrict__ 
   }
 }
 
-// dbpart[split, boff_l + j] = sum of column j of D_l over the split's rows,
-// in row order; one thread per packed column
-struct SplitColsum {
-  int n_layers, n_rows, rows_per_split, total_b;
-  const float* D[kMaxLayers];
-  long long ld[kMaxLayers];
-  int boff[kMaxLayers + 1];
-};
+// the int64 records of split_mm_launch: 21 values a problem
+constexpr int kSplitProbWords = 21;
 
-__global__ void split_colsum_kernel(SplitColsum S, float* __restrict__ dbpart) {
-  const int jj = blockIdx.x * blockDim.x + threadIdx.x;
-  if (jj >= S.total_b) return;
-  int l = 0;
-  while (jj >= S.boff[l + 1]) ++l;
-  const int j = jj - S.boff[l];
-  const int r0 = blockIdx.y * S.rows_per_split;
-  const int r1 = min(S.n_rows, r0 + S.rows_per_split);
-  float s = 0.0f;
-  for (int r = r0; r < r1; ++r) s += S.D[l][r * S.ld[l] + j];
-  dbpart[(size_t)blockIdx.y * S.total_b + jj] = s;
+// cuTensorMapEncodeTiled, from the driver through the runtime (no libcuda
+// link), or null
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-// the int64 records of split_mm_launch: 20 values a problem
-constexpr int kSplitProbWords = 20;
+// the tensor map of a row-major f32 matrix [outer, inner] (row stride ld
+// floats), boxes of box_outer rows of 32 floats in the 128-byte swizzle,
+// zero past the matrix; 1 on failure
+int encode_map(CUtensorMap* map, const float* base, int inner, int outer, long long ld,
+               int box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return 1;
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t stride[1] = {(cuuint64_t)ld * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_outer};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dim, stride, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+         CUDA_SUCCESS;
+}
 
-int read_split_probs(const long long* w, int n, int ta, int tb, SplitProbs* P, int* splits_out,
-                     int splits) {
+int read_split_probs(const long long* w, int n, int ta, int tb, int splits, SplitProbs* P) {
   if (n < 1 || n > kSmMaxProbs) return 1;
   P->n = n;
+  P->splits = splits;
   P->tile0[0] = 0;
   for (int i = 0; i < n; ++i) {
     const long long* v = w + kSplitProbWords * i;
@@ -2052,19 +2345,26 @@ int read_split_probs(const long long* w, int n, int ta, int tb, SplitProbs* P, i
     q.n_store2 = (int)v[17];
     q.c_split = v[18];
     q.k_per_split = (int)v[19];
-    // 16-byte copies: operand strides and bases aligned to 4 floats, and
-    // the dimension each operand's rows run along a multiple of 4
+    q.Cb = reinterpret_cast<float*>(v[20]);
+    // TMA: operand bases and row strides aligned to 16 bytes, a row stride
+    // at least its row; every split holds at least one row of K
     const bool ok = q.A && q.B && q.C && q.M >= 0 && q.N > 0 && q.K > 0 && q.lda % 4 == 0 &&
                     q.ldb % 4 == 0 && (v[0] & 15) == 0 && (v[2] & 15) == 0 &&
-                    (ta ? q.M % 4 == 0 : q.K % 4 == 0) && (tb ? q.K % 4 == 0 : q.N % 4 == 0) &&
+                    q.lda >= (ta ? q.M : q.K) && q.ldb >= (tb ? q.K : q.N) &&
                     q.epi >= 0 && q.epi <= 5 &&
                     (q.epi < kEpiMask || q.aux) && (q.n_store2 == 0 || q.C2) &&
-                    q.k_per_split > 0 && q.k_per_split % kSmK == 0 &&
-                    (long long)splits * q.k_per_split >= q.K && (splits == 1 || q.c_split > 0);
+                    q.k_per_split > 0 && q.k_per_split % kSgK == 0 &&
+                    (long long)splits * q.k_per_split >= q.K &&
+                    (long long)(splits - 1) * q.k_per_split < q.K &&
+                    (splits == 1 || q.c_split > 0);
     if (!ok) return 1;
-    P->tile0[i + 1] = P->tile0[i] + ((q.M + kSmM - 1) / kSmM) * ((q.N + kSmN - 1) / kSmN);
+    if (q.M > 0 && (encode_map(&q.amap, q.A, ta ? q.M : q.K, ta ? q.K : q.M, q.lda,
+                               ta ? 32 : kSgM) ||
+                    encode_map(&q.bmap, q.B, tb ? q.K : q.N, tb ? q.N : q.K, q.ldb,
+                               tb ? kSgN : 32)))
+      return 1;
+    P->tile0[i + 1] = P->tile0[i] + ((q.M + kSgM - 1) / kSgM) * ((q.N + kSgN - 1) / kSgN);
   }
-  *splits_out = splits;
   return 0;
 }
 
@@ -2211,33 +2511,37 @@ extern "C" int dw_finish_launch(const long long* meta, int n, const void* acts,
 // the split-operand f32 mode (fused_mlp._SplitOps lists the launches)
 // ---------------------------------------------------------------------------
 
-// probs: n_probs records of 20 int64 (fused_mlp._SplitOps.mm): A, lda, B,
+// probs: n_probs records of 21 int64 (fused_mlp._SplitOps.mm): A, lda, B,
 // ldb, C, ldc, M, N, K, bias, epi, aux, ldaux, aux_n, n_store, C2, ldc2,
-// n_store2, c_split, k_per_split; ta / tb: A stored [K, M] / B stored [N, K]
+// n_store2, c_split, k_per_split, Cb; ta / tb: A stored [K, M] / B stored
+// [N, K]; ctas: the persistent grid's most CTAs (one an SM)
 extern "C" int split_mm_launch(const long long* probs, int n_probs, int ta, int tb, int splits,
-                               void* stream) {
+                               int ctas, void* stream) {
   SplitProbs P;
-  int sp = 1;
-  if (splits < 1 || read_split_probs(probs, n_probs, ta, tb, &P, &sp, splits))
+  if (splits < 1 || ctas < 1 || read_split_probs(probs, n_probs, ta, tb, splits, &P))
     return (int)cudaErrorInvalidValue;
   void (*kernel)(SplitProbs) = nullptr;
-  size_t smem = 0;
-  if (!ta && !tb) {
-    kernel = split_mm_kernel<false, false>;
-    smem = sizeof(float) * kSmStages * SmLayout<false, false>::kStage;
-  } else if (!ta && tb) {
-    kernel = split_mm_kernel<false, true>;
-    smem = sizeof(float) * kSmStages * SmLayout<false, true>::kStage;
-  } else if (ta && !tb) {
-    kernel = split_mm_kernel<true, false>;
-    smem = sizeof(float) * kSmStages * SmLayout<true, false>::kStage;
-  } else {
+  const size_t smem = kSgSmem;
+  if (!ta && !tb)
+    kernel = split_gemm_kernel<false, false>;
+  else if (!ta && tb)
+    kernel = split_gemm_kernel<false, true>;
+  else if (ta && !tb)
+    kernel = split_gemm_kernel<true, false>;
+  else
     return (int)cudaErrorInvalidValue;
-  }
   int err = prepare(kernel, smem);
   if (err) return err;
-  if (P.tile0[P.n] == 0) return 0;
-  kernel<<<dim3(P.tile0[P.n], sp), kSmThreads, smem, (cudaStream_t)stream>>>(P);
+  // setmaxnreg moves registers between the CTA's warpgroups: the kernel must
+  // start with what they are given in all, or setmaxnreg.inc would wait
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  if (attr.numRegs * kSgThreads < kSgProducerRegs * 128 + kSgConsumerRegs * 256)
+    return (int)cudaErrorInvalidConfiguration;
+  const long long total = (long long)P.tile0[P.n] * splits;
+  if (total == 0) return 0;
+  kernel<<<(int)(total < ctas ? total : ctas), kSgThreads, smem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
@@ -2273,30 +2577,6 @@ extern "C" int split_embed_vjp_launch(const long long* srcs, int n_src, const fl
   if (n == 0) return 0;
   split_embed_vjp_kernel<<<grid_of((long long)n * d), 256, 0, (cudaStream_t)stream>>>(
       S, x, d, freqs, n, out);
-  return (int)cudaGetLastError();
-}
-
-// dbpart [splits, sum N] <- each split's column sums of every layer's delta
-// (layers: pointer, row stride, N per layer), rows [split * rows_per_split,
-// ...) of n_rows
-extern "C" int split_colsum_launch(const long long* layers, int n_layers, int n_rows,
-                                   int rows_per_split, int splits, float* dbpart, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || n_rows < 1 || rows_per_split < 1 || splits < 1 ||
-      (long long)splits * rows_per_split < n_rows)
-    return (int)cudaErrorInvalidValue;
-  SplitColsum S{};
-  S.n_layers = n_layers;
-  S.n_rows = n_rows;
-  S.rows_per_split = rows_per_split;
-  S.boff[0] = 0;
-  for (int l = 0; l < n_layers; ++l) {
-    S.D[l] = reinterpret_cast<const float*>(layers[3 * l]);
-    S.ld[l] = layers[3 * l + 1];
-    S.boff[l + 1] = S.boff[l] + (int)layers[3 * l + 2];
-  }
-  S.total_b = S.boff[n_layers];
-  split_colsum_kernel<<<dim3((S.total_b + 127) / 128, splits), 128, 0, (cudaStream_t)stream>>>(
-      S, dbpart);
   return (int)cudaGetLastError();
 }
 

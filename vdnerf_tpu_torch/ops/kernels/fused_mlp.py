@@ -438,10 +438,11 @@ def nerf_launch_plan(meta, bwd: bool) -> tuple[int, int]:
     warps and the f32 cotangents of the two embeddings; then one mbarrier per
     ring stage. The launchers take these bytes as given.
 
-    This plan is the bf16 mode's. The split f32 mode has no ring and no tile
-    kernel: each product is one launch of ``split_mm_kernel`` on 64 x 128
-    output tiles with a 3-stage ring of 32-deep f32 slabs, 79,872 or 82,944
-    bytes a CTA, two CTAs an SM (``_SPLIT_TILE``, ``split_dw_plan``)."""
+    This plan is the bf16 mode's. The split f32 mode has no tile kernel: each
+    product is one launch of ``split_gemm_kernel`` on 128 x 128 output tiles,
+    its persistent CTAs one an SM with a 3-stage ring of 32-deep f32 slabs, a
+    2-stage ring of their split B and two epilogue staging blocks, 230,480
+    bytes a CTA (``_SPLIT_TILE``, ``split_dw_plan``)."""
     layers = _layers_of(meta)
     multires, multires_view, d_a, D = meta[3], meta[4], meta[5], meta[8]
     e_a, e_b = _emb_width(d_a, multires), _emb_width(3, multires_view)
@@ -742,24 +743,25 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
 # ---------------------------------------------------------------------------
 #
 # K2-K5 and the dW contraction with f32-accurate operands: each layer's
-# product is one launch of split_mm_kernel (3xTF32 on the tensor cores) whose
+# product is one launch of split_gemm_kernel (3xTF32 on wgmma) whose
 # epilogue applies the layer's bias and activation (or, backward, the relu
 # mask or the output's delta), the activations and deltas live in f32 [n,
-# width] buffers between launches, and every layer's dW is one grouped,
-# row-split launch summed in split order. The schedules below list the
-# launches on an ``ops`` object: ``_SplitOps`` launches them on the card; a
-# test may pass one that computes them in torch, to hold the schedules to the
-# plain versions on the CPU.
+# width] buffers between launches, and every layer's dW, with its db summed
+# in the same pass, is one grouped, row-split launch summed in split order by
+# one reduction. The schedules below list the launches on an ``ops`` object:
+# ``_SplitOps`` launches them on the card; a test may pass one that computes
+# them in torch, to hold the schedules to the plain versions on the CPU.
 
 EPI_NONE, EPI_RELU, EPI_SIGMOID, EPI_MASK, EPI_DSIGMOID, EPI_DRELU = range(6)
-# the split kernel's tile: 64 output rows x 128 columns, 32-deep slabs
-_SPLIT_TILE = (64, 128, 32)
+# the split kernel's tile: 128 output rows x 128 columns, 32-deep slabs
+_SPLIT_TILE = (128, 128, 32)
 
 
 def split_dw_plan(n: int, layers, sms: int) -> tuple[int, int]:
     """Row splits of the split mode's dW contraction -> (splits,
-    rows_per_split): about two CTAs per SM (``sms``) over every layer's
-    64 x 128 output tiles, each split a multiple of 32 rows."""
+    rows_per_split): at most two work items per SM (``sms``; the kernel's
+    persistent CTAs, one an SM, walk them) over every layer's 128 x 128
+    output tiles, each split a multiple of 32 rows and none empty."""
     tm, tn, tk = _SPLIT_TILE
     tiles = sum(-(-Kp // tm) * -(-Np // tn) for _, _, Kp, Np, _, _ in layers)
     splits = max(1, min(-(-n // tk), 2 * sms // tiles))
@@ -780,7 +782,7 @@ class _SplitOps:
     contiguous (any row stride that keeps 16-byte alignment), for the kernel
     ``name`` (``render_fwd_f32``, ...). Each launch adds one to
     ``build.LAUNCHES[name]`` where it is made, a launch of the dW contraction
-    (:meth:`dw`: the products, the bias columns' sums, two reductions) to
+    (:meth:`dw`: the products with the bias columns' sums, one reduction) to
     ``dw_contract_f32``; each launcher runs one grid."""
 
     def __init__(self, device, name):
@@ -803,9 +805,9 @@ class _SplitOps:
         rec = [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(), C.stride(0),
                M, N, K, _ptr(bias), epi, _ptr(aux), _ld(aux), aux_n,
                N if n_store is None else n_store, _ptr(C2), _ld(C2), n_store2, 0,
-               -(-K // 32) * 32]
+               -(-K // 32) * 32, 0]
         self._launched(self.lib.split_mm_launch(build.int64_array(rec), 1, int(ta), int(tb), 1,
-                                                self.stream), "split_mm")
+                                                self.sms, self.stream), "split_mm")
 
     def embed(self, src, freqs, dst):
         """dst [n, width] <- src's embedding (``freqs`` bands; 0 copies), zero
@@ -824,34 +826,30 @@ class _SplitOps:
     def dw(self, pairs, layers):
         """Per layer (its input [n, Kp], its delta [n, Np]) -> (dW packed as
         the weights, db packed as the biases): one grouped launch of the
-        contraction, split over rows, the splits summed in order."""
+        contraction, split over rows, each split's db the column sums of the
+        deltas taken in the same pass, then one reduction over the splits in
+        split order."""
         n = pairs[0][0].shape[0]
         total_w = sum(Kp * Np for _, _, Kp, Np, _, _ in layers)
         total_b = sum(Np for _, _, _, Np, _, _ in layers)
         dev = self.device
-        dW = torch.empty(total_w, device=dev)
-        dB = torch.empty(total_b, device=dev)
+        out = torch.empty(total_w + total_b, device=dev)
         if n == 0:
-            return dW.zero_(), dB.zero_()
+            out.zero_()
+            return out[:total_w], out[total_w:]
         splits, rows = split_dw_plan(n, layers, self.sms)
-        part = torch.empty(splits, total_w, device=dev)
-        dbpart = torch.empty(splits, total_b, device=dev)
-        recs, cols = [], []
-        for (x, d), (_, _, Kp, Np, woff, _) in zip(pairs, layers):
+        part = torch.empty(splits, total_w + total_b, device=dev)
+        recs = []
+        for (x, d), (_, _, Kp, Np, woff, boff) in zip(pairs, layers):
             recs += [x.data_ptr(), x.stride(0), d.data_ptr(), d.stride(0),
                      part.data_ptr() + 4 * woff, Np, Kp, Np, n, 0, EPI_NONE, 0, 0, 0, Np, 0, 0,
-                     0, total_w, rows]
-            cols += [d.data_ptr(), d.stride(0), Np]
+                     0, total_w + total_b, rows, part.data_ptr() + 4 * (total_w + boff)]
         lib, st, dw = self.lib, self.stream, "dw_contract_f32"
         self._launched(lib.split_mm_launch(build.int64_array(recs), len(layers), 1, 0, splits,
-                                           st), "split_dw", dw)
-        self._launched(lib.split_colsum_launch(build.int64_array(cols), len(layers), n, rows,
-                                               splits, dbpart.data_ptr(), st), "split_db", dw)
-        self._launched(lib.split_reduce_launch(part.data_ptr(), splits, total_w, dW.data_ptr(),
-                                               st), "split_dw_reduce", dw)
-        self._launched(lib.split_reduce_launch(dbpart.data_ptr(), splits, total_b, dB.data_ptr(),
-                                               st), "split_db_reduce", dw)
-        return dW, dB
+                                           self.sms, st), "split_dw", dw)
+        self._launched(lib.split_reduce_launch(part.data_ptr(), splits, total_w + total_b,
+                                               out.data_ptr(), st), "split_dw_reduce", dw)
+        return out[:total_w], out[total_w:]
 
 
 def _w_of(W, B, layer):

@@ -2,11 +2,10 @@
 
     python -m vdnerf_tpu_torch.tools.flagship_run [--iters 25000] [--out DIR]
         [--fast-bg] [--render-samples 96] [--resample-from 4170]
-        [--resample-frac 1.0] [--fp32] [--gpu 0]
+        [--resample-frac 1.0] [--fp32] [--fused] [--gpu 0]
 
-Counterpart of ``tools/flagship_run.py``, with the same flags and modes (no
-``--fused``: on the card the port always runs K2-K5; ``--seed`` and
-``--gpu`` added). It trains the
+Counterpart of ``tools/flagship_run.py``, with the same flags and modes
+(``--seed`` and ``--gpu`` added). It trains the
 womsk_white-dimension model (8x256 SDF, 4x256 colour head, 8x256 background
 NeRF, 64+64 inside and 32 outside samples, batch 512) on an analytic scene
 (``data/synthetic.py`` ``make_compound_scene``: 24 shaded views of 256^2),
@@ -26,8 +25,12 @@ Training goes through :class:`~vdnerf_tpu_torch.train.step.Trainer` and
 a replay of the captured step) in windows of 10 steps (fewer where 10 does
 not divide ``--val-every``, ``--iters`` and ``--resample-from``), on the
 faithful core before ``--resample-from`` and the resampled core after it.
-The SDF block is bf16 unless ``--fp32`` (``models/precision.py``); K2-K5
-then run f32 operands (the split mode), or bf16 ones with ``VDNERF_FUSED=1``.
+The SDF block is bf16 unless ``--fp32`` (``models/precision.py``). K2-K5 run
+on the card in every mode; their operands follow the policy: bf16 under the
+bf16 policy, f32 (the split mode, JAX's default ``linear``s) under ``--fp32``,
+unless ``--fused`` (or ``VDNERF_FUSED=1``) asks for JAX's fused path, whose
+operands are bf16. The report's ``fused_mlp`` is true exactly then, as the
+JAX tool's is under ``--fused``; ``mlp_operands`` names the operand type.
 
 Train modes: ``womsk`` (the womsk_white loss: no mask, white background, a
 textured backdrop the background NeRF must model), ``masked`` (mask BCE on
@@ -101,6 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val-every", type=int, default=2500)
     p.add_argument("--fp32", action="store_true", help="the SDF block in f32, not bf16")
     p.add_argument("--train-mode", choices=["womsk", "masked", "wdepth"], default="womsk")
+    p.add_argument("--fused", action="store_true",
+                   help="JAX's fused MLP path: K2-K5 on bf16 operands (as VDNERF_FUSED=1)")
     p.add_argument("--fast-bg", action="store_true",
                    help="skip_bg_inside: the background NeRF on the outside block only")
     p.add_argument("--render-samples", type=int, default=0,
@@ -309,7 +314,8 @@ def main(argv=None, device=None) -> dict:
     if args.learn or args.learn_frozen:
         perturbed = perturb_poses(sd.pose_all, np.random.default_rng(5))
     policy = matmul_dtype(tcfg.bf16)
-    mlp_dtype = mlp_operand_dtype(policy, env_fused())
+    fused = args.fused or env_fused()
+    mlp_dtype = mlp_operand_dtype(policy, fused)
     model = NeuSModel(nets, 0.3, torch.Generator().manual_seed(args.seed), policy,
                       mlp_dtype=mlp_dtype).to(dev)
     if args.learn:
@@ -478,8 +484,8 @@ def main(argv=None, device=None) -> dict:
             "learn_frozen_control": args.learn_frozen,
             "gauge_aligned_geometry": bool(args.learn),
             # the colour head, depth head and background NeRF run through
-            # K2-K5: bf16 operands under --fp32 only with VDNERF_FUSED=1
-            "bf16": not args.fp32, "fused_mlp": True,
+            # K2-K5: bf16 operands under --fp32 only with --fused
+            "bf16": not args.fp32, "fused_mlp": fused,
             "mlp_operands": "bf16" if mlp_dtype == torch.bfloat16 else "f32",
             "fast_bg": args.fast_bg,
             "render_samples": args.render_samples,

@@ -42,7 +42,10 @@ its process: the SDF block is bf16 unless ``--fp32``, through
 (``models/precision.py``); the tool sets it for the length of :func:`main`
 and restores it after. K2-K5's operands follow the policy there: bf16 by
 default, f32 (the split mode) under ``--fp32`` unless ``VDNERF_FUSED=1``, as
-the JAX tool's ``linear``s. The ``.conf`` text is the JAX tool's.
+the JAX tool's ``linear``s. The ``.conf`` text is the JAX tool's. The
+side-car's finetune and predict run under deterministic cuDNN (no
+benchmarking; :func:`deterministic_cudnn`), so that an arm repeats on a seed
+as JAX's does on its device; both cuDNN flags are restored after each stage.
 
 Card memory: before each stage the tool collects the previous stage's
 objects (a training run's CUDA graphs and their shared pool, the eval
@@ -291,6 +294,20 @@ class StageLog:
             json.dump({"card": self.card, "device": str(self.dev), "stages": self.stages},
                       f, indent=2)
         return path
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, without benchmarking, for one
+    side-car stage; both flags restored after. The side-car's step then
+    repeats bit for bit on a seed (its resize is two products and its pads
+    are built from slices), and so does the arm."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
 
 
 @contextlib.contextmanager
@@ -631,7 +648,8 @@ class Cycle:
                 "--val_freq", "50", "--save_freq", str(a.wavelet_epochs), "--gpu", str(a.gpu)]
         if warm_start:
             argv += ["-ckpt", warm_start]
-        logpath = finetune_cli.finetune(argv, device=self.dev)
+        with deterministic_cudnn():
+            logpath = finetune_cli.finetune(argv, device=self.dev)
         ckpt = last_checkpoint(logpath)
         assert ckpt, f"no wavelet checkpoint under {logpath}"
         return ckpt
@@ -639,9 +657,10 @@ class Cycle:
     def predict(self, ckpt: str) -> dict:
         """Stage 4: the VDN features of every view -> their record."""
         img_dir = os.path.join(self.scene_dir, "image")
-        predict_cli.main(["-ckpt", ckpt, "--ckpt_name", "model.npz", "-d", img_dir,
-                          "--encoder_type", self.args.encoder, "--gpu", str(self.args.gpu)],
-                         device=self.dev)
+        with deterministic_cudnn():
+            predict_cli.main(["-ckpt", ckpt, "--ckpt_name", "model.npz", "-d", img_dir,
+                              "--encoder_type", self.args.encoder, "--gpu", str(self.args.gpu)],
+                             device=self.dev)
         feat_dir = os.path.join(img_dir, "wavelet_feats", "0")
         feats0 = np.load(os.path.join(feat_dir, sorted(os.listdir(feat_dir))[0]))
         return {"n_views": len(os.listdir(feat_dir)), "shape": list(feats0.shape),

@@ -73,8 +73,10 @@ def main(argv=None, device=None) -> list[str]:
     args = build_parser().parse_args(argv)
     device = resolve_device(device, args.gpu)
     configure_numerics()
-    # shapes are fixed within a run: let cuDNN time its f32 algorithms once
-    torch.backends.cudnn.benchmark = True
+    # shapes are fixed within a run: let cuDNN time its f32 algorithms once,
+    # unless the caller asked for deterministic ones (then the features
+    # repeat bit for bit)
+    torch.backends.cudnn.benchmark = not torch.backends.cudnn.deterministic
 
     opts = WaveletOpts(
         encoder_type=args.encoder_type,
