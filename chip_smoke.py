@@ -37,15 +37,25 @@
    cameras, and the same cameras with COLMAP-grade noise for the learn
    confs), the conf with only its paths rewritten and a seeded full-width geometric-init
    ``ckpt_000000.pth``, then runs ``valimg_0`` and ``getfeats_0`` through the
-   port's CLI on ``cuda`` in JAX's default precision (``VDNERF_FUSED``
-   unset: K2 and K4 in their split f32 mode at a serving chunk's 393,216 and
-   135,168 rows) with the launch counts set to 0 just before and read just
-   after; prints each mode's rays/s beside the bf16 mode's
+   port's CLI on ``cuda`` with the launch counts set to 0 just before and
+   read just after; prints each mode's rays/s beside the bf16 mode's
    (``BF16_SERVING_RAYS_S``). Fails if K1 or a split forward was not
    launched, or a bf16 K2-K5 was.
+
+   Every phase from here on runs JAX's default precision unless it says
+   otherwise: under the f32 policy with ``VDNERF_FUSED`` unset (the script
+   unsets it), K2-K5 and the dW contraction run their split-operand f32 mode
+   (``split_gemm_kernel``), and each phase's launch checks count the split
+   kernels (``SPLIT_NAMES``) at their launches a call (``SPLIT_PER_CALL``: K2
+   9, K3 18, K4 14, K5 29 or 30 with the dpt head, the contraction 2 a
+   backward) and fail on any bf16 K2-K5 launch. The bf16 operand mode runs
+   in the fused phase (``VDNERF_FUSED=1``, JAX's opt-in), the bf16 phase
+   (``train.bf16``), the flagship and the VDN cycle phases, whose tools
+   select the bf16 policy.
 5. Output check: the summaries are finite, every depth ``.npy`` was written at
    full resolution, and a 512-ray render through the kernels agrees with the
-   same render through the plain versions on the CPU.
+   same render through the plain versions on the CPU (colour 5e-3, the bar
+   set for bf16 operands; the f32 value is printed beside it).
 6. Training phase: ``--mode train`` through the CLI at full width, 40 steps
    across ``resample_from`` (only the paths and five ``train`` keys
    rewritten, ``val_mesh_freq`` 20) in windows of the conf's
@@ -76,9 +86,13 @@
    then ``--nproc_per_node=2 ... --rank-child gloo``: two gloo ranks on
    cuda:0, one full-width eager step each on its 256-ray block, against one
    512-ray step here (loss 1e-5 relative, every summed gradient 1e-4
-   relative L2; K1-K5 launched on both ranks).
+   relative L2; K1-K5 launched on both ranks). The NCCL child also times its
+   replayed steps with ``VDNERF_FUSED=1``, beside the default mode's.
 7. Gradient check: one full-width step on 128 rays through the kernels on the
-   card against the plain versions on the CPU.
+   card against the plain versions on the CPU with f32 operands: loss within
+   1e-4 relative, every gradient within 2e-3 relative L2 (the ladder's
+   amplification of f32 summation order); the same bars on wmask, wdepth,
+   learn and wdepth-learn.
 8. Mesh phase: ``validate_mesh_40`` through the CLI (512^3, world space,
    ``--mcube_threshold 0.0``) with the launch counts set to 0 before and read
    after (K1 512 times, nothing else), timed by part; the 128^3 grid through
@@ -89,7 +103,9 @@
 9. Masked phase: phases 6 (without the dispatch check) and 7 again on
    ``confs/wmask_tpu.conf`` (no outside samples, a 64-of-128 resampled core
    at frac 0.25, the mask BCE): K1-K3 must run and K4/K5 never; the
-   background NeRF must not move; the mask loss is logged finite.
+   background NeRF must not move; the mask loss is logged finite. Its steps
+   (and wdepth's) are timed in one replayed and one eager window a core,
+   unprofiled.
 10. Cycle phase (the monodepth side-car between NeuS's first and last
     stage): ``getfeats_40`` through the CLI from phase 6's checkpoint (the
     ``depth_from_sdf`` export, launch counts set to 0 before and read
@@ -111,15 +127,17 @@
 11. wdepth phase: on the features predict wrote, phase 6 on
     ``confs/womsk_white_wdepth_tpu.conf`` at full width (the depth head
     4x256 -> 96, the NeRF's dpt head) with ``depth_start_iter`` 10: K3 must
-    run once a step for the colour head and once more from step 11 on, K5
-    once a step (three programs: the faithful core without and with the
+    be called once a step for the colour head and once more from step 11 on,
+    K5 once a step (three programs: the faithful core without and with the
     distillation term, the resampled core with it); the depth loss is logged
     finite and the depth head moves. Its timed steps (after
     depth_start_iter) must launch K2 and K3 twice and
     K4/K5 once each; the gradient check runs past the distillation ramp
     (ramp > 0.99) and holds the depth and dpt heads' gradients too;
-    ``getfeats_40`` from the run's checkpoint launches K2 twice per K4
-    launch and writes finite full-resolution depths.
+    ``getfeats_40`` from the run's checkpoint calls K2 twice per K4 call and
+    writes finite full-resolution depths. Then ``depth_before_color`` on the
+    same conf (the colour head's features widened by the 96 depth features:
+    400 padded inputs), its replayed steps timed: K2 and K3 twice a step.
 12. Learn phase: phase 6 on ``confs/womsk_learn_white_colmap.conf`` at full
     width (the poses and the focal learned from the noisy cameras; the
     background NeRF over all 160 samples; one step a window) with
@@ -128,12 +146,14 @@
     keys, r, t and fx are at their initial values in ``pnf_000010`` and
     have moved by ``pnf_000020``; then the dispatch check on it (r, t and fx
     of ``pnf_000040`` included), the gradient check with the camera
-    gradients held at 2^-6, and the timed steps (after the refine gate).
+    gradients held too, and the timed steps (after the refine gate).
 13. wdepth-learn phase: phase 6 on
     ``confs/womsk_learn_white_wdepth_colmap.conf`` with ``depth_start_iter``
     10 and the cameras refined from step 0, as shipped: K2 twice a step, K3
-    once and twice from step 11 on, K4/K5 once; timed steps;
-    ``getfeats_40`` through the cameras of ``pnf_000040``.
+    once and twice from step 11 on, K4/K5 once; timed steps; the gradient
+    check past the distillation ramp with the camera gradients (split K5's
+    d_pts/d_views with the dpt head feed them); ``getfeats_40`` through the
+    cameras of ``pnf_000040``.
 14. Capture and novel-view phase: a binary COLMAP model under
     ``capture/sparse/0`` (one SIMPLE_PINHOLE camera at f = 350 and 400x300,
     the scene's noisy cameras, 300 points around the sphere), then
@@ -146,15 +166,16 @@
     poses moved, a frustum PNG; ``interpolate_0_1 -c`` on phase 6's run
     (fixed cameras, K4 over 33 outside rows a ray) and on phase 12's (learned
     cameras, K4 over all 160 samples), each with the launch counts set to 0
-    before and read after: K1, K2 and K4 launch, K2 and K4 once per 4096-ray
-    chunk (2 a frame of 100x75, 120 in all), no backward kernel; the video
+    before and read after: K1, K2 and K4 launch, K2 and K4 called once per
+    4096-ray chunk (2 a frame of 100x75, 120 in all), no backward kernel; the video
     decodes to 120 frames of 100x74 (mp4v keeps even sizes); the sweep's
     middle frame (ratio 0.5) through the kernels, every 16th of its rays
-    within 5e-3 of the plain versions on the CPU. Prints each sweep's wall
-    clock, frames/s and rays/s.
+    within 5e-3 of the plain versions on the CPU (the bar set for bf16
+    operands; the f32 value is printed). Prints each sweep's wall clock,
+    frames/s and rays/s beside the bf16 mode's (``BF16_FRAMES_S``).
 15. bf16 phase (``train.bf16``, the bf16 SDF block): phase 6's step timing
-    on ``womsk_white_tpu`` with ``train.bf16 = true`` (both core widths,
-    replayed and eager); the gradient check of phase 7 with the SDF block
+    on ``womsk_white_tpu`` with ``train.bf16 = true`` (both core widths, one
+    replayed and one eager window each, unprofiled); the gradient check of phase 7 with the SDF block
     in bf16 on both sides, the CPU also taking the f32 step: each gradient
     within 2^-6 or 1.5x the CPU bf16 step's own distance from the CPU f32
     step, whichever is larger (both printed).
@@ -173,29 +194,28 @@
     launches (the tool's ``_card.json``). Fails unless K1-K5 and the
     contraction launched in both wdepth legs, and every report value the CPU
     tests hold is present and finite.
-18. Split phase (JAX's default precision): phases 5-17 run with
-    ``VDNERF_FUSED=1``, so K2-K5 keep the bf16 operand mode they ran in
-    before the split mode existed (phase 4 serves in the split mode). After
-    phase 3, the split-operand f32 mode of K2-K5 and of the contraction
-    (``split_gemm_kernel``) at full width against the plain versions
-    with f32 operands: K2 at a chunk's 393,216 rows and a step's 65,536 (3
-    and 96 outputs), K3 at each core width with 3 and 96 outputs, K4 at
-    16,896 and 81,920 rows with and without dpt and at 655,360, K5 at 16,896
-    and 81,920 with and without dpt, the contraction on seeded layer inputs
-    and deltas; forwards within 1e-4 * max(1, max|plain|), backward outputs
-    within 1e-4 relative L2 on the rows with no relu near its kink and 1e-2
-    on every row, two launches bit-identical; each timed beside the bf16
-    mode, the plain version and the f32 ``torch.matmul`` yardstick (TF32
-    off). After phase 12, with ``VDNERF_FUSED`` unset: ``womsk_white_tpu``
-    trained through the CLI as in phase 6 (the split kernels' launches
-    counted, each launch of a split kernel one count, no bf16 K2-K5 launch),
-    the replayed steps of womsk, wdepth and learn timed (the split kernels
-    launched every step, no bf16 K2-K5), and one full-width step's gradients
-    against the CPU on womsk, wdepth and learn (loss 1e-4 relative,
-    gradients 2e-3 relative L2).
+18. Split kernel phase (after phase 3): the split-operand f32 mode of K2-K5
+    and of the contraction (``split_gemm_kernel``) at full width against the
+    plain versions with f32 operands: K2 at a chunk's 393,216 rows and a
+    step's 65,536 (3 and 96 outputs), K3 at each core width with 3 and 96
+    outputs, K4 at 16,896 and 81,920 rows with and without dpt and at
+    655,360, K5 at 16,896 and 81,920 with and without dpt, the contraction on
+    seeded layer inputs and deltas; forwards within 1e-4 * max(1,
+    max|plain|), backward outputs within 1e-4 relative L2 on the rows with no
+    relu near its kink and 1e-2 on every row, two launches bit-identical;
+    each timed beside the bf16 mode, the plain version and the f32
+    ``torch.matmul`` yardstick (TF32 off).
+    Fused phase (after phase 13, ``VDNERF_FUSED=1``: JAX's fused path, the
+    opt-in): ``womsk_white_tpu`` trained through the CLI as in phase 6 (bf16
+    K2-K5 counted, no split launch), the replayed steps of womsk, wmask,
+    wdepth, depth_before_color, learn and wdepth-learn timed beside phases
+    6-13's (bf16 K2-K5 once a call, no split launch), and one full-width
+    step's gradients against the CPU with bf16 operands (loss 1e-3 relative,
+    every gradient 2^-6 relative L2).
 19. Prints a JSON line of the end-to-end numbers (with each phase's wall
     seconds, ``phase_s``), one ``{"kernels": [...]}``
-    line (the five kernels and the contraction, then their split f32 modes),
+    line (the five kernels and the contraction, then their split f32 modes,
+    each with its launches by path),
     then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero and prints no result. Imports nothing of JAX.
@@ -870,25 +890,21 @@ def slice_phase(tmp: str) -> dict:
 
     base = ["--conf", conf_path, "--case", case]
     res = {"launches": {}, "summary": {}, "rays_per_s": {}}
-    fused = os.environ.pop("VDNERF_FUSED")
-    try:
-        build.reset_launches()
-        for mode, level in (("valimg_0", 2), ("getfeats_0", 1)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            summary = cli.main(base + ["--mode", mode])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            rays = SCENE_VIEWS * (SCENE_H // level) * (SCENE_W // level)
-            res["summary"][mode] = summary
-            res["rays_per_s"][mode] = rays / wall
-            print(f"[slice] {mode} (split f32 mode): {summary} rays={rays} wall_s={wall:.3f} "
-                  f"rays/s={rays / wall:.1f} (bf16 mode: {BF16_SERVING_RAYS_S[mode]})")
-            if not all(math.isfinite(v) for v in summary.values()):
-                raise SystemExit(f"{mode}: non-finite summary {summary}")
-        res["launches"] = dict(build.LAUNCHES)
-    finally:
-        os.environ["VDNERF_FUSED"] = fused
+    build.reset_launches()
+    for mode, level in (("valimg_0", 2), ("getfeats_0", 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = cli.main(base + ["--mode", mode])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rays = SCENE_VIEWS * (SCENE_H // level) * (SCENE_W // level)
+        res["summary"][mode] = summary
+        res["rays_per_s"][mode] = rays / wall
+        print(f"[slice] {mode} (split f32 mode): {summary} rays={rays} wall_s={wall:.3f} "
+              f"rays/s={rays / wall:.1f} (bf16 mode: {BF16_SERVING_RAYS_S[mode]})")
+        if not all(math.isfinite(v) for v in summary.values()):
+            raise SystemExit(f"{mode}: non-finite summary {summary}")
+    res["launches"] = dict(build.LAUNCHES)
     print(f"[slice] launches on the serving path: {res['launches']}")
     missing = [k for k in ("sdf_fwd", "render_fwd_f32", "nerf_fwd_f32")
                if res["launches"][k] == 0]
@@ -911,9 +927,11 @@ def slice_phase(tmp: str) -> dict:
 
 
 def reference_check(conf, device) -> dict:
-    """512 rays of the full-width model: kernels on the card against the
-    plain versions on the CPU. color atol 5e-3 (bf16 operand rounding, as the
-    port's render tests); argmax-weight depth within 1e-3 on >= 99% of rays."""
+    """512 rays of the full-width model in the default mode (K2 and K4
+    split): kernels on the card against the plain versions with f32 operands
+    on the CPU. color atol 5e-3 (the bar set for bf16 operand rounding, as
+    the port's render tests; the f32 value is printed); argmax-weight depth
+    within 1e-3 on >= 99% of rays."""
     import numpy as np
     import torch
 
@@ -929,7 +947,7 @@ def reference_check(conf, device) -> dict:
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     outs = {}
     for key, dev in (("card", device), ("plain", torch.device("cpu"))):
-        model = build_model(conf, nets, seed=0, mlp_dtype=torch.bfloat16).to(dev)
+        model = build_model(conf, nets, seed=0, mlp_dtype=torch.float32).to(dev)
         ro, rd = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
         with torch.no_grad():
             out = render(nets, model, ro, rd, *near_far_from_sphere(ro, rd), perturb_overwrite=0,
@@ -940,8 +958,9 @@ def reference_check(conf, device) -> dict:
         outs[key] = (out["color_fine"].cpu(), depth.cpu())
     color_err = float((outs["card"][0] - outs["plain"][0]).abs().max())
     depth_agree = float(((outs["card"][1] - outs["plain"][1]).abs() <= 1e-3).float().mean())
-    print(f"[check] 512-ray render, kernels vs plain on the CPU: color max_abs_err="
-          f"{color_err:.3e} (tol 5e-3), depth agreement {depth_agree:.4f} (>= 0.99)")
+    print(f"[check] 512-ray render, split kernels vs plain f32 on the CPU: color max_abs_err="
+          f"{color_err:.3e} (tol 5e-3, set for bf16 operands), depth agreement "
+          f"{depth_agree:.4f} (>= 0.99)")
     if not color_err <= 5e-3 or depth_agree < 0.99:
         raise SystemExit("the render through the kernels disagrees with the plain render")
     return {"color_max_abs_err": color_err, "depth_agreement": depth_agree}
@@ -971,7 +990,7 @@ LEARN_WDEPTH = "womsk_learn_white_wdepth_colmap"
 LEARN_WDEPTH_KEYS = {"end_iter": 40, "save_freq": 10, "val_freq": 20, "val_mesh_freq": 20,
                      "depth_start_iter": 10}
 def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS,
-                exp: str = "exp_train", mode: str = "bf16") -> dict:
+                exp: str = "exp_train", mode: str = "f32") -> dict:
     """--mode train of confs/<name>.conf (with the ``keys`` of its train
     block rewritten) through the port's CLI on the card, then valimg_40 from
     its last checkpoint. ``mode``: the operand mode K2-K5 must run in (the
@@ -1032,9 +1051,12 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
     if wdepth:
         # K3 once a step for the colour head and once for the depth head from
         # the step past depth_start_iter on (the Trainer's 0-based step), K5
-        # once a step with the dpt head
+        # once a step with the dpt head, the contraction once a backward
         n, start = keys["end_iter"], keys["depth_start_iter"]
-        want = {names[1]: n + (n - start - 1), names[3]: n}
+        pc = per_call(mode, True)
+        k3, k5 = n + (n - start - 1), n
+        want = {names[1]: k3 * pc[names[1]], names[3]: k5 * pc[names[3]],
+                names[4]: (k3 + k5) * pc[names[4]]}
         if any(launches[k] != v for k, v in want.items()):
             raise SystemExit(f"{tag} backward launches {launches}, expected {want}")
 
@@ -1342,8 +1364,9 @@ def dispatch_check(tmp: str, graphed: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 # the kernels the profiler must name in the NCCL run's trace of steps 11-20
-TRACE_KERNELS = ("sdf_fwd_kernel", "render_fwd_kernel", "render_bwd_kernel", "nerf_fwd_kernel",
-                 "nerf_bwd_kernel", "dw_kernel")
+# (the default mode: K1 and the split kernels of K2-K5 and the contraction)
+TRACE_KERNELS = ("sdf_fwd_kernel", "split_gemm_kernel", "split_embed_kernel",
+                 "split_embed_vjp_kernel")
 TORCHRUN_TIMEOUT_S = 600
 
 
@@ -1371,7 +1394,7 @@ def _torchrun(nproc: int, args: list[str], env: dict | None = None) -> float:
 
 def full_batch_step(conf_path: str, device, world=None):
     """One full-width 512-ray step at step 1,000 (perturb 0, no generator)
-    through the kernels, on ``world``'s block of the batch when given ->
+    through the kernels in the default mode (K2-K5 split), on ``world``'s block of the batch when given ->
     (loss, {name: gradient on the CPU}, launches). The gradients are the
     summed ones under a process group."""
     import dataclasses
@@ -1397,7 +1420,7 @@ def full_batch_step(conf_path: str, device, world=None):
         2, BATCH, np.random.default_rng(5))
     if world is not None:
         batch = shard_batch(batch, world)
-    model = build_model(conf, nets, seed=0, mlp_dtype=torch.bfloat16).to(device)
+    model = build_model(conf, nets, seed=0, mlp_dtype=torch.float32).to(device)
     cams = {"pose_all": torch.as_tensor(scene.pose_all, device=device),
             "intrin_inv_all": torch.as_tensor(scene.intrinsics_all_inv, device=device)}
     build.reset_launches()
@@ -1444,17 +1467,24 @@ def rank_child(kind: str, conf_path: str, out: str) -> int:
         os.environ.pop("VDNERF_PROFILE_DIR", None)
         steps = time_train_steps(conf_path, world=world, modes=("replay", "replay"),
                                  profile=False)
+        # the same replayed steps in the bf16 operand mode, for comparison
+        os.environ["VDNERF_FUSED"] = "1"
+        try:
+            steps_bf16 = time_train_steps(conf_path, world=world, modes=("replay",),
+                                          profile=False)
+        finally:
+            os.environ.pop("VDNERF_FUSED")
         from vdnerf_tpu_torch.train.builder import build_model, build_networks
         from vdnerf_tpu_torch.utils.hocon import load_conf
 
         conf = load_conf(conf_path, "sphere")
         params = list(build_model(conf, build_networks(conf, False), seed=0,
-                                  mlp_dtype=torch.bfloat16).to(device).parameters())
+                                  mlp_dtype=torch.float32).to(device).parameters())
         for p in params:
             p.grad = torch.randn_like(p)
         x = torch.ones((), device=device)
         res = {"summary": summary, "launches": launches, "wall_s": wall, "steps": steps,
-               "world": [world.rank, world.size, dist.get_backend()],
+               "steps_bf16": steps_bf16, "world": [world.rank, world.size, dist.get_backend()],
                "n_params": sum(p.numel() for p in params),
                "all_reduce_grads_ms": time_ms(lambda: parallel.all_reduce_grads(params), 20),
                "global_sum_ms": time_ms(lambda: parallel.global_sum(x), 20)}
@@ -1509,9 +1539,14 @@ def parallel_phase(tmp: str, train: dict, steps: dict) -> dict:
           f"phase's run {log_err:.3e}, ckpt_000040 parameters max rel diff {param_err:.3e} (tol "
           f"1e-6); launches {nccl['launches']} (train phase {train['launches']})")
     for core, (plain, ranked) in replay.items():
+        bf16 = nccl["steps_bf16"][core]["replay"]["ms_per_step"]
         print(f"{tag} {core} replayed ms/step: train phase {[round(v, 3) for v in plain]}, NCCL "
               f"world of 1 {[round(v, 3) for v in ranked]}: the in-graph collectives and the "
-              f"flat copy cost {min(ranked) - min(plain):.3f} ms/step")
+              f"flat copy cost {min(ranked) - min(plain):.3f} ms/step; NCCL world of 1 in the "
+              f"bf16 operand mode {[round(v, 3) for v in bf16]}")
+    check_step_calls(f"{tag} NCCL world of 1", nccl["steps"], "f32", (1, 1, 1, 1))
+    check_step_calls(f"{tag} NCCL world of 1, VDNERF_FUSED=1", nccl["steps_bf16"], "bf16",
+                     (1, 1, 1, 1))
     print(f"{tag} eager, alone: the flat all-reduce of {nccl['n_params']} f32 gradients "
           f"{nccl['all_reduce_grads_ms']:.4f} ms, one scalar global_sum "
           f"{nccl['global_sum_ms']:.4f} ms ({card_line()})")
@@ -1550,11 +1585,10 @@ def parallel_phase(tmp: str, train: dict, steps: dict) -> dict:
           f"{launches}")
     if not loss_err <= 1e-5 or not rel[worst] <= 1e-4 or not same:
         raise SystemExit(f"{tag} the 2-rank step disagrees with the full-batch step")
-    kernels = ("sdf_fwd",) + BF16_NAMES
-    if not all(r["launches"][k] > 0 for r in ranks for k in kernels):
-        raise SystemExit(f"{tag} a rank launched no {[k for k in kernels if not ranks[0]['launches'][k] or not ranks[1]['launches'][k]]}")
+    for r, rank in enumerate(ranks):
+        check_calls(f"{tag} gloo rank {r}", rank["launches"], "f32", (1, 1, 1, 1))
     return {"nccl": {k: nccl[k] for k in ("wall_s", "world", "n_params", "all_reduce_grads_ms",
-                                          "global_sum_ms", "steps")},
+                                          "global_sum_ms", "steps", "steps_bf16")},
             "nccl_launches": nccl["launches"], "logged_max_rel_diff": log_err,
             "param_max_rel_diff": param_err, "trace_kernels": in_trace, "trace_nccl": n_nccl,
             "gloo": {"loss_rel_err": loss_err, "worst_grad_rel_l2": rel[worst], "worst": worst,
@@ -1660,29 +1694,33 @@ def mesh_phase(train: dict, device) -> dict:
 
 
 def gradient_check(conf, device, name: str = "womsk_white_tpu", step: int = 1000,
-                   bf16: bool = False, mlp: str = "bf16") -> dict:
+                   bf16: bool = False, mlp: str = "f32") -> dict:
     """One step's loss and gradients at full width on 128 rays (perturb 0):
-    the kernels on the card against the plain versions on the CPU. Loss within
-    1e-3 relative; each parameter's gradient within 2^-6 relative L2 error,
-    on a learnable conf the cameras' r, t and fx too (at a seeded state off
-    their start, the same on both sides). On a wdepth conf ``step`` lies past depth_start_iter + depth_ramp_iters, so
-    the distillation ramp is ~1 and the depth head's and the NeRF's dpt
-    head's gradients are held too.
-    Both sides round the fused MLPs' operands to bf16, but in another
-    summation order, and a relu kink or a bf16 rounding boundary taken the
-    other way moves single rows by a few percent (see the kernel phase); the
-    f32 SDF block sums in another order on the card than on the CPU.
+    the kernels on the card against the plain versions on the CPU, each
+    parameter's gradient and, on a learnable conf, the cameras' r, t and fx
+    (at a seeded state off their start, the same on both sides). On a wdepth
+    conf ``step`` lies past depth_start_iter + depth_ramp_iters, so the
+    distillation ramp is ~1 and the depth head's and the NeRF's dpt head's
+    gradients are held too.
+
+    With ``mlp`` "f32" (JAX's default) both sides run K2-K5's f32 operand
+    mode (the split kernels on the card, f32 operands on the CPU): the loss
+    within 1e-4 relative and every gradient within 2e-3 relative L2, the
+    ladder's amplification of f32 summation order
+    (``tests/test_torch_masked.py``).
+
+    With ``mlp`` "bf16" both sides round the fused MLPs' operands to bf16:
+    loss within 1e-3 relative, every gradient within 2^-6 relative L2. They
+    round in another summation order, and a relu kink or a bf16 rounding
+    boundary taken the other way moves single rows by a few percent (see the
+    kernel phase); the f32 SDF block sums in another order on the card than
+    on the CPU.
 
     With ``bf16`` both sides run the SDF block under the bf16 policy
     (``models/precision.py``), and the CPU also takes the f32 step: each
     gradient is held at 2^-6, or at 1.5x the CPU bf16 step's own distance
     from the CPU f32 step where that is larger (a bf16 rounding taken the
-    other way in the SDF block moves a gradient by about that much).
-
-    With ``mlp`` "f32" both sides run K2-K5's f32 operand mode (the split
-    kernels on the card, f32 operands on the CPU): the loss within 1e-4
-    relative and every gradient within 2e-3 relative L2, the ladder's
-    amplification of f32 summation order (``tests/test_torch_masked.py``)."""
+    other way in the SDF block moves a gradient by about that much)."""
     import dataclasses
 
     import numpy as np
@@ -1834,7 +1872,8 @@ def _cycle_phase(tmp: str, train: dict, device) -> dict:
     print(f"[cycle] getfeats_40 from the {train['name']} run: {summary} "
           f"wall_s={time.perf_counter() - t0:.3f}; launches {launches}")
     if not all(math.isfinite(v) for v in summary.values()) or not launches["sdf_fwd"] \
-            or not launches["render_fwd"] or not launches["nerf_fwd"]:
+            or not launches["render_fwd_f32"] or not launches["nerf_fwd_f32"] \
+            or any(launches[k] for k in BF16_NAMES):
         raise SystemExit(f"getfeats_40 for the cycle: summary {summary}, launches {launches}")
     for i in range(SCENE_VIEWS):
         depth = np.load(os.path.join(img_dir, "depth_from_sdf", f"sdf_{i:03d}.npy"))
@@ -1989,10 +2028,11 @@ def _cycle_phase(tmp: str, train: dict, device) -> dict:
 
 
 def serve_wdepth(train: dict) -> dict:
-    """getfeats_40 through the port's CLI from a wdepth run's checkpoint,
-    with the launch counts set to 0 just before and read just after: each
-    chunk runs K2 twice (the depth head, then the colour head) and K4 once
-    with its dpt head, and no backward. On a learnable conf the runner
+    """getfeats_40 through the port's CLI from a wdepth run's checkpoint in
+    the default mode, with the launch counts set to 0 just before and read
+    just after: each chunk calls split K2 twice (the depth head, then the
+    colour head) and split K4 once with its dpt head, and no backward and no
+    bf16 K2-K5. On a learnable conf the runner
     renders through the cameras of ``pnf_000040.pth``, which moved."""
     import numpy as np
     import torch
@@ -2014,9 +2054,10 @@ def serve_wdepth(train: dict) -> dict:
           f"rays/s={rays / wall:.1f}; launches {launches}")
     if not all(math.isfinite(v) for v in summary.values()):
         raise SystemExit(f"getfeats_40: non-finite summary {summary}")
-    if launches["nerf_fwd"] == 0 or launches["sdf_fwd"] == 0 \
-            or launches["render_fwd"] != 2 * launches["nerf_fwd"] \
-            or launches["render_bwd"] or launches["nerf_bwd"]:
+    chunks = launches["nerf_fwd_f32"] // SPLIT_PER_CALL[2]
+    check_calls(f"[serve {train['name']}] getfeats_40", launches, "f32",
+                (2 * chunks, 0, chunks, 0))
+    if not chunks:
         raise SystemExit(f"getfeats_40 on the wdepth checkpoint launched {launches}")
     depth_dir = os.path.join(train["conf"].get_string("dataset.data_dir"), "image",
                              "depth_from_sdf")
@@ -2172,15 +2213,20 @@ def showcam_phase(tmp: str, learn: dict) -> dict:
 
 
 INTERP_FRAMES, INTERP_LEVEL = 60, 4
+# the sweeps' frames/s in the bf16 operand mode (this script's runs on an
+# H100 80GB HBM3 at 700 W before the default mode), printed beside the
+# default mode's
+BF16_FRAMES_S = {"womsk_white_tpu": "5.83", "womsk_learn_white_colmap": "4.66"}
 # every 16th ray of a 100x75 frame: 469 rays, about reference_check's 512
 REF_STRIDE = 16
 
 
 def interpolate_phase(run: dict, tag: str) -> dict:
     """``interpolate_0_1 -c`` through the port's CLI on a training run's
-    latest checkpoint, with the launch counts set to 0 just before and read
-    just after: K1, K2 and K4 launch, K2 and K4 once per 4096-ray chunk (two
-    a frame of 100x75, 120 in all), no backward kernel; the .mp4 decodes to
+    latest checkpoint in the default mode, with the launch counts set to 0
+    just before and read just after: K1, split K2 and split K4 launch, K2 and
+    K4 called once per 4096-ray chunk (two a frame of 100x75, 120 in all), no
+    backward kernel and no bf16 K2-K5; the .mp4 decodes to
     120 frames of 100x74 (the codec's even size). Then the sweep's middle
     frame (ratio 0.5) through the kernels on the card, every 16th of its rays
     against the plain versions on the CPU (colour 5e-3, as
@@ -2205,13 +2251,10 @@ def interpolate_phase(run: dict, tag: str) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     rays = INTERP_FRAMES * h * w
-    print(f"[{tag}] interpolate_0_1: {path} wall_s={wall:.3f} frames/s="
-          f"{INTERP_FRAMES / wall:.2f} rays/s={rays / wall:.1f}; launches {launches}")
-    if launches["sdf_fwd"] == 0 or launches["render_fwd"] != chunks \
-            or launches["nerf_fwd"] != chunks \
-            or any(launches[k] for k in ("render_bwd", "nerf_bwd", "dw_contract")):
-        raise SystemExit(f"[{tag}] launches {launches}: expected K1, K2 and K4 {chunks} times "
-                         "each, no backward")
+    print(f"[{tag}] interpolate_0_1 (split f32 mode): {path} wall_s={wall:.3f} frames/s="
+          f"{INTERP_FRAMES / wall:.2f} rays/s={rays / wall:.1f} (bf16 mode: "
+          f"{BF16_FRAMES_S[run['name']]} frames/s); launches {launches}")
+    check_calls(f"[{tag}] interpolate_0_1", launches, "f32", (chunks, 0, chunks, 0))
     cap = cv.VideoCapture(path)
     shapes = []
     while True:
@@ -2245,8 +2288,9 @@ def interpolate_phase(run: dict, tag: str) -> dict:
             runner.model, rays_o.reshape(-1, 3)[::REF_STRIDE], rays_d.reshape(-1, 3)[::REF_STRIDE],
             runner.iter_step)["color"]
     err = float(np.abs(colors["cuda"] - colors["cpu"]).max())
-    print(f"[{tag}] the middle frame ({frame.shape}), {len(colors['cpu'])} of its rays, kernels "
-          f"vs plain on the CPU: colour max_abs_err {err:.3e} (tol 5e-3)")
+    print(f"[{tag}] the middle frame ({frame.shape}), {len(colors['cpu'])} of its rays, split "
+          f"kernels vs plain f32 on the CPU: colour max_abs_err {err:.3e} (tol 5e-3, set for "
+          f"bf16 operands)")
     if frame.shape != (h, w, 3) or not err <= 5e-3:
         raise SystemExit(f"[{tag}] the interpolated frame disagrees with the plain render")
     return {"launches": launches, "wall_s": wall, "frames_per_s": INTERP_FRAMES / wall,
@@ -2413,6 +2457,55 @@ SPLIT_FWD_TOL, SPLIT_BWD_TOL, SPLIT_BWD_ALL_TOL, KINK_EPS = 1e-4, 1e-4, 1e-2, 1e
 SPLIT_NAMES = ("render_fwd_f32", "render_bwd_f32", "nerf_fwd_f32", "nerf_bwd_f32",
                "dw_contract_f32")
 BF16_NAMES = ("render_fwd", "render_bwd", "nerf_fwd", "nerf_bwd", "dw_contract")
+# launches a call of K2, K3, K4 and K5 in the split mode (PERF.md section 6):
+# one split launch a layer plus the embeddings and their VJPs (K2 with the
+# idr head); the dpt head adds one to K5's; the contraction launches twice a
+# backward. In the bf16 mode each wrapper launches once a call, the
+# contraction once a backward.
+SPLIT_PER_CALL = (9, 18, 14, 29)
+
+
+def per_call(mode: str, dpt: bool) -> dict:
+    """{kernel name: launches a call} of K2-K5 and the contraction (a
+    backward) in ``mode`` ("f32": the split kernels, or "bf16")."""
+    if mode == "bf16":
+        return dict.fromkeys(BF16_NAMES, 1)
+    k2, k3, k4, k5 = SPLIT_PER_CALL
+    return dict(zip(SPLIT_NAMES, (k2, k3, k4, k5 + dpt, 2)))
+
+
+def check_calls(tag: str, launches: dict, mode: str, calls, dpt: bool = False) -> None:
+    """``launches`` (a path's counts) are K2, K3, K4 and K5 called ``calls``
+    times in ``mode``, the contraction once a backward, K1 launched, and no
+    K2-K5 launch in the other mode."""
+    pc = per_call(mode, dpt)
+    k2, k3, k4, k5 = calls
+    want = {k: c * pc[k] for k, c in zip(pc, (k2, k3, k4, k5, k3 + k5))}
+    got = {k: launches[k] for k in pc}
+    stray = [k for k in BF16_NAMES + SPLIT_NAMES if k not in pc and launches[k]]
+    if got != want or stray or not launches["sdf_fwd"]:
+        raise SystemExit(f"{tag}: launches {got}, expected {want} ({mode} operands) with K1 "
+                         f"launched and no {stray}")
+
+
+def check_step_calls(tag: str, timed: dict, mode: str, calls, dpt: bool = False) -> None:
+    """check_calls on each timed window's launches a step (time_train_steps)."""
+    for core, rec in timed.items():
+        for m in ("replay", "eager"):
+            if m in rec:
+                check_calls(f"{tag} {core} {m}, a step", rec[m]["launches_per_step"], mode, calls,
+                            dpt)
+
+
+def timed_launches(timed: dict) -> dict:
+    """The launches of a time_train_steps run's timed windows."""
+    total: dict = {}
+    for rec in timed.values():
+        for m in ("replay", "eager"):
+            if m in rec:
+                for k, v in rec[m]["launches_per_step"].items():
+                    total[k] = total.get(k, 0) + round(v * TIMED_STEPS * len(rec[m]["ms_per_step"]))
+    return total
 F32_PRODUCTS = "products only: one f32 torch.matmul per layer, TF32 off"
 
 
@@ -2730,42 +2823,28 @@ def split_kernel_phase(device) -> dict:
     return rec
 
 
-def split_phase(tmp: str, device, wdepth: dict, learn: dict) -> dict:
-    """JAX's default precision on the card: ``VDNERF_FUSED`` unset under the
-    f32 policy, so K2-K5 run their split-operand mode. ``--mode train`` of
-    womsk_white_tpu through the CLI (the training phase's checks, with the
-    split kernels' launch counts set to 0 before and read after, and no bf16
-    K2-K5 launch), the steps of womsk_white_tpu, of the wdepth recipe past
-    depth_start_iter and of the learn recipe past start_refine_pose_iter
-    timed replayed (each core; the split kernels launched every step, no
-    bf16 K2-K5), and one full-width step's gradients against the CPU on
-    womsk, wdepth past its ramp and learn: loss within 1e-4 relative, every
-    gradient within 2e-3 relative L2."""
-    from vdnerf_tpu_torch.train.config import TrainConfig
-
-    fused = os.environ.pop("VDNERF_FUSED")
+def fused_phase(tmp: str, device, runs: dict) -> dict:
+    """JAX's fused path, the opt-in: ``VDNERF_FUSED=1`` under the f32
+    policy, so K2-K5 run their bf16 operand mode. ``--mode train`` of
+    womsk_white_tpu through the CLI (the training phase's checks, bf16 K2-K5
+    counted, no split launch); the replayed steps of womsk and of each
+    default-mode recipe in ``runs`` ({name: (conf path, K2-K5 calls a step,
+    dpt)}) timed beside the default mode's (bf16 K2-K5 once a call, no split
+    launch); one full-width step's gradients against the CPU with bf16
+    operands (loss 1e-3 relative, every gradient 2^-6 relative L2)."""
+    os.environ["VDNERF_FUSED"] = "1"
     try:
-        train = train_phase(tmp, "womsk_white_tpu", TRAIN_KEYS, exp="exp_split",
-                            mode="f32")
-        steps = {"womsk_white_tpu": time_train_steps(train["conf_path"], modes=("replay",))}
-        steps[WDEPTH] = time_train_steps(wdepth["conf_path"], modes=("replay",), profile=False)
-        steps[LEARN] = time_train_steps(learn["conf_path"], modes=("replay",), profile=False)
-        for name, timed in steps.items():
-            for core, r in timed.items():
-                per_step = r["replay"]["launches_per_step"]
-                if any(per_step[k] for k in BF16_NAMES) or not all(
-                        per_step[k] for k in SPLIT_NAMES):
-                    raise SystemExit(f"[split] {name} {core}: launches per step {per_step}")
-        wcfg = TrainConfig.from_conf(wdepth["conf"])
-        grads = {
-            "womsk_white_tpu": gradient_check(train["conf"], device, mlp="f32"),
-            WDEPTH: gradient_check(wdepth["conf"], device, WDEPTH, mlp="f32",
-                                   step=wcfg.depth_start_iter + wcfg.depth_ramp_iters + 1000),
-            LEARN: gradient_check(learn["conf"], device, LEARN, mlp="f32"),
-        }
+        train = train_phase(tmp, "womsk_white_tpu", TRAIN_KEYS, exp="exp_fused", mode="bf16")
+        steps = {"womsk_white_tpu": time_train_steps(train["conf_path"], modes=("replay",),
+                                                     profile=False)}
+        check_step_calls("[fused] womsk_white_tpu", steps["womsk_white_tpu"], "bf16", (1, 1, 1, 1))
+        for name, (conf_path, calls, dpt) in runs.items():
+            steps[name] = time_train_steps(conf_path, modes=("replay",), profile=False)
+            check_step_calls(f"[fused] {name}", steps[name], "bf16", calls, dpt)
+        grad = gradient_check(train["conf"], device, mlp="bf16")
     finally:
-        os.environ["VDNERF_FUSED"] = fused
-    return {"train": train, "steps": steps, "gradient_checks": grads}
+        os.environ.pop("VDNERF_FUSED")
+    return {"train": train, "steps": steps, "gradient_check": grad}
 
 
 def main() -> int:
@@ -2782,9 +2861,9 @@ def main() -> int:
     device = torch.device("cuda:0")
     configure_numerics()
     print(card_line())
-    # the phases of the earlier slices drive K2-K5's bf16 operand mode, JAX's
-    # VDNERF_FUSED=1 path; split_phase unsets it for JAX's default
-    os.environ["VDNERF_FUSED"] = "1"
+    # JAX's default precision in every phase but the fused one, which sets
+    # VDNERF_FUSED=1 for its length
+    os.environ.pop("VDNERF_FUSED", None)
 
     marks, phase_s = [time.perf_counter()], {}
 
@@ -2802,41 +2881,42 @@ def main() -> int:
     mark("split_kernel")
     with tempfile.TemporaryDirectory() as tmp:
         res = slice_phase(tmp)
-        reference_check(res["conf"], device)
+        ref = reference_check(res["conf"], device)
         mark("slice")
         train = train_phase(tmp)
         dispatch = dispatch_check(tmp, train)
         steps = time_train_steps(train["conf_path"])
+        check_step_calls("[train womsk_white_tpu]", steps, "f32", (1, 1, 1, 1))
         mark("train")
         par = parallel_phase(tmp, train, steps)
         mark("parallel")
-        gradient_check(train["conf"], device)
+        grads = {"womsk_white_tpu": gradient_check(train["conf"], device)}
         mark("grad_womsk")
         mesh = mesh_phase(train, device)
         mark("mesh")
         masked = train_phase(tmp, "wmask_tpu")
-        masked_steps = time_train_steps(masked["conf_path"])
-        gradient_check(masked["conf"], device, "wmask_tpu")
+        # one replayed and one eager window a core, unprofiled, here and on
+        # wdepth (the idle shares of both, PR 17's first chip run, are in
+        # PERF.md section 5): the smoke's host work is cut to its time limit
+        masked_steps = time_train_steps(masked["conf_path"], modes=("replay", "eager"),
+                                        profile=False)
+        check_step_calls("[train wmask_tpu]", masked_steps, "f32", (1, 1, 0, 0))
+        grads["wmask_tpu"] = gradient_check(masked["conf"], device, "wmask_tpu")
         mark("wmask")
         # the side-car writes image/wavelet_feats/0, which the wdepth confs read
         cycle = cycle_phase(tmp, train, device)
         mark("cycle")
         wdepth = train_phase(tmp, WDEPTH, WDEPTH_KEYS)
-        wdepth_steps = time_train_steps(wdepth["conf_path"])
-        for core, rec in wdepth_steps.items():
-            per_step = rec["replay"]["launches_per_step"]
-            if (per_step["render_fwd"], per_step["render_bwd"], per_step["nerf_fwd"],
-                    per_step["nerf_bwd"]) != (2, 2, 1, 1):
-                raise SystemExit(f"{WDEPTH} {core}: launches per step {per_step}, expected K2 "
-                                 "and K3 twice, K4 and K5 once")
+        wdepth_steps = time_train_steps(wdepth["conf_path"], modes=("replay", "eager"),
+                                        profile=False)
+        check_step_calls(f"[train {WDEPTH}]", wdepth_steps, "f32", (2, 2, 1, 1), True)
         wdepth_tcfg = TrainConfig.from_conf(wdepth["conf"])
-        wdepth_grad = gradient_check(
-            wdepth["conf"], device, WDEPTH,
-            step=wdepth_tcfg.depth_start_iter + wdepth_tcfg.depth_ramp_iters + 1000)
+        past_ramp = wdepth_tcfg.depth_start_iter + wdepth_tcfg.depth_ramp_iters + 1000
+        grads[WDEPTH] = gradient_check(wdepth["conf"], device, WDEPTH, step=past_ramp)
         wdepth_serve = serve_wdepth(wdepth)
         mark("wdepth")
-        # depth_before_color trains on the card in the bf16 mode: the colour
-        # head reads the depth features (400 padded inputs, K2's 3-stage ring)
+        # depth_before_color: the colour head reads the depth features (400
+        # padded inputs in the split K2's first layer)
         dbc_conf = write_conf(tmp, "exp_dbc", {**WDEPTH_KEYS, "depth_before_color": "true"},
                               WDEPTH)
         with open(dbc_conf) as f:
@@ -2845,33 +2925,36 @@ def main() -> int:
             f.write(text.replace("rendering_network {\n        d_feature = 256",
                                  "rendering_network {\n        d_feature = 352", 1))
         dbc_steps = time_train_steps(dbc_conf, modes=("replay",), profile=False)
-        for core, rec in dbc_steps.items():
-            per_step = rec["replay"]["launches_per_step"]
-            if (per_step["render_fwd"], per_step["render_bwd"]) != (2, 2) or not all(
-                    math.isfinite(v) for v in rec["replay"]["ms_per_step"]):
-                raise SystemExit(f"depth_before_color {core}: launches per step {per_step}")
+        check_step_calls("[train depth_before_color]", dbc_steps, "f32", (2, 2, 1, 1), True)
+        if not all(math.isfinite(v) for rec in dbc_steps.values()
+                   for v in rec["replay"]["ms_per_step"]):
+            raise SystemExit(f"depth_before_color: steps {dbc_steps}")
         mark("depth_before_color")
         # the learned cameras, mask-free and with distillation, on the
         # perturbed cameras of write_scene
         learn = train_phase(tmp, LEARN, LEARN_KEYS)
         learn_dispatch = dispatch_check(tmp, learn)
-        learn_grad = gradient_check(learn["conf"], device, LEARN)
+        grads[LEARN] = gradient_check(learn["conf"], device, LEARN)
         learn_steps = time_train_steps(learn["conf_path"])
+        check_step_calls(f"[train {LEARN}]", learn_steps, "f32", (1, 1, 1, 1))
         learn_wdepth = train_phase(tmp, LEARN_WDEPTH, LEARN_WDEPTH_KEYS)
         learn_wdepth_steps = time_train_steps(learn_wdepth["conf_path"])
-        for name, timed, want in ((LEARN, learn_steps, (1, 1, 1, 1)),
-                                  (LEARN_WDEPTH, learn_wdepth_steps, (2, 2, 1, 1))):
-            for core, rec in timed.items():
-                per_step = rec["replay"]["launches_per_step"]
-                if (per_step["render_fwd"], per_step["render_bwd"], per_step["nerf_fwd"],
-                        per_step["nerf_bwd"]) != want:
-                    raise SystemExit(f"{name} {core}: launches per step {per_step}, expected "
-                                     f"K2, K3, K4, K5 {want}")
+        check_step_calls(f"[train {LEARN_WDEPTH}]", learn_wdepth_steps, "f32", (2, 2, 1, 1),
+                         True)
+        lw_tcfg = TrainConfig.from_conf(learn_wdepth["conf"])
+        grads[LEARN_WDEPTH] = gradient_check(
+            learn_wdepth["conf"], device, LEARN_WDEPTH,
+            step=lw_tcfg.depth_start_iter + lw_tcfg.depth_ramp_iters + 1000)
         learn_wdepth_serve = serve_wdepth(learn_wdepth)
         mark("learn")
-        # JAX's default precision: K2-K5 in the split-operand f32 mode
-        split = split_phase(tmp, device, wdepth, learn)
-        mark("split")
+        # JAX's fused path (VDNERF_FUSED=1): K2-K5 in the bf16 operand mode
+        fused = fused_phase(tmp, device, {
+            "wmask_tpu": (masked["conf_path"], (1, 1, 0, 0), False),
+            WDEPTH: (wdepth["conf_path"], (2, 2, 1, 1), True),
+            "depth_before_color": (dbc_conf, (2, 2, 1, 1), True),
+            LEARN: (learn["conf_path"], (1, 1, 1, 1), False),
+            LEARN_WDEPTH: (learn_wdepth["conf_path"], (2, 2, 1, 1), True)})
+        mark("fused")
         # the capture workflow around the learn recipes: COLMAP preparation,
         # the learned poses against the initial and GT ones, the novel views
         novel = {"colmap": colmap_phase(tmp, res["noisy_c2w"]),
@@ -2884,8 +2967,12 @@ def main() -> int:
         mark("novel_views")
         # the bf16 SDF block (train.bf16): the steps timed, one step's
         # gradients against the CPU, then the flagship tool
-        bf16_steps = time_train_steps(write_conf(tmp, "exp_bf16", {**TRAIN_KEYS, "bf16": "true"}))
-        bf16_grad = gradient_check(train["conf"], device, bf16=True)
+        # (one replayed and one eager window a core, unprofiled: PR 11 and
+        # PR 16 recorded this path's idle share)
+        bf16_steps = time_train_steps(write_conf(tmp, "exp_bf16", {**TRAIN_KEYS, "bf16": "true"}),
+                                      modes=("replay", "eager"), profile=False)
+        check_step_calls("[train.bf16]", bf16_steps, "bf16", (1, 1, 1, 1))
+        bf16_grad = gradient_check(train["conf"], device, bf16=True, mlp="bf16")
         mark("bf16")
         flagship = flagship_phase(tmp)
         mark("flagship")
@@ -2894,64 +2981,63 @@ def main() -> int:
     phase_s["total"] = round(marks[-1] - marks[0], 1)
     print(f"[phases] wall seconds: {phase_s}")
 
+    # every path's launches, from its own run with the counts set to 0 just
+    # before; a timed-steps path counts its timed windows
+    paths = {"serve": res["launches"], "train": train["launches"],
+             "train_dispatch_eager": dispatch["launches_eager"],
+             "mesh": mesh["launches"], "train_wmask": masked["launches"],
+             "cycle_getfeats": cycle["getfeats_launches"],
+             "train_wdepth": wdepth["launches"], "serve_wdepth": wdepth_serve["launches"],
+             "steps_depth_before_color": timed_launches(dbc_steps),
+             "train_learn": learn["launches"], "train_learn_wdepth": learn_wdepth["launches"],
+             "serve_learn_wdepth": learn_wdepth_serve["launches"],
+             "interpolate": novel["interpolate"]["launches"],
+             "interpolate_learn": novel["interpolate_learn"]["launches"],
+             "train_nccl_world_of_1": par["nccl_launches"],
+             "step_gloo_rank_0": par["gloo_launches"][0],
+             "step_gloo_rank_1": par["gloo_launches"][1],
+             "fused_train": fused["train"]["launches"],
+             "fused_steps": timed_launches({f"{n} {c}": r for n, t in fused["steps"].items()
+                                            for c, r in t.items()}),
+             "steps_train_bf16": timed_launches(bf16_steps),
+             "flagship": flagship["launches"], "vdn_cycle": vdn_cycle["launches"]}
     kernels = []
-    for name, r in kern.items():
+    for name, r in list(kern.items()) + list(split_kern.items()):
         main_shape = r["shapes"][0]
-        by_path = {"serve": res["launches"][name], "train": train["launches"][name],
-                   "mesh": mesh["launches"][name], "train_wmask": masked["launches"][name],
-                   "cycle_getfeats": cycle["getfeats_launches"][name],
-                   "train_wdepth": wdepth["launches"][name],
-                   "serve_wdepth": wdepth_serve["launches"][name],
-                   "train_learn": learn["launches"][name],
-                   "train_learn_wdepth": learn_wdepth["launches"][name],
-                   "serve_learn_wdepth": learn_wdepth_serve["launches"][name],
-                   "interpolate": novel["interpolate"]["launches"][name],
-                   "interpolate_learn": novel["interpolate_learn"]["launches"][name],
-                   "flagship": flagship["launches"][name],
-                   "vdn_cycle": vdn_cycle["launches"][name],
-                   "train_nccl_world_of_1": par["nccl_launches"][name],
-                   "step_gloo_rank_0": par["gloo_launches"][0][name],
-                   "step_gloo_rank_1": par["gloo_launches"][1][name]}
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+        by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
+        if not sum(by_path.values()):
+            raise SystemExit(f"{name} was launched on no path")
+        base = name[:-4] if name.endswith("_f32") else name
+        rec = {
+            "name": name, "route": "cuda", "source": SOURCE[base],
+            "replaces": REPLACES[base], "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": main_shape.get("library_ms"),
-            "kernel_ms": main_shape.get("kernel_ms"), "launches_by_path": by_path,
+            "launches_by_path": by_path,
             "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
-        })
-    for name, r in split_kern.items():
-        main_shape = r["shapes"][0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name[:-4]],
-            "replaces": REPLACES[name[:-4]],
-            "launches": res["launches"][name] + split["train"]["launches"][name],
-            "max_abs_err": r["max_abs_err"], "ms": main_shape["ms"],
-            "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
-            "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
-            "bf16_ms": main_shape.get("bf16_ms"), "operands": "f32 (3xTF32 split)",
-            "launches_by_path": {"serve_f32": res["launches"][name],
-                                 "train_f32": split["train"]["launches"][name]},
-            "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
-        })
+        }
+        if base == name:
+            rec["kernel_ms"] = main_shape.get("kernel_ms")
+        else:
+            rec.update(bf16_ms=main_shape.get("bf16_ms"), operands="f32 (3xTF32 split)")
+        kernels.append(rec)
     print(json.dumps({"phase_s": phase_s, "rays_per_s": res["rays_per_s"],
-                      "summary": res["summary"],
+                      "summary": res["summary"], "reference_check": ref,
                       "train": {"steps": steps, "summary": train["summary"],
                                 "wall_s": train["wall_s"], "dispatch_check": dispatch},
                       "parallel": {k: v for k, v in par.items()
                                    if k not in ("nccl_launches", "gloo_launches")},
+                      "gradient_checks": grads,
                       "train_wmask": {"steps": masked_steps, "summary": masked["summary"],
                                       "wall_s": masked["wall_s"]},
                       "train_wdepth": {"steps": wdepth_steps, "summary": wdepth["summary"],
                                        "wall_s": wdepth["wall_s"],
-                                       "depth_losses": wdepth["depth_losses"],
-                                       "gradient_check": wdepth_grad},
+                                       "depth_losses": wdepth["depth_losses"]},
                       "serve_wdepth": {k: v for k, v in wdepth_serve.items() if k != "launches"},
                       "train_learn": {"steps": learn_steps, "summary": learn["summary"],
                                       "wall_s": learn["wall_s"], "pnf": learn["pnf"],
-                                      "dispatch_check": learn_dispatch,
-                                      "gradient_check": learn_grad},
+                                      "dispatch_check": learn_dispatch},
                       "train_learn_wdepth": {"steps": learn_wdepth_steps,
                                              "summary": learn_wdepth["summary"],
                                              "wall_s": learn_wdepth["wall_s"],
@@ -2959,17 +3045,14 @@ def main() -> int:
                                              "depth_losses": learn_wdepth["depth_losses"]},
                       "serve_learn_wdepth": {k: v for k, v in learn_wdepth_serve.items()
                                              if k != "launches"},
+                      "train_wdepth_depth_before_color": {"steps": dbc_steps},
+                      "fused": {"steps": fused["steps"], "summary": fused["train"]["summary"],
+                                "wall_s": fused["train"]["wall_s"],
+                                "gradient_check": fused["gradient_check"]},
                       "novel_views": {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
                                           if isinstance(v, dict) else v)
                                       for k, v in novel.items()},
                       "train_bf16": {"steps": bf16_steps, "gradient_check": bf16_grad},
-                      "train_wdepth_depth_before_color": {"steps": dbc_steps},
-                      "train_f32": {"steps": split["steps"]["womsk_white_tpu"],
-                                    "steps_wdepth": split["steps"][WDEPTH],
-                                    "steps_learn": split["steps"][LEARN],
-                                    "summary": split["train"]["summary"],
-                                    "wall_s": split["train"]["wall_s"],
-                                    "gradient_checks": split["gradient_checks"]},
                       "flagship": {k: v for k, v in flagship.items() if k != "launches"},
                       "vdn_cycle": {k: v for k, v in vdn_cycle.items() if k != "launches"},
                       "mesh": {k: v for k, v in mesh.items() if k != "launches"},

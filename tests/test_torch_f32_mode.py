@@ -8,11 +8,13 @@ no monkeypatch: on the CPU its plain versions then compute with unrounded
 operands, on the card the split-operand mode of the kernels.
 
 - One step against JAX's default step, on ``tests/test_torch_train.py``'s
-  mask-free scene, ``tests/test_torch_wdepth.py``'s wdepth scene past the
-  distillation ramp, and ``tests/test_torch_learned.py``'s learned cameras
-  with their gradients: loss and metrics within 1e-5 relative, every
-  gradient within 1e-4 of its tensor's largest entry (the tolerances of
-  those files' f32 tests).
+  mask-free scene, the masked recipe on the same scene
+  (``tests/test_torch_masked.py``'s nets: no outside samples, a resampled
+  core, the mask BCE), ``tests/test_torch_wdepth.py``'s wdepth scene past
+  the distillation ramp, and ``tests/test_torch_learned.py``'s learned
+  cameras with their gradients, without and with the distillation term:
+  loss and metrics within 1e-5 relative, every gradient within 1e-4 of its
+  tensor's largest entry (the tolerances of those files' f32 tests).
 - ``depth_before_color`` (the colour head reading the depth features): one
   wdepth step against JAX's default step at the same tolerances, and in the
   bf16 operand mode against JAX's fused path (Pallas in interpret mode):
@@ -44,7 +46,10 @@ import pytest
 import torch
 
 from test_torch_learned import SCENE as LEARN_SCENE
+from test_torch_learned import WDEPTH_NETS as LEARN_WDEPTH_NETS
 from test_torch_learned import _cams, _learn_scene
+from test_torch_masked import MASK
+from test_torch_masked import CORES as MASK_CORES
 from test_torch_train import NETS, H, W, _batches, _cfgs, _close_rel, _jax_tree_as_port, _port_grads, scene  # noqa: F401
 from test_torch_wdepth import STEP_NETS as WDEPTH_NETS
 from test_torch_wdepth import make_scene as make_wdepth_scene
@@ -92,6 +97,11 @@ def learn_scene(tmp_path_factory):
     return _learn_scene(str(tmp_path_factory.mktemp("f32_learn")))
 
 
+@pytest.fixture(scope="module")
+def learn_wdepth_scene(tmp_path_factory):
+    return _learn_scene(str(tmp_path_factory.mktemp("f32_learn_wdepth")), wdepth=True)
+
+
 def _jax_value_and_grad(nets, jcfg, static, params, jcams, batch, step, fused=False):
     fn = jax.jit(jax.value_and_grad(make_loss_fn(nets, jcfg, static), has_aux=True))
     jprecision.set_fused_mlp(fused)
@@ -119,11 +129,14 @@ def _rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
-@pytest.mark.parametrize("regime", ["womsk", "wdepth"])
+@pytest.mark.parametrize("regime", ["womsk", "wdepth", "wmask"])
 def test_f32_policy_step_matches_jax_default(request, f32_policy, regime):
     if regime == "womsk":
         sc, nets, step = request.getfixturevalue("scene"), NETS, 30
         jcfg, tcfg = _cfgs(sc)
+    elif regime == "wmask":  # no background NeRF, the mask BCE
+        sc, nets, step = request.getfixturevalue("scene"), MASK_CORES["faithful"], 30
+        jcfg, tcfg = _cfgs(sc, **MASK)
     else:  # past depth_start_iter 5 and the 10-step ramp
         sc, nets, step = request.getfixturevalue("wdepth_scene"), WDEPTH_NETS, 30
         jcfg, tcfg = sc["jcfg"], sc["tcfg"]
@@ -139,15 +152,51 @@ def test_f32_policy_step_matches_jax_default(request, f32_policy, regime):
                    if n.startswith("depth_network_fine.") or ".dpt_linear." in n)
 
 
-def test_f32_policy_learned_camera_step_matches_jax_default(learn_scene, f32_policy):
+def test_f32_policy_wmask_resampled_step_matches_jax_default(scene, f32_policy):
+    """The masked recipe's resampled core (after resample_from). The
+    up-sample ladder amplifies f32 summation order in the gradients of a
+    resampled core (ROADMAP section 3, ``tests/test_torch_masked.py``): the
+    loss and metrics are held at 1e-5 relative, every gradient at that
+    file's 2e-3 relative L2 (the bar of 1e-4 of the largest entry is missed:
+    9.5e-5 against 2.4e-5 on ``sdf_network_fine.lin0.weight_v``)."""
+    nets = MASK_CORES["resampled"]
+    jcfg, tcfg = _cfgs(scene, **MASK)
+    params = jax_params(nets)
+    (jb,), (tb,) = _batches(scene, 1)
+    loss, metrics, g, _ = _jax_value_and_grad(nets, jcfg, SceneStatic(H=H, W=W), params,
+                                              scene["jcams"], jb, 30)
+    model = port_model(nets, params, f32_policy)
+    got = Trainer(tcfg, model, scene["tcams"], None).gradients(port_nets(nets), tb, 30)
+    assert set(got) == set(metrics)
+    for k, v in metrics.items():
+        assert abs(float(got[k]) - v) <= 1e-5 * max(abs(v), 1e-3), (k, float(got[k]), v)
+    grads, want = _port_grads(model), _jax_tree_as_port(g)
+    assert set(grads) == set(want)
+    for name in want:
+        rel = _rel_l2(grads[name], want[name].reshape(grads[name].shape))
+        assert rel <= 2e-3, f"{name}: relative L2 error {rel:.3e}"
+
+
+@pytest.mark.parametrize("wdepth", [False, True], ids=["learn", "learn_wdepth"])
+def test_f32_policy_learned_camera_step_matches_jax_default(request, f32_policy, wdepth):
+    # with the distillation term: past depth_start_iter 5 and the 10-step ramp
+    if wdepth:
+        learn_scene, nets, step = request.getfixturevalue("learn_wdepth_scene"), \
+            LEARN_WDEPTH_NETS, 30
+        assert learn_scene["tcfg"].extract_depth
+    else:
+        learn_scene, nets, step = request.getfixturevalue("learn_scene"), NETS, 7
     jcams, cams = _cams(learn_scene, moved=True)
-    params = jax_params(NETS)
+    params = jax_params(nets)
     (jb,), (tb,) = _batches(learn_scene, 1, seed=3)
-    loss, metrics, g, gc = _jax_value_and_grad(NETS, learn_scene["jcfg"], LEARN_SCENE, params,
-                                               jcams, jb, 7)
-    model = port_model(NETS, params, f32_policy)
-    got = Trainer(learn_scene["tcfg"], model, cams, None).gradients(port_nets(NETS), tb, 7)
-    _check_step(got, model, loss, metrics, g)
+    loss, metrics, g, gc = _jax_value_and_grad(nets, learn_scene["jcfg"], LEARN_SCENE, params,
+                                               jcams, jb, step)
+    model = port_model(nets, params, f32_policy)
+    got = Trainer(learn_scene["tcfg"], model, cams, None).gradients(port_nets(nets), tb, step)
+    grads = _check_step(got, model, loss, metrics, g)
+    if wdepth:
+        assert all(grads[n].any() for n in grads
+                   if n.startswith("depth_network_fine.") or ".dpt_linear." in n)
     for name, got_g, want_g in (("r", cams.r.grad, gc["pose"]["r"]),
                                 ("t", cams.t.grad, gc["pose"]["t"]),
                                 ("fx", cams.fx.grad, gc["focal"]["fx"])):
