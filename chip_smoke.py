@@ -1254,7 +1254,9 @@ def time_train_steps(conf_path: str, world=None, modes=("replay", "eager", "repl
                      device_events_per_step=prof["device_events"] / TIMED_STEPS,
                      device_span_ms_per_step=(prof["device_span_ms"] or 0.0) / TIMED_STEPS,
                      device_gaps_ms_per_step=(prof["device_gaps_ms"] or 0.0) / TIMED_STEPS,
-                     device_idle_share=prof["device_idle_share"])
+                     device_idle_share=prof["device_idle_share"],
+                     device_ms_per_step_by_span={k: v / TIMED_STEPS for k, v in
+                                                 prof["device_ms_by_span"].items()})
             print(f"{tag} {name} {mode}: ms/step {[round(v, 3) for v in r['ms_per_step']]}, "
                   f"rays/s {[round(v, 1) for v in r['rays_per_s']]} (batch "
                   f"{runner.tcfg.batch_size}, windows of {TIMED_STEPS} steps); profiled window "
@@ -1263,7 +1265,9 @@ def time_train_steps(conf_path: str, world=None, modes=("replay", "eager", "repl
                   f"{r['device_events_per_step']:.0f} device events over a span of "
                   f"{r['device_span_ms_per_step']:.3f} ms/step with "
                   f"{r['device_gaps_ms_per_step']:.3f} ms/step of gaps, device idle share "
-                  f"{r['device_idle_share']}; launches per step {r['launches_per_step']}")
+                  f"{r['device_idle_share']}; device ms/step by span "
+                  f"{ {k: round(v, 3) for k, v in r['device_ms_per_step_by_span'].items()} }; "
+                  f"launches per step {r['launches_per_step']}")
             if not r["device_busy_ms_per_step"] > 0:
                 raise SystemExit(f"{tag} {name} {mode}: the profiler saw no device time")
         # the host's sampling of a window's batches, before its first step

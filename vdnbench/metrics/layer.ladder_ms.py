@@ -1,0 +1,10 @@
+"""Device milliseconds a step or a frame in the rays and the ladder: the spans
+``render.rays``, ``serve.rays`` and ``render.ladder``, from the program's
+device marks (``vdnbench/marks.py``); None without marks."""
+
+from vdnbench import marks
+
+
+def read(rec):
+    m = marks.of(rec)
+    return None if m is None else marks.per_unit_ms(m.layer_s("ladder"), rec)

@@ -12,7 +12,7 @@ from vdnerf_tpu_torch.io.checkpoints import (
     save_pnf_checkpoint,
     save_training_checkpoint,
 )
-from vdnerf_tpu_torch.io.logging import MetricsWriter, Throughput
+from vdnerf_tpu_torch.io.logging import MetricsWriter
 from vdnerf_tpu_torch.io.recording import record_run
 
 __all__ = [
@@ -29,6 +29,5 @@ __all__ = [
     "save_pnf_checkpoint",
     "save_training_checkpoint",
     "MetricsWriter",
-    "Throughput",
     "record_run",
 ]

@@ -1,20 +1,19 @@
-"""Training metrics and throughput.
+"""Training metrics.
 
 Counterpart of ``vdnerf_tpu/io/logging.py``: ``logs/metrics.jsonl`` with one
 record per written step under the same scalar names (``loss``,
 ``color_loss``, ``eikonal_loss``, ``mask_loss``, ``psnr``, ``s_val``,
-``cdf``, ``weight_max``, ``rays_per_sec``). The port writes no TensorBoard
-events: where the JAX writer adds an image or a histogram to its event file
-(the monodepth side-car's validation logging), this one writes
-``images/<tag>/<step:06d>.png`` and a ``histograms.jsonl`` record under the
-same tag and step.
+``cdf``, ``weight_max``, ``rays_per_sec``: the runner's window rate). The
+port writes no TensorBoard events: where the JAX writer adds an image or a
+histogram to its event file (the monodepth side-car's validation logging),
+this one writes ``images/<tag>/<step:06d>.png`` and a ``histograms.jsonl``
+record under the same tag and step.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 
@@ -61,22 +60,3 @@ class MetricsWriter:
         self._jsonl.close()
         if self._hist is not None:
             self._hist.close()
-
-
-class Throughput:
-    """Rays/s as an EMA over train steps (host clock between ticks)."""
-
-    def __init__(self, batch_size: int):
-        self.batch_size = batch_size
-        self._last = None
-        self.rays_per_sec = 0.0
-
-    def tick(self, n_steps: int = 1) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            inst = n_steps * self.batch_size / max(now - self._last, 1e-9)
-            self.rays_per_sec = (
-                inst if self.rays_per_sec == 0.0 else 0.9 * self.rays_per_sec + 0.1 * inst
-            )
-        self._last = now
-        return self.rays_per_sec

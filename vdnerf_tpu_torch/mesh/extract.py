@@ -9,7 +9,9 @@ Counterpart of ``vdnerf_tpu/mesh/extract.py``:
   takes ragged rows, so the last chunk is not padded. The field stays on the
   device until one copy to the host.
 - :func:`extract_geometry`: the iso-surface at ``threshold`` through the
-  native marching-tetrahedra extractor, vertices rescaled to the bbox.
+  native marching-tetrahedra extractor, vertices rescaled to the bbox; its
+  parts in the spans ``mesh.grid`` (the queries, synchronised),
+  ``mesh.to_host`` and ``mesh.marching`` (``utils/trace.py``).
 - :func:`save_ply` / :func:`load_ply`: binary little-endian PLY, byte for
   byte the JAX writer's, written and read without a per-triangle loop.
 """
@@ -17,13 +19,13 @@ Counterpart of ``vdnerf_tpu/mesh/extract.py``:
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from vdnerf_tpu_torch.mesh.native import marching_cubes
+from vdnerf_tpu_torch.utils import trace
 from vdnerf_tpu_torch.utils.device import resolve_device
 
 QueryFn = Callable[[torch.Tensor], torch.Tensor]
@@ -64,26 +66,21 @@ def _sync(device: torch.device) -> None:
 
 
 def extract_geometry(bound_min, bound_max, resolution: int, threshold: float,
-                     query_fn: QueryFn, device=None,
-                     timings: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
+                     query_fn: QueryFn, device=None) -> tuple[np.ndarray, np.ndarray]:
     """Iso-surface of ``query_fn`` (e.g. -sdf) at ``threshold`` -> (vertices
-    [V, 3] in bbox coordinates, triangles [T, 3]). ``timings``, when given,
-    receives the seconds of each part: ``grid`` (the queries, synchronised),
-    ``to_host`` and ``marching``."""
+    [V, 3] in bbox coordinates, triangles [T, 3])."""
     device = resolve_device(device)
-    t0 = time.perf_counter()
-    u = grid_values(bound_min, bound_max, resolution, query_fn, device=device)
-    _sync(device)
-    t1 = time.perf_counter()
-    u = u.cpu().numpy()
-    t2 = time.perf_counter()
-    vertices, triangles = marching_cubes(u, float(threshold))
-    b_min = np.asarray(bound_min, dtype=np.float32)
-    b_max = np.asarray(bound_max, dtype=np.float32)
-    if len(vertices):
-        vertices = vertices / (resolution - 1.0) * (b_max - b_min)[None, :] + b_min[None, :]
-    if timings is not None:
-        timings.update(grid=t1 - t0, to_host=t2 - t1, marching=time.perf_counter() - t2)
+    with trace.span("mesh.grid"):
+        u = grid_values(bound_min, bound_max, resolution, query_fn, device=device)
+        _sync(device)
+    with trace.span("mesh.to_host"):
+        u = u.cpu().numpy()
+    with trace.span("mesh.marching"):
+        vertices, triangles = marching_cubes(u, float(threshold))
+        b_min = np.asarray(bound_min, dtype=np.float32)
+        b_max = np.asarray(bound_max, dtype=np.float32)
+        if len(vertices):
+            vertices = vertices / (resolution - 1.0) * (b_max - b_min)[None, :] + b_min[None, :]
     return vertices, triangles
 
 

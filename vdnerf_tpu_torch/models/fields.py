@@ -219,7 +219,12 @@ class SDFNetwork(nn.Module):
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
             sdf, feat = self.forward_split(x)
-            (grad,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf), create_graph=True)
+            # on this thread, so that the gradient's graph is ordered with the
+            # forward's in the outer backward (autograd numbers its nodes per
+            # thread, and runs the highest first): the SDF block's backward
+            # then runs whole before the background NeRF's, as on the CPU
+            with torch.autograd.set_multithreading_enabled(False):
+                (grad,) = torch.autograd.grad(sdf, x, torch.ones_like(sdf), create_graph=True)
             return sdf, grad, feat
         with torch.enable_grad():
             x = pts.detach().requires_grad_(True)

@@ -8,7 +8,10 @@ source and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing builds at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else. The tracing marks of
+``csrc/trace_marks.cu`` (``utils/trace.py``) count in none. The compiles run
+in the span ``build.nvcc`` (``build.compiles`` counts them), the loads in
+``build.load``.
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ from pathlib import Path
 
 import torch
 
+from vdnerf_tpu_torch.utils import trace
+
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 SOURCES = {
     "sdf_fwd": _HERE / "csrc" / "sdf_fwd.cu",
     "fused_mlp": _HERE / "csrc" / "fused_mlp.cu",
+    "trace_marks": _HERE / "csrc" / "trace_marks.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,7 +46,8 @@ LAUNCHES = {"sdf_fwd": 0, "render_fwd": 0, "nerf_fwd": 0, "render_bwd": 0, "nerf
             "nerf_bwd_f32": 0, "dw_contract_f32": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+# reentrant: a trace mark inside the build's own spans loads the marks' library
+_lock = threading.RLock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +62,8 @@ _SIGNATURES = {
     "split_embed_launch": [_P, ctypes.c_longlong, _I, _I, _I, _P, ctypes.c_longlong, _I, _P],
     "split_embed_vjp_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
     "split_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
+    "vdn_mark_launch": [_I, _I, _P],
+    "vdn_mark_prepare": [],
 }
 
 
@@ -85,23 +94,26 @@ def build_all() -> dict[str, Path]:
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {name: _target(name) for name in SOURCES}
-    procs = {}
-    for name, target in targets.items():
-        if target.exists():
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp)
+    missing = [name for name, target in targets.items() if not target.exists()]
+    if not missing:
+        return targets
     failures = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
-            continue
-        os.replace(tmp, targets[name])
+    with trace.span("build.nvcc"):
+        procs = {}
+        for name in missing:
+            tmp = targets[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ), tmp)
+        trace.count("build.compiles", len(procs))
+        for name, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            (BUILD_DIR / f"{name}.log").write_text(log)
+            if proc.returncode != 0:
+                failures.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
+                continue
+            os.replace(tmp, targets[name])
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return targets
@@ -111,15 +123,17 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for source ``name``, building all sources first."""
     with _lock:
         if name not in _libs:
-            for lib_name, path in build_all().items():
-                if lib_name in _libs:
-                    continue
-                lib = ctypes.CDLL(str(path))
-                for fn, argtypes in _SIGNATURES.items():
-                    if hasattr(lib, fn):
-                        getattr(lib, fn).argtypes = argtypes
-                        getattr(lib, fn).restype = ctypes.c_int
-                _libs[lib_name] = lib
+            paths = build_all()
+            with trace.span("build.load"):
+                for lib_name, path in paths.items():
+                    if lib_name in _libs:
+                        continue
+                    lib = ctypes.CDLL(str(path))
+                    for fn, argtypes in _SIGNATURES.items():
+                        if hasattr(lib, fn):
+                            getattr(lib, fn).argtypes = argtypes
+                            getattr(lib, fn).restype = ctypes.c_int
+                    _libs[lib_name] = lib
         return _libs[name]
 
 

@@ -16,6 +16,14 @@ on locally for the SDF gradient). Training runs it with grad mode on: the
 ladder, the resampled ``z_vals`` and the inside-sphere masks carry no
 gradient, as the ``stop_gradient``s of the JAX renderer say; everything in the
 render core does.
+
+Spans (``utils/trace.py``): ``render.rays`` (z init, outside z, jitter),
+``render.ladder``, ``render.nerf`` (the outside block's merge and the
+background NeRF), ``render.sdf`` (the SDF value, gradient and feature),
+``render.depth_head``, ``render.colour_head`` and ``render.composite``
+(alpha, transmittance, blends, sums, the output's tail); backward points
+``bwd.nerf``, ``bwd.sdf``, ``bwd.depth_head`` and ``bwd.colour_head`` on
+those layers' outputs, so that a backward splits into their pieces.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from vdnerf_tpu_torch.ops.sampling import (
     transmittance,
     up_sample,
 )
+from vdnerf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +139,12 @@ def render_core_outside(
 
     if n_skip:
         alpha = torch.cat([alpha.new_zeros(batch_size, n_skip), alpha], dim=1)
-    return {"sampled_color": fill(color), "sampled_feat": None if feat is None else fill(feat),
-            "alpha": alpha, "z_vals": mid_z_vals}
+    color = fill(color)
+    if feat is None:
+        alpha, color = trace.point("bwd.nerf", alpha, color)
+    else:
+        alpha, color, feat = trace.point("bwd.nerf", alpha, color, fill(feat))
+    return {"sampled_color": color, "sampled_feat": feat, "alpha": alpha, "z_vals": mid_z_vals}
 
 
 def render_core(
@@ -154,93 +167,97 @@ def render_core(
     head, ``d_feats`` is the composite of its features (blended with
     ``background_sampled_feat`` outside the unit sphere), else None."""
     batch_size, n_samples = z_vals.shape
-    dists = z_vals[..., 1:] - z_vals[..., :-1]
-    dists = torch.cat([dists, torch.full_like(dists[..., :1], sample_dist)], dim=-1)
-    mid_z_vals = z_vals + dists * 0.5
+    with trace.span("render.sdf"):
+        dists = z_vals[..., 1:] - z_vals[..., :-1]
+        dists = torch.cat([dists, torch.full_like(dists[..., :1], sample_dist)], dim=-1)
+        mid_z_vals = z_vals + dists * 0.5
 
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., :, None]
-    dirs = rays_d[:, None, :].expand(pts.shape)
-    pts_flat = pts.reshape(-1, 3)
-    dirs_flat = dirs.reshape(-1, 3)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * mid_z_vals[..., :, None]
+        dirs = rays_d[:, None, :].expand(pts.shape)
+        pts_flat = pts.reshape(-1, 3)
+        dirs_flat = dirs.reshape(-1, 3)
 
-    sdf, gradients, feature_vector = model.sdf_network_fine.sdf_value_grad_feat(pts_flat)
+        sdf, gradients, feature_vector = trace.point(
+            "bwd.sdf", *model.sdf_network_fine.sdf_value_grad_feat(pts_flat))
     sampled_feat = None
     if nets.depth is not None:
-        feat_flat = model.depth_network_fine(pts_flat, gradients, dirs_flat, feature_vector)
-        if depth_before_color:
-            feature_vector = torch.cat([feature_vector, feat_flat], dim=-1)
+        with trace.span("render.depth_head"):
+            feat_flat = trace.point("bwd.depth_head", model.depth_network_fine(
+                pts_flat, gradients, dirs_flat, feature_vector))
         sampled_feat = feat_flat.reshape(batch_size, n_samples, -1)
-    sampled_color = model.color_network_fine(
-        pts_flat, gradients, dirs_flat, feature_vector
-    ).reshape(batch_size, n_samples, -1)
+    with trace.span("render.colour_head"):
+        if sampled_feat is not None and depth_before_color:
+            feature_vector = torch.cat([feature_vector, feat_flat], dim=-1)
+        sampled_color = trace.point("bwd.colour_head", model.color_network_fine(
+            pts_flat, gradients, dirs_flat, feature_vector).reshape(batch_size, n_samples, -1))
+    with trace.span("render.composite"):
+        inv_s = torch.clamp(model.variance_network_fine(), 1e-6, 1e6)
 
-    inv_s = torch.clamp(model.variance_network_fine(), 1e-6, 1e6)
-
-    true_cos = torch.sum(dirs_flat * gradients, dim=-1, keepdim=True)
-    iter_cos = -(
-        F.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
-        + F.relu(-true_cos) * cos_anneal_ratio
-    )
-    est_dists = dists if est_dist_cap is None else torch.clamp(dists, max=est_dist_cap)
-    dists_flat = est_dists.reshape(-1, 1)
-    estimated_next_sdf = sdf + iter_cos * dists_flat * 0.5
-    estimated_prev_sdf = sdf - iter_cos * dists_flat * 0.5
-    prev_cdf = torch.sigmoid(estimated_prev_sdf * inv_s)
-    next_cdf = torch.sigmoid(estimated_next_sdf * inv_s)
-    p = prev_cdf - next_cdf
-    c = prev_cdf
-    alpha = torch.clamp(((p + 1e-5) / (c + 1e-5)).reshape(batch_size, n_samples), 0.0, 1.0)
-
-    pts_norm = torch.linalg.norm(pts_flat, dim=-1).reshape(batch_size, n_samples)
-    inside_sphere = (pts_norm < 1.0).to(alpha.dtype)
-    relax_inside_sphere = (pts_norm < 1.2).to(alpha.dtype)
-
-    if background_alpha is not None:
-        alpha = alpha * inside_sphere + background_alpha[:, :n_samples] * (1.0 - inside_sphere)
-        alpha = torch.cat([alpha, background_alpha[:, n_samples:]], dim=-1)
-        sampled_color = (
-            sampled_color * inside_sphere[:, :, None]
-            + background_sampled_color[:, :n_samples] * (1.0 - inside_sphere)[:, :, None]
+        true_cos = torch.sum(dirs_flat * gradients, dim=-1, keepdim=True)
+        iter_cos = -(
+            F.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+            + F.relu(-true_cos) * cos_anneal_ratio
         )
-        sampled_color = torch.cat(
-            [sampled_color, background_sampled_color[:, n_samples:]], dim=1
-        )
+        est_dists = dists if est_dist_cap is None else torch.clamp(dists, max=est_dist_cap)
+        dists_flat = est_dists.reshape(-1, 1)
+        estimated_next_sdf = sdf + iter_cos * dists_flat * 0.5
+        estimated_prev_sdf = sdf - iter_cos * dists_flat * 0.5
+        prev_cdf = torch.sigmoid(estimated_prev_sdf * inv_s)
+        next_cdf = torch.sigmoid(estimated_next_sdf * inv_s)
+        p = prev_cdf - next_cdf
+        c = prev_cdf
+        alpha = torch.clamp(((p + 1e-5) / (c + 1e-5)).reshape(batch_size, n_samples), 0.0, 1.0)
+
+        pts_norm = torch.linalg.norm(pts_flat, dim=-1).reshape(batch_size, n_samples)
+        inside_sphere = (pts_norm < 1.0).to(alpha.dtype)
+        relax_inside_sphere = (pts_norm < 1.2).to(alpha.dtype)
+
+        if background_alpha is not None:
+            alpha = alpha * inside_sphere + background_alpha[:, :n_samples] * (1.0 - inside_sphere)
+            alpha = torch.cat([alpha, background_alpha[:, n_samples:]], dim=-1)
+            sampled_color = (
+                sampled_color * inside_sphere[:, :, None]
+                + background_sampled_color[:, :n_samples] * (1.0 - inside_sphere)[:, :, None]
+            )
+            sampled_color = torch.cat(
+                [sampled_color, background_sampled_color[:, n_samples:]], dim=1
+            )
+            if sampled_feat is not None:
+                sampled_feat = (
+                    sampled_feat * inside_sphere[:, :, None]
+                    + background_sampled_feat[:, :n_samples] * (1.0 - inside_sphere)[:, :, None]
+                )
+                sampled_feat = torch.cat(
+                    [sampled_feat, background_sampled_feat[:, n_samples:]], dim=1
+                )
+
+        weights = alpha * transmittance(alpha)
+        weights_sum = torch.sum(weights, dim=-1, keepdim=True)
+        color = torch.sum(sampled_color * weights[:, :, None], dim=1)
+        d_feats = None
         if sampled_feat is not None:
-            sampled_feat = (
-                sampled_feat * inside_sphere[:, :, None]
-                + background_sampled_feat[:, :n_samples] * (1.0 - inside_sphere)[:, :, None]
-            )
-            sampled_feat = torch.cat(
-                [sampled_feat, background_sampled_feat[:, n_samples:]], dim=1
-            )
+            d_feats = torch.sum(sampled_feat * weights[:, :, None], dim=1)
+        if background_rgb is not None:
+            color = color + background_rgb * (1.0 - weights_sum)
 
-    weights = alpha * transmittance(alpha)
-    weights_sum = torch.sum(weights, dim=-1, keepdim=True)
-    color = torch.sum(sampled_color * weights[:, :, None], dim=1)
-    d_feats = None
-    if sampled_feat is not None:
-        d_feats = torch.sum(sampled_feat * weights[:, :, None], dim=1)
-    if background_rgb is not None:
-        color = color + background_rgb * (1.0 - weights_sum)
-
-    gradient_error_pt = (
-        torch.linalg.norm(gradients.reshape(batch_size, n_samples, 3), dim=-1) - 1.0
-    ) ** 2
-    gradient_error_num = torch.sum(relax_inside_sphere * gradient_error_pt, dim=-1)
-    gradient_error_den = torch.sum(relax_inside_sphere, dim=-1)
-    return {
-        "gradient_error_num": gradient_error_num,
-        "gradient_error_den": gradient_error_den,
-        "color": color,
-        "d_feats": d_feats,
-        "sdf": sdf,
-        "gradients": gradients.reshape(batch_size, n_samples, 3),
-        "s_val": 1.0 / inv_s,
-        "mid_z_vals": mid_z_vals,
-        "weights": weights,
-        "cdf": c.reshape(batch_size, n_samples),
-        "inside_sphere": inside_sphere,
-    }
+        gradient_error_pt = (
+            torch.linalg.norm(gradients.reshape(batch_size, n_samples, 3), dim=-1) - 1.0
+        ) ** 2
+        gradient_error_num = torch.sum(relax_inside_sphere * gradient_error_pt, dim=-1)
+        gradient_error_den = torch.sum(relax_inside_sphere, dim=-1)
+        return {
+            "gradient_error_num": gradient_error_num,
+            "gradient_error_den": gradient_error_den,
+            "color": color,
+            "d_feats": d_feats,
+            "sdf": sdf,
+            "gradients": gradients.reshape(batch_size, n_samples, 3),
+            "s_val": 1.0 / inv_s,
+            "mid_z_vals": mid_z_vals,
+            "weights": weights,
+            "cdf": c.reshape(batch_size, n_samples),
+            "inside_sphere": inside_sphere,
+        }
 
 
 def _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator):
@@ -289,6 +306,41 @@ def _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator):
     return z_vals
 
 
+def _initial_z(rcfg, near, far, perturb, generator):
+    """The ladder's first z (uniform between near and far) and the outside
+    block's (uniform in inverse depth past far, None without it), jittered
+    with ``perturb``."""
+    dev = near.device
+    batch_size = near.shape[0]
+    z_vals = torch.linspace(0.0, 1.0, rcfg.n_samples, device=dev)
+    z_vals = near + (far - near) * z_vals[None, :]
+
+    z_vals_outside = None
+    if rcfg.n_outside > 0:
+        z_vals_outside = torch.linspace(
+            1e-3, 1.0 - 1.0 / (rcfg.n_outside + 1.0), rcfg.n_outside, device=dev
+        )
+
+    if perturb > 0:
+        if generator is None:
+            raise ValueError("perturbed rendering needs a generator")
+
+        def rand(*shape):
+            return torch.rand(*shape, generator=generator, device=generator.device).to(dev)
+
+        z_vals = z_vals + (rand(batch_size, 1) - 0.5) * 2.0 / rcfg.n_samples
+        if rcfg.n_outside > 0:
+            mids = 0.5 * (z_vals_outside[..., 1:] + z_vals_outside[..., :-1])
+            upper = torch.cat([mids, z_vals_outside[..., -1:]], dim=-1)
+            lower = torch.cat([z_vals_outside[..., :1], mids], dim=-1)
+            z_vals_outside = lower[None, :] + (upper - lower)[None, :] * rand(
+                batch_size, rcfg.n_outside)
+
+    if rcfg.n_outside > 0:
+        z_vals_outside = far / torch.flip(z_vals_outside, dims=[-1]) + 1.0 / rcfg.n_samples
+    return z_vals, z_vals_outside
+
+
 def render(
     nets: NeuSNetworks,
     model: NeuSModel,
@@ -307,36 +359,11 @@ def render(
     perturb > 0. With a depth head the result also holds ``render_feats``
     [N, c], its features' composite."""
     rcfg = nets.renderer
-    dev = rays_o.device
     batch_size = rays_o.shape[0]
     sample_dist = 2.0 / rcfg.n_samples
-    z_vals = torch.linspace(0.0, 1.0, rcfg.n_samples, device=dev)
-    z_vals = near + (far - near) * z_vals[None, :]
-
-    z_vals_outside = None
-    if rcfg.n_outside > 0:
-        z_vals_outside = torch.linspace(
-            1e-3, 1.0 - 1.0 / (rcfg.n_outside + 1.0), rcfg.n_outside, device=dev
-        )
-
     perturb = rcfg.perturb if perturb_overwrite < 0 else perturb_overwrite
-    if perturb > 0:
-        if generator is None:
-            raise ValueError("perturbed rendering needs a generator")
-
-        def rand(*shape):
-            return torch.rand(*shape, generator=generator, device=generator.device).to(dev)
-
-        z_vals = z_vals + (rand(batch_size, 1) - 0.5) * 2.0 / rcfg.n_samples
-        if rcfg.n_outside > 0:
-            mids = 0.5 * (z_vals_outside[..., 1:] + z_vals_outside[..., :-1])
-            upper = torch.cat([mids, z_vals_outside[..., -1:]], dim=-1)
-            lower = torch.cat([z_vals_outside[..., :1], mids], dim=-1)
-            z_vals_outside = lower[None, :] + (upper - lower)[None, :] * rand(
-                batch_size, rcfg.n_outside)
-
-    if rcfg.n_outside > 0:
-        z_vals_outside = far / torch.flip(z_vals_outside, dims=[-1]) + 1.0 / rcfg.n_samples
+    with trace.span("render.rays"):
+        z_vals, z_vals_outside = _initial_z(rcfg, near, far, perturb, generator)
 
     resample = (
         0 < rcfg.n_render_samples < rcfg.n_samples + rcfg.n_importance
@@ -344,17 +371,18 @@ def render(
     )
     if rcfg.n_importance > 0:
         # gradient-free, as the JAX renderer's stop_gradients
-        with torch.no_grad():
+        with trace.span("render.ladder"), torch.no_grad():
             z_vals = _ladder(model, rcfg, rays_o, rays_d, z_vals, resample, perturb, generator)
 
     background_alpha = background_sampled_color = background_sampled_feat = None
     background_zvals = None
     if rcfg.n_outside > 0:
-        z_vals_feed, _ = merge_z_vals(z_vals, z_vals_outside, None, None)
-        ret_outside = render_core_outside(
-            nets, model, rays_o, rays_d, z_vals_feed, sample_dist,
-            eval_tail=rcfg.n_outside + 1 if rcfg.skip_bg_inside else None,
-        )
+        with trace.span("render.nerf"):
+            z_vals_feed, _ = merge_z_vals(z_vals, z_vals_outside, None, None)
+            ret_outside = render_core_outside(
+                nets, model, rays_o, rays_d, z_vals_feed, sample_dist,
+                eval_tail=rcfg.n_outside + 1 if rcfg.skip_bg_inside else None,
+            )
         background_sampled_color = ret_outside["sampled_color"]
         background_sampled_feat = ret_outside["sampled_feat"]
         background_alpha = ret_outside["alpha"]
@@ -371,19 +399,20 @@ def render(
         background_sampled_feat=background_sampled_feat,
     )
     weights = ret_fine["weights"]
-    out = {
-        "color_fine": ret_fine["color"],
-        "gradient_error_num": ret_fine["gradient_error_num"],
-        "gradient_error_den": ret_fine["gradient_error_den"],
-        "s_val": ret_fine["s_val"].expand(batch_size, 1),
-        "cdf_fine": ret_fine["cdf"],
-        "weight_sum": torch.sum(weights, dim=-1, keepdim=True),
-        "weight_max": torch.amax(weights, dim=-1, keepdim=True),
-        "gradients": ret_fine["gradients"],
-        "weights": weights,
-        "z_vals": ret_fine["mid_z_vals"] if background_zvals is None else background_zvals,
-        "inside_sphere": ret_fine["inside_sphere"],
-    }
+    with trace.span("render.composite"):
+        out = {
+            "color_fine": ret_fine["color"],
+            "gradient_error_num": ret_fine["gradient_error_num"],
+            "gradient_error_den": ret_fine["gradient_error_den"],
+            "s_val": ret_fine["s_val"].expand(batch_size, 1),
+            "cdf_fine": ret_fine["cdf"],
+            "weight_sum": torch.sum(weights, dim=-1, keepdim=True),
+            "weight_max": torch.amax(weights, dim=-1, keepdim=True),
+            "gradients": ret_fine["gradients"],
+            "weights": weights,
+            "z_vals": ret_fine["mid_z_vals"] if background_zvals is None else background_zvals,
+            "inside_sphere": ret_fine["inside_sphere"],
+        }
     if ret_fine["d_feats"] is not None:
         out["render_feats"] = ret_fine["d_feats"]
     return out

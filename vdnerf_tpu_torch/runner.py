@@ -46,7 +46,16 @@ happens on every rank. Rank 0 alone writes the metrics, checkpoints,
 validation images, meshes and the closing evaluation, while the others wait
 at a barrier; a SIGTERM on any rank stops every rank at the same window
 boundary. ``VDNERF_PROFILE_DIR`` traces steps 10-15 on rank 0
-(``utils/debug.py``).
+(``utils/debug.py``), the program's spans and marks in it
+(``utils/trace.py``).
+
+The log's ``rays/s`` and ``metrics.jsonl``'s ``rays_per_sec`` are the last
+window's: its rays over the host time since the window before it ended. At
+the end of training one log line gives each step program's captures, eager
+steps and replays, and the host seconds of the ``data.*``, ``dispatch.*`` and
+``setup.*`` spans. Set-up runs in the spans ``setup.scene`` (the scene and
+the ray store, ``setup.features`` in it) and ``setup.model``; the mesh in
+``mesh.grid``, ``mesh.to_host``, ``mesh.marching`` and ``mesh.ply``.
 
 Precision: the SDF block is f32 unless ``VDNERF_BF16`` asks for bf16 (read
 once, here); a training runner switches it to bf16 when the conf sets
@@ -77,7 +86,6 @@ from vdnerf_tpu_torch.data.dataset import SceneData, load_K_Rt_from_P
 from vdnerf_tpu_torch.data.rays import RayStore
 from vdnerf_tpu_torch.io import (
     MetricsWriter,
-    Throughput,
     checkpoint_path,
     from_jax_cams,
     latest_checkpoint,
@@ -110,7 +118,7 @@ from vdnerf_tpu_torch.train.validate import (
     val_image_metrics,
     write_video,
 )
-from vdnerf_tpu_torch.utils import debug
+from vdnerf_tpu_torch.utils import debug, trace
 from vdnerf_tpu_torch.utils.camvis import plot_cam_poses
 from vdnerf_tpu_torch.utils.device import configure_numerics, resolve_device
 from vdnerf_tpu_torch.utils.hocon import load_conf
@@ -127,6 +135,20 @@ def mesh_resolution(step: int) -> tuple[int, bool]:
     if step % 50000 == 0:
         return 256, False
     return 128, False
+
+
+def log_programs() -> None:
+    """One log line: each step program's captures, eager steps and replays
+    (``train/dispatch.py``'s counters), and the host seconds of the
+    ``data.*``, ``dispatch.*`` and ``setup.*`` spans, in this process."""
+    programs: dict[str, dict[str, int]] = {}
+    for name, n in trace.counts().items():
+        what, _, program = name.partition(".")[2].partition(".")
+        if name.startswith("dispatch."):
+            programs.setdefault(program, {})[what] = n
+    spans = {name: round(s, 3) for name, (_, s) in trace.host().items()
+             if name.split(".")[0] in ("data", "dispatch", "setup")}
+    log.info("step programs %s; host seconds %s", programs, spans)
 
 
 def window_size(tcfg: TrainConfig, res_step: int, iter_step: int,
@@ -167,19 +189,23 @@ class Runner:
             self.base_exp_dir += "_" + img_dir.split("image")[-1]
         os.makedirs(self.base_exp_dir, exist_ok=True)
 
-        self.scene_data = SceneData(self.conf["dataset"])
-        self.nets = build_networks(self.conf, self.tcfg.extract_depth)
-        # the SDF block's precision: train.bf16 for a training run, else
-        # VDNERF_BF16; K2-K5's operands follow it and VDNERF_FUSED
-        policy = matmul_dtype(True) if mode == "train" and self.tcfg.bf16 else env_matmul_dtype()
-        self.mlp_dtype = mlp_operand_dtype(policy, env_fused())
-        self.model = build_model(self.conf, self.nets, seed, policy,
-                                 mlp_dtype=self.mlp_dtype).to(self.device)
+        with trace.span("setup.scene"):
+            self.scene_data = SceneData(self.conf["dataset"])
+            self.store = None
+            if "mesh" not in mode:
+                self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis,
+                                      self.scene_data.depth_lis,
+                                      with_depth=self.tcfg.extract_depth)
+        with trace.span("setup.model"):
+            self.nets = build_networks(self.conf, self.tcfg.extract_depth)
+            # the SDF block's precision: train.bf16 for a training run, else
+            # VDNERF_BF16; K2-K5's operands follow it and VDNERF_FUSED
+            policy = (matmul_dtype(True) if mode == "train" and self.tcfg.bf16
+                      else env_matmul_dtype())
+            self.mlp_dtype = mlp_operand_dtype(policy, env_fused())
+            self.model = build_model(self.conf, self.nets, seed, policy,
+                                     mlp_dtype=self.mlp_dtype).to(self.device)
         self.iter_step = 0
-        self.store = None
-        if "mesh" not in mode:
-            self.store = RayStore(self.scene_data.images_lis, self.scene_data.masks_lis,
-                                  self.scene_data.depth_lis, with_depth=self.tcfg.extract_depth)
         self.renderer = ImageRenderer(self.nets, self.tcfg, self.scene_data.H, self.scene_data.W)
         self.rng = np.random.default_rng(seed)
         # the learned cameras (None for a fixed-camera conf), in every mode
@@ -296,10 +322,10 @@ class Runner:
         n_images = self.scene_data.n_images
         image_perm = self.rng.permutation(n_images)
         perm_pos = 0
-        throughput = Throughput(tcfg.batch_size)
         dispatch = StepDispatch(self.trainer)
         profile_dir = os.environ.get(debug.PROFILE_ENV) if world.lead else None
-        trace = contextlib.ExitStack()
+        profiled = contextlib.ExitStack()
+        window_end = time.perf_counter()
         try:
             for _ in range(res_step // k):
                 # image draw and pixel sampling interleave per step exactly as
@@ -316,7 +342,7 @@ class Runner:
                 if profile_dir and self.iter_step <= 10 < self.iter_step + k:
                     # the windows that hold steps 10-15, or the run's end first
                     last = min(self.iter_step + k * -(-(16 - self.iter_step) // k), tcfg.end_iter)
-                    trace.enter_context(
+                    profiled.enter_context(
                         debug.profile_trace(profile_dir, f"train_steps_{first}_{last}.json"))
                 steps = range(self.iter_step, self.iter_step + k)
                 window = dispatch.run(
@@ -324,8 +350,11 @@ class Runner:
                     batches)
                 self.iter_step = step = self.iter_step + k
                 if step - k <= 15 < step:
-                    trace.close()
-                rays_ps = throughput.tick(k)
+                    profiled.close()
+                # the window's rays over the host time since the last one ended
+                now = time.perf_counter()
+                rays_ps = k * tcfg.batch_size / max(now - window_end, 1e-9)
+                window_end = now
                 due = [s for s in range(first, step + 1)
                        if s % 10 == 0 or s <= 1 or s % tcfg.report_freq == 0]
                 if due and world.lead:
@@ -365,11 +394,12 @@ class Runner:
                 if wrote:
                     world.barrier()
         finally:
-            trace.close()
+            profiled.close()
             if prev_sigterm is not None:
                 signal.signal(signal.SIGTERM, prev_sigterm)
             if writer is not None:
                 writer.close()
+        log_programs()
         summary = self.val_all_imgs(resolution_level=2, both_mask=True) if world.lead else None
         return world.broadcast_object(summary)
 
@@ -464,18 +494,18 @@ class Runner:
         def neg_sdf(pts):
             return -sdf_net.sdf_value(pts)[:, 0]
 
-        seconds: dict = {}
+        before = trace.host()
         verts, tris = extract_geometry(
             self.scene_data.object_bbox_min, self.scene_data.object_bbox_max,
-            resolution, threshold, neg_sdf, device=self.device, timings=seconds,
+            resolution, threshold, neg_sdf, device=self.device,
         )
         if world_space and len(verts):
             sm = self.scene_data.scale_mats_np[0]
             verts = verts * sm[0, 0] + sm[:3, 3][None]
         path = os.path.join(self.base_exp_dir, "meshes", f"{self.iter_step:08d}.ply")
-        t0 = time.perf_counter()
-        save_ply(path, verts, tris)
-        seconds["ply"] = time.perf_counter() - t0
+        with trace.span("mesh.ply"):
+            save_ply(path, verts, tris)
+        seconds = trace.seconds("mesh.", since=before)
         log.info("mesh %s: %d vertices, %d triangles at %d^3 (%s)", path, len(verts), len(tris),
                  resolution, {k: round(v, 3) for k, v in seconds.items()})
         return {"path": path, "resolution": resolution, "world_space": world_space,

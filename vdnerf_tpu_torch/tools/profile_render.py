@@ -26,17 +26,16 @@ K2-K5 run f32 operands under the f32 policy unless ``VDNERF_FUSED=1``
 
 - the steady-state time of one chunk or step (CUDA events over ``--iters``
   chunks, or over two windows of ``--iters`` steps);
-- the device time by kernel under ``torch.profiler``, grouped into the port's
-  CUDA kernels (a backward is its tile kernel plus the dW contraction that
-  K3 and K5 share: ``dw_kernel``, ``reduce_dw_kernel`` and
-  ``reduce_db_kernel``), cuBLAS/cutlass matrix products (the plain
-  autograd SDF value+gradient+feature block and its backward: f32, or
-  under bf16 f32 products of bf16-rounded operands), and the rest
-  (elementwise, reductions, sort, copies);
-- the device's busy and idle share of the profiled window, the number of
-  device events (kernels and copies) in it, the span from the first event's
-  start to the last one's end and the gaps inside that span when no event
-  ran (idle time outside the span is the host's alone);
+- the device time under ``torch.profiler`` by the program's layer spans and
+  backward pieces, read from their device marks (``utils/trace.py``: the
+  ladder, the background NeRF, the SDF block, the heads, the composite, the
+  loss and Adam, each backward piece under its point's name), and the top
+  kernels;
+- the device's busy time (the union of its operations' intervals) and idle
+  share of the profiled window, the number of device events (kernels and
+  copies, marks left out) in it, the span from the first event's start to
+  the last one's end and the gaps inside that span when no event ran (idle
+  time outside the span is the host's alone);
 - with ``--train``, each kernel's launches per step, and per head
   (``color_network_fine``, and ``depth_network_fine`` on a wdepth conf) its
   rows, outputs and the CUDA-event times of its K2 and K3 alone at that
@@ -69,22 +68,9 @@ from vdnerf_tpu_torch.train.builder import build_model, build_networks
 from vdnerf_tpu_torch.train.config import TrainConfig
 from vdnerf_tpu_torch.train.dispatch import WARMUP_STEPS, StepDispatch
 from vdnerf_tpu_torch.train.step import Trainer
+from vdnerf_tpu_torch.utils import trace as program_trace
 from vdnerf_tpu_torch.utils.device import configure_numerics
 from vdnerf_tpu_torch.utils.hocon import load_conf
-
-OURS = ("sdf_fwd_kernel", "render_fwd_kernel", "nerf_fwd_kernel", "render_bwd_kernel",
-        "nerf_bwd_kernel", "dw_kernel", "reduce_dw_kernel", "reduce_db_kernel")
-
-
-def _group(name: str) -> str:
-    for k in OURS:
-        # K1's kernel is a template (sdf_fwd_kernel<64>, <32>)
-        if f"::{k}(" in name or f"::{k}<" in name:
-            return k
-    low = name.lower()
-    if any(s in low for s in ("gemm", "cutlass", "sm90_xmma", "cublas", "ampere_sgemm", "sgemm")):
-        return "matmul"
-    return "other"
 
 
 def _event_ms(fn, iters: int = 10) -> float:
@@ -100,11 +86,14 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def profile_window(fn, trace: str = "", group=_group) -> dict:
+def profile_window(fn, trace: str = "", group=None) -> dict:
     """One call of fn under ``torch.profiler``: its host-clock window (the
-    profiler's own host overhead included), the device time by ``group`` (a
-    kernel name -> group name function) and kernel, and the device's busy and
-    idle share of the window."""
+    profiler's own host overhead included), the device's busy time (the
+    union of its operations' intervals) and idle share of the window, the
+    device ms by the program's span or backward piece (:func:`by_span`, from
+    the marks; "(none)" outside every span) and the top kernels; with
+    ``group`` (a kernel name -> group name function), also the device ms by
+    group."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -115,36 +104,33 @@ def profile_window(fn, trace: str = "", group=_group) -> dict:
     if trace:
         prof.export_chrome_trace(trace)
 
-    groups: dict[str, float] = {}
+    # a user annotation (Optimizer.step#...) spans kernels counted anyway
+    events = [(ev.name, ev.time_range.start / 1e3, ev.time_range.end / 1e3)
+              for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
+    work = [e for e in events if program_trace.parse_mark(e[0]) is None]
     kernels: dict[str, float] = {}
-    spans = []
-    for ev in prof.events():
-        # a user annotation (Optimizer.step#...) spans kernels counted anyway
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
-            continue
-        us = ev.time_range.elapsed_us()
-        spans.append((ev.time_range.start, ev.time_range.end))
-        kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
-        groups[group(ev.name)] = groups.get(group(ev.name), 0.0) + us / 1e3
-    busy_ms = sum(groups.values())
-    # the device's timeline: from its first event's start to its last one's
-    # end, and the time inside that span when no event ran
-    gaps_us, reach = 0.0, None
-    for start, end in sorted(spans):
-        if reach is not None and start > reach:
-            gaps_us += start - reach
-        reach = end if reach is None else max(reach, end)
-    span_ms = (reach - min(spans)[0]) / 1e3 if spans else None
-    return {
+    for name, start, end in work:
+        kernels[name] = kernels.get(name, 0.0) + end - start
+    busy_ms = sum(program_trace.by_span(work).values())
+    span_ms = max(e for _, _, e in work) - min(s for _, s, _ in work) if work else None
+    out = {
         "profiled_window_ms": window_ms,
-        "device_events": len(spans),
+        "device_events": len(work),
         "device_span_ms": span_ms,
-        "device_gaps_ms": gaps_us / 1e3 if spans else None,
-        "device_busy_ms": busy_ms if kernels else None,
-        "device_idle_share": 1.0 - busy_ms / window_ms if kernels else None,
-        "device_ms_by_group": groups,
+        "device_gaps_ms": span_ms - busy_ms if work else None,
+        "device_busy_ms": busy_ms if work else None,
+        "device_idle_share": 1.0 - busy_ms / window_ms if work else None,
+        "device_ms_by_span": {k or "(none)": v
+                              for k, v in program_trace.by_span(events).items()},
         "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[:15],
     }
+    if group is not None:
+        out["device_ms_by_group"] = {}
+        for name, start, end in work:
+            key = group(name)
+            out["device_ms_by_group"][key] = out["device_ms_by_group"].get(key, 0.0) + end - start
+    return out
 
 
 def _profile(fn, iters: int, trace: str) -> dict:

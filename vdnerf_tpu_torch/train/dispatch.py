@@ -39,6 +39,19 @@ Launch counts: ``build.LAUNCHES`` counts wrapper calls, which a replay does
 not make; each program's launches are recorded at its capture and added on
 every replay, so that the counts say what ran.
 
+Tracing (``utils/trace.py``): a graph replays what its capture launched, so
+each program is captured twice, back to back, in the same pool and with the
+same generator registration: a plain graph, and a marked twin whose capture
+launched the step's device marks. A step replays the twin while a profiler
+records and the plain graph otherwise (one check a step); both record the
+same launch counts. Spans: ``dispatch.upload`` (a window's stack and
+upload), ``dispatch.eager``, ``dispatch.capture`` (each of the two
+captures), ``dispatch.replay`` (a step's inputs and its replay) and
+``dispatch.read`` (:meth:`Window.read`); counters per program
+(:func:`program_name`): ``dispatch.eager_steps.<program>``,
+``dispatch.captures.<program>`` (one a program, its twin in it) and
+``dispatch.replays.<program>``.
+
 Data parallelism: for a trainer in a grouped world (``parallel/mesh.py``,
 NCCL on the card) the step's collectives (the loss normalisers' sums, the
 one gradient all-reduce) are part of ``Trainer.program`` and so of the
@@ -67,6 +80,7 @@ import torch
 from vdnerf_tpu_torch.ops.kernels import build
 from vdnerf_tpu_torch.ops.renderer import NeuSNetworks
 from vdnerf_tpu_torch.train.step import Trainer, upload_batch
+from vdnerf_tpu_torch.utils import trace
 from vdnerf_tpu_torch.utils.debug import nan_debugging_enabled
 
 # eager steps of a program before its capture
@@ -87,15 +101,28 @@ class Window:
 
     def read(self) -> list[dict[str, float]]:
         """Every step's metrics, in one transfer to the host."""
-        rows = self.metrics.cpu().numpy()
+        with trace.span("dispatch.read"):
+            rows = self.metrics.cpu().numpy()
         return [dict(zip(self.names, map(float, row))) for row in rows]
 
 
 @dataclasses.dataclass
 class _Program:
+    name: str
     graph: torch.cuda.CUDAGraph
     metrics: torch.Tensor
+    marked: torch.cuda.CUDAGraph  # the twin with the step's device marks
+    marked_metrics: torch.Tensor
     launches: dict[str, int]
+
+
+def program_name(nets: NeuSNetworks, distill: bool, refine: bool) -> str:
+    """A step program's name in the trace's counters: ``core<samples>``, then
+    ``.distill`` and ``.refine`` where they hold."""
+    r = nets.renderer
+    n = r.n_samples + r.n_importance
+    core = r.n_render_samples if 0 < r.n_render_samples < n and r.n_importance > 0 else n
+    return f"core{core}" + ".distill" * distill + ".refine" * refine
 
 
 class StepDispatch:
@@ -118,14 +145,20 @@ class StepDispatch:
         steps = list(steps)
         names = self.trainer.metric_names
         if not self.graphed:
-            rows = [self.trainer.step(n, b, s) for s, n, b in zip(steps, nets, batches)]
+            rows = []
+            for s, n, b in zip(steps, nets, batches):
+                with trace.span("dispatch.eager", id=s):
+                    rows.append(self.trainer.step(n, b, s))
+                trace.count("dispatch.eager_steps."
+                            + program_name(n, self.trainer.distills(s), self.trainer.refines(s)))
             metrics = torch.stack([torch.stack([m[k] for k in names]) for m in rows])
             return Window(steps, None, None, metrics, names)
-        stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
-        inputs = np.stack([self.trainer.step_inputs(s) for s in steps])
-        dev = upload_batch({**stacked, "_inputs": inputs}, self.device)
-        window = Window(steps, dev, dev.pop("_inputs"),
-                        torch.empty(len(steps), len(names), device=self.device), names)
+        with trace.span("dispatch.upload"):
+            stacked = {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+            inputs = np.stack([self.trainer.step_inputs(s) for s in steps])
+            dev = upload_batch({**stacked, "_inputs": inputs}, self.device)
+            window = Window(steps, dev, dev.pop("_inputs"),
+                            torch.empty(len(steps), len(names), device=self.device), names)
         for j, (s, n) in enumerate(zip(steps, nets)):
             self.step(window, j, n, self.trainer.distills(s), self.trainer.refines(s))
         return window
@@ -140,14 +173,22 @@ class StepDispatch:
             if self.eager_steps[key] < WARMUP_STEPS:
                 self.eager_steps[key] += 1
                 self.side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self.side):
+                with trace.span("dispatch.eager", id=window.steps[j]), \
+                        torch.cuda.stream(self.side):
                     self.eager_step(window, j, nets, distill, refine)
                 torch.cuda.current_stream(self.device).wait_stream(self.side)
+                trace.count("dispatch.eager_steps." + program_name(*key))
                 return
             prog = self.programs[key] = self._capture(window, nets, distill, refine)
-        self._set_step(window, j)
-        prog.graph.replay()
-        window.metrics[j].copy_(prog.metrics)
+        with trace.span("dispatch.replay", id=window.steps[j]):
+            self._set_step(window, j)
+            if trace.marks_on():
+                prog.marked.replay()
+                window.metrics[j].copy_(prog.marked_metrics)
+            else:
+                prog.graph.replay()
+                window.metrics[j].copy_(prog.metrics)
+        trace.count("dispatch.replays." + prog.name)
         for k, v in prog.launches.items():
             build.LAUNCHES[k] += v
 
@@ -157,7 +198,7 @@ class StepDispatch:
         replay runs, on the same inputs (the graph's oracle)."""
         self.trainer.inputs.copy_(window.inputs[j])
         metrics = self.trainer.program(nets, {k: v[j] for k, v in window.batch.items()},
-                                       distill, refine)
+                                       distill, refine, window.steps[j])
         window.metrics[j].copy_(self._stack(metrics))
 
     def _stack(self, metrics: dict) -> torch.Tensor:
@@ -173,16 +214,26 @@ class StepDispatch:
                  refine: bool) -> _Program:
         if self.batch is None:
             self.batch = {k: torch.empty_like(v[0]) for k, v in window.batch.items()}
-        graph = torch.cuda.CUDAGraph()
-        if self.trainer.generator is not None:
-            graph.register_generator_state(self.trainer.generator)
-        before = dict(build.LAUNCHES)
+        trace.load_marks()  # the marks' kernels loaded before a capture launches one
         # the process group's watchdog thread queries events during a capture
         mode = "thread_local" if self.trainer.world.grouped else "global"
-        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode=mode):
-            metrics = self._stack(self.trainer.program(nets, self.batch, distill, refine))
-        # the wrappers counted what the capture recorded; nothing ran
-        launches = {k: build.LAUNCHES[k] - before[k] for k in before}
-        build.LAUNCHES.update(before)
-        self.pool = graph.pool()
-        return _Program(graph, metrics, launches)
+        made = []
+        for marked in (False, True):
+            graph = torch.cuda.CUDAGraph()
+            if self.trainer.generator is not None:
+                graph.register_generator_state(self.trainer.generator)
+            before = dict(build.LAUNCHES)
+            with trace.span("dispatch.capture"), trace.marking(marked), \
+                    torch.cuda.graph(graph, pool=self.pool, capture_error_mode=mode):
+                metrics = self._stack(self.trainer.program(nets, self.batch, distill, refine))
+            # the wrappers counted what the capture recorded; nothing ran
+            made.append((graph, metrics, {k: build.LAUNCHES[k] - before[k] for k in before}))
+            build.LAUNCHES.update(before)
+            self.pool = graph.pool()
+        (graph, metrics, launches), (marked_graph, marked_metrics, marked_launches) = made
+        if marked_launches != launches:
+            raise RuntimeError(f"the marked twin launches {marked_launches}, the plain graph "
+                               f"{launches}")
+        name = program_name(nets, distill, refine)
+        trace.count("dispatch.captures." + name)
+        return _Program(name, graph, metrics, marked_graph, marked_metrics, launches)

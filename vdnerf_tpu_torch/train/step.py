@@ -23,6 +23,13 @@ focal), computed on the host in f32 (:meth:`Trainer.step_inputs`). Whether
 the distillation term is in the loss (``distill``) and whether the cameras
 are refined (``refine``) are separate programs, where the JAX step
 multiplies by a gate and branches by ``lax.cond``.
+
+Spans (``utils/trace.py``): ``step`` around :meth:`Trainer.program`, and in
+it the render's (``ops/renderer.py``; the batch's rays and near/far in a
+``render.rays`` of their own), ``step.loss``, ``step.backward`` (split by
+the render's backward points; its first piece is the loss's and the
+composite's), ``step.allreduce`` (grouped worlds) and ``step.adam``; every
+Adam's construction in ``setup.optimizer``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from vdnerf_tpu_torch.train.schedules import (
     neus_lr_schedule,
     pose_lr_milestones,
 )
+from vdnerf_tpu_torch.utils import trace
 
 # the fields of Trainer.inputs
 STEP_INPUTS = ("cos_anneal_ratio", "distill_weight", "lr", "pose_lr", "focal_lr")
@@ -109,21 +117,28 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
     alone by default."""
     gsum = (world or World()).sum
     dev = batch["color"].device
-    rays_o, rays_d = rays_from_batch(cams, batch, dev)
-    near, far = near_far_from_sphere(rays_o, rays_d)
-    true_rgb = batch["color"]
-    mask_raw = batch["mask"]
-    background_rgb = torch.ones(1, 3, device=dev) if tcfg.use_white_bkgd else None
-    if tcfg.use_mask:
-        mask = (mask_raw > 0.1).float()
-    else:
-        mask = torch.ones_like(mask_raw)
-    mask_sum = gsum(mask.sum()) + 1e-5
+    with trace.span("render.rays"):
+        rays_o, rays_d = rays_from_batch(cams, batch, dev)
+        near, far = near_far_from_sphere(rays_o, rays_d)
+        background_rgb = torch.ones(1, 3, device=dev) if tcfg.use_white_bkgd else None
 
     out = render(nets, model, rays_o, rays_d, near, far, generator=generator,
                  background_rgb=background_rgb,
                  cos_anneal_ratio=inputs[0],
                  depth_before_color=tcfg.depth_before_color)
+    with trace.span("step.loss"):
+        return _loss(tcfg, batch, out, inputs, distill, gsum)
+
+
+def _loss(tcfg: TrainConfig, batch: dict, out: dict, inputs, distill: bool, gsum):
+    """The loss and the metrics of a render ``out`` of the batch's rays."""
+    true_rgb = batch["color"]
+    mask_raw = batch["mask"]
+    if tcfg.use_mask:
+        mask = (mask_raw > 0.1).float()
+    else:
+        mask = torch.ones_like(mask_raw)
+    mask_sum = gsum(mask.sum()) + 1e-5
     color_fine = out["color_fine"]
 
     color_error = (color_fine - true_rgb) * mask
@@ -228,8 +243,9 @@ class Trainer:
 
     def _adam(self, params, field: int, lr: float) -> torch.optim.Adam:
         """Adam (0.9, 0.999, 1e-8) whose lr on the card is ``inputs[field]``."""
-        return torch.optim.Adam(params, lr=self.inputs[field] if self.capturable else lr,
-                                betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
+        with trace.span("setup.optimizer"):
+            return torch.optim.Adam(params, lr=self.inputs[field] if self.capturable else lr,
+                                    betas=(0.9, 0.999), eps=1e-8, capturable=self.capturable)
 
     def camera_optimizers(self) -> list[torch.optim.Adam]:
         """The cameras' Adams, pose then focal (lrs ``inputs[3]``, ``inputs[4]``)."""
@@ -292,15 +308,17 @@ class Trainer:
                    for name, v in batch.items()}
             loss, metrics = loss_fn(nets, self.tcfg, self.model, self.cams, sub, self.inputs,
                                     distill, self.generator, self.world)
-            loss.backward()
-            sums = {name: sums.get(name, 0.0) + v for name, v in metrics.items()}
+            with trace.span("step.backward"):
+                loss.backward()
+            sums = metrics if k == 0 else {name: sums[name] + v for name, v in metrics.items()}
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             elif accum > 1:
                 p.grad.mul_(1.0 / accum)
         if self.world.grouped:
-            all_reduce_grads(params)
+            with trace.span("step.allreduce"):
+                all_reduce_grads(params)
         return {name: v * (1.0 / accum) if accum > 1 else v for name, v in sums.items()}
 
     def apply(self, step: int) -> None:
@@ -319,11 +337,15 @@ class Trainer:
                     group["lr"] = float(self.inputs[field])
             opt.step()
 
-    def program(self, nets: NeuSNetworks, batch: dict, distill: bool, refine: bool) -> dict:
+    def program(self, nets: NeuSNetworks, batch: dict, distill: bool, refine: bool,
+                step: int | None = None) -> dict:
         """One step at ``inputs`` on a batch of device tensors, gradients then
-        Adam -> metrics: what a captured step runs."""
-        metrics = self.device_gradients(nets, batch, distill)
-        self._update(refine)
+        Adam -> metrics: what a captured step runs. ``step``: the step's
+        number for the trace, where it is known (not in a capture)."""
+        with trace.span("step", id=step):
+            metrics = self.device_gradients(nets, batch, distill)
+            with trace.span("step.adam"):
+                self._update(refine)
         return metrics
 
     def step(self, nets: NeuSNetworks, batch: dict, step: int) -> dict:
@@ -331,4 +353,4 @@ class Trainer:
         (device scalars)."""
         self.set_inputs(step)
         return self.program(nets, upload_batch(batch, self.device), self.distills(step),
-                            self.refines(step))
+                            self.refines(step), step)

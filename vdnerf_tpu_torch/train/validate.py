@@ -11,6 +11,14 @@ Counterpart of ``vdnerf_tpu/train/validate.py``:
   argmax-weight depth as ``.npy`` plus a percentile-normalised PNG.
 - :func:`interpolate_frames`, :func:`write_video`: the novel-view sweep
   between two cameras as uint8 BGR frames, and its ``mp4v`` video.
+
+Spans of a frame (``utils/trace.py``): ``serve.frame`` (one
+:meth:`ImageRenderer.render_image` or ``render_between``, its id the
+renderer's frame count), ``serve.rays`` (the ray grid, and each chunk's
+near/far), ``serve.chunk``, inside it the render's spans, ``serve.outputs``
+(normals, argmax depth, the chunk's eikonal sums) and ``serve.to_host`` (the
+copies and reads on the host); counters ``serve.frames``, ``serve.chunks``
+and ``serve.host_syncs`` (one a copy or read).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from vdnerf_tpu_torch.data.cameras import rays_between, rays_grid
 from vdnerf_tpu_torch.data.dataset import near_far_from_sphere
 from vdnerf_tpu_torch.ops.renderer import NeuSModel, NeuSNetworks, render
 from vdnerf_tpu_torch.train.config import TrainConfig
+from vdnerf_tpu_torch.utils import trace
 
 
 def resolve_cams(cams, pose_all: np.ndarray,
@@ -49,33 +58,36 @@ class ImageRenderer:
         self.tcfg = tcfg
         self.H, self.W = H, W
         self.chunk = chunk or max(tcfg.batch_size, 4096)
+        self.frames = 0
 
     @torch.no_grad()
     def _render_chunk(self, model: NeuSModel, rays_o, rays_d, anneal: float) -> dict:
-        near, far = near_far_from_sphere(rays_o, rays_d)
-        background_rgb = (
-            torch.ones(1, 3, device=rays_o.device) if self.tcfg.use_white_bkgd else None
-        )
+        with trace.span("serve.rays"):
+            near, far = near_far_from_sphere(rays_o, rays_d)
+            background_rgb = (
+                torch.ones(1, 3, device=rays_o.device) if self.tcfg.use_white_bkgd else None
+            )
         out = render(
             self.nets, model, rays_o, rays_d, near, far,
             perturb_overwrite=0, background_rgb=background_rgb,
             cos_anneal_ratio=anneal, depth_before_color=self.tcfg.depth_before_color,
         )
-        inside = out["inside_sphere"]
-        n_total = inside.shape[1]
-        normals = torch.sum(
-            out["gradients"] * out["weights"][:, :n_total, None] * inside[..., None], dim=1
-        )
-        w_inside = out["weights"][:, :n_total] * inside
-        argmax_w = torch.argmax(w_inside, dim=-1)
-        weight_depth = torch.gather(out["z_vals"], -1, argmax_w[:, None])
-        return {
-            "color": out["color_fine"],
-            "normals": normals,
-            "weight_depth": weight_depth,
-            "grad_err_num": out["gradient_error_num"],
-            "grad_err_den": out["gradient_error_den"],
-        }
+        with trace.span("serve.outputs"):
+            inside = out["inside_sphere"]
+            n_total = inside.shape[1]
+            normals = torch.sum(
+                out["gradients"] * out["weights"][:, :n_total, None] * inside[..., None], dim=1
+            )
+            w_inside = out["weights"][:, :n_total] * inside
+            argmax_w = torch.argmax(w_inside, dim=-1)
+            weight_depth = torch.gather(out["z_vals"], -1, argmax_w[:, None])
+            return {
+                "color": out["color_fine"],
+                "normals": normals,
+                "weight_depth": weight_depth,
+                "grad_err_num": out["gradient_error_num"].sum(),
+                "grad_err_den": out["gradient_error_den"].sum(),
+            }
 
     def render_rays(self, model: NeuSModel, rays_o, rays_d, step: int = 0) -> dict:
         """Render [M, 3] rays chunk by chunk -> numpy dict."""
@@ -83,26 +95,32 @@ class ImageRenderer:
         outs = {"color": [], "normals": [], "weight_depth": []}
         grad_num = grad_den = 0.0
         for start in range(0, rays_o.shape[0], self.chunk):
-            out = self._render_chunk(
-                model, rays_o[start:start + self.chunk], rays_d[start:start + self.chunk], anneal
-            )
-            for k in outs:
-                outs[k].append(out[k].cpu().numpy())
-            grad_num += float(out["grad_err_num"].sum())
-            grad_den += float(out["grad_err_den"].sum())
+            with trace.span("serve.chunk"):
+                out = self._render_chunk(
+                    model, rays_o[start:start + self.chunk], rays_d[start:start + self.chunk],
+                    anneal)
+                with trace.span("serve.to_host"):
+                    for k in outs:
+                        outs[k].append(out[k].cpu().numpy())
+                    grad_num += float(out["grad_err_num"])
+                    grad_den += float(out["grad_err_den"])
+            trace.count("serve.chunks")
+            trace.count("serve.host_syncs", len(outs) + 2)
         result = {k: np.concatenate(v, axis=0) for k, v in outs.items()}
         result["gradient_error"] = grad_num / (grad_den + 1e-5)
         return result
 
     def render_image(self, model: NeuSModel, pose: np.ndarray, intrin_inv: np.ndarray,
                      resolution_level: int = 1, step: int = 0) -> dict:
-        dev = next(model.parameters()).device
-        rays_o, rays_d = rays_grid(
-            torch.as_tensor(pose, device=dev), torch.as_tensor(intrin_inv, device=dev),
-            self.H, self.W, resolution_level,
-        )
-        h, w = rays_o.shape[:2]
-        out = self.render_rays(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), step)
+        with trace.span("serve.frame", id=self._next_frame()):
+            dev = next(model.parameters()).device
+            with trace.span("serve.rays"):
+                rays_o, rays_d = rays_grid(
+                    torch.as_tensor(pose, device=dev), torch.as_tensor(intrin_inv, device=dev),
+                    self.H, self.W, resolution_level,
+                )
+            h, w = rays_o.shape[:2]
+            out = self.render_rays(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), step)
         # rotate world normals into the camera frame
         rot = np.linalg.inv(pose[:3, :3])
         return {
@@ -118,14 +136,24 @@ class ImageRenderer:
         """[H//l, W//l, 3] colour of the pose at ``ratio`` between cameras
         ``idx0`` and ``idx1`` of ``poses`` (from :func:`resolve_cams`), through
         the first camera's inverse intrinsics."""
-        dev = next(model.parameters()).device
-        rays_o, rays_d = rays_between(
-            torch.as_tensor(poses[idx0], device=dev), torch.as_tensor(poses[idx1], device=dev),
-            torch.as_tensor(intrin_inv[0], device=dev), ratio, self.H, self.W, resolution_level,
-        )
-        h, w = rays_o.shape[:2]
-        out = self.render_rays(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), step)
+        with trace.span("serve.frame", id=self._next_frame()):
+            dev = next(model.parameters()).device
+            with trace.span("serve.rays"):
+                rays_o, rays_d = rays_between(
+                    torch.as_tensor(poses[idx0], device=dev),
+                    torch.as_tensor(poses[idx1], device=dev),
+                    torch.as_tensor(intrin_inv[0], device=dev), ratio, self.H, self.W,
+                    resolution_level,
+                )
+            h, w = rays_o.shape[:2]
+            out = self.render_rays(model, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), step)
         return out["color"].reshape(h, w, -1)
+
+    def _next_frame(self) -> int:
+        """This renderer's frame count before the frame (its span's id)."""
+        self.frames += 1
+        trace.count("serve.frames")
+        return self.frames - 1
 
 
 def val_image_metrics(img: np.ndarray, gt: np.ndarray, mask: np.ndarray) -> tuple[float, float]:

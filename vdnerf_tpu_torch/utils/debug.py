@@ -12,7 +12,9 @@ Counterpart of ``vdnerf_tpu/utils/debug.py``, under the same variables:
   host needs it.
 - ``VDNERF_PROFILE_DIR=<dir>``: :func:`profile_trace` traces a block into a
   Chrome trace there; the runner so traces training steps 10-15 (rank 0).
-  Open the file in ``chrome://tracing`` or Perfetto.
+  Open the file in ``chrome://tracing`` or Perfetto. While it records, the
+  program's spans are host ranges and device marks in it (``utils/trace.py``),
+  and training steps replay their marked twins.
 """
 
 from __future__ import annotations
