@@ -212,10 +212,23 @@
     6-13's (bf16 K2-K5 once a call, no split launch), and one full-width
     step's gradients against the CPU with bf16 operands (loss 1e-3 relative,
     every gradient 2^-6 relative L2).
-19. Prints a JSON line of the end-to-end numbers (with each phase's wall
+19. SDF block phase (after phase 18): the seven elementwise stages of
+    ``ops/sdf_block.py`` (``sdfb_*_kernel``) through their wrappers at a
+    step's 49,152 rows and a views chunk's 393,216 against their plain
+    formulas on the same card tensors (1e-5 relative, 1e-6 of the scale;
+    column sums 1e-4 of the largest), each timed beside the plain formula,
+    torch's own softplus / sigmoid ops and its bound by bytes; then the whole
+    block at full width, a step's forward and backward and a chunk's
+    forward, through the Function against autograd's route (1e-4 of each
+    output's largest entry; 34 and 17 stage launches), both timed with their
+    peak memory. Every training and serving path of the f32 policy must
+    launch the stages, and the bf16 policy's (``train.bf16``, flagship,
+    vdn_cycle) none.
+20. Prints a JSON line of the end-to-end numbers (with each phase's wall
     seconds, ``phase_s``), one ``{"kernels": [...]}``
     line (the five kernels and the contraction, then their split f32 modes,
-    each with its launches by path),
+    then the SDF block's stages under one name, each with its launches by
+    path),
     then the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero and prints no result. Imports nothing of JAX.
@@ -299,6 +312,8 @@ REPLACES = {
     "nerf_bwd": "vdnerf_tpu/ops/pallas/fused_mlp.py:575",
     # the dW half of K3 and K5 (_mm_dw inside _render_kernel_bwd/_nerf_kernel_bwd)
     "dw_contract": "vdnerf_tpu/ops/pallas/fused_mlp.py:112",
+    # no pallas_call: XLA's fusions of jax.vjp under the outer grad
+    "sdf_block": "vdnerf_tpu/models/fields.py:163",
 }
 SOURCE = {
     "sdf_fwd": "vdnerf_tpu_torch/ops/kernels/csrc/sdf_fwd.cu",
@@ -307,6 +322,7 @@ SOURCE = {
     "render_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
     "nerf_bwd": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
     "dw_contract": "vdnerf_tpu_torch/ops/kernels/csrc/fused_mlp.cu",
+    "sdf_block": "vdnerf_tpu_torch/ops/kernels/csrc/sdf_block.cu",
 }
 
 SCENE_VIEWS, SCENE_H, SCENE_W = 8, 300, 400
@@ -906,7 +922,7 @@ def slice_phase(tmp: str) -> dict:
             raise SystemExit(f"{mode}: non-finite summary {summary}")
     res["launches"] = dict(build.LAUNCHES)
     print(f"[slice] launches on the serving path: {res['launches']}")
-    missing = [k for k in ("sdf_fwd", "render_fwd_f32", "nerf_fwd_f32")
+    missing = [k for k in ("sdf_fwd", "sdf_block", "render_fwd_f32", "nerf_fwd_f32")
                if res["launches"][k] == 0]
     bf16 = [k for k in BF16_NAMES if res["launches"][k]]
     if missing or bf16:
@@ -1039,7 +1055,8 @@ def train_phase(tmp: str, name: str = "womsk_white_tpu", keys: dict = TRAIN_KEYS
     print(f"{tag} launches on the training path: {launches}")
     names = SPLIT_NAMES if mode == "f32" else BF16_NAMES
     background = (names[2], names[3])
-    expected = ("sdf_fwd",) + names
+    # every recipe here runs the f32 policy, so the SDF block's Function
+    expected = ("sdf_fwd", "sdf_block") + names
     missing = [k for k in expected if launches[k] == 0 and not (masked and k in background)]
     if missing:
         raise SystemExit(f"the training path launched no {missing}")
@@ -2827,6 +2844,158 @@ def split_kernel_phase(device) -> dict:
     return rec
 
 
+# the SDF block's shapes at full width: a hidden layer, the layer before the
+# skip (256 - 39), the 6-band embedding; rows per launch at a womsk step's
+# resampled core (512 rays x 96 samples) and at a views chunk
+SDFB_C, SDFB_SKIP_W, SDFB_D0, SDFB_L = 256, 217, 39, 6
+SDFB_ROWS = (CORE_ROWS[1], K2_ROWS)
+SDFB_LIBRARY = ("torch's own softplus / sigmoid ops where the stage has one (act, tangent, up, "
+                "down); the plain formula for the embedding's stages")
+
+
+def _sdfb_stages(n: int, gen, device) -> list:
+    """The seven stages of ops/sdf_block.py at ``n`` rows, each as (name,
+    args, which of the args it writes, returns column sums, f32 words read
+    and written a row, torch's library version or None)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vdnerf_tpu_torch.ops import sdf_block as sb
+
+    def rand(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen)).to(device)
+
+    C, D0, c = SDFB_C, SDFB_D0, sb._C
+    z = rand(n, C, s=0.05)  # 100 z around +-5: the softplus's bend
+    z[::7] *= 20.0  # and far into both tails
+    e, q, rbar, abar, s2 = rand(n, D0), rand(n, C), rand(n, C), rand(n, C), rand(n, C)
+    tail, E, gbar = rand(n, C)[:, -D0:], rand(n, D0), rand(n, 3)
+    out, qbar = torch.empty(n, C, device=device), torch.empty(n, C, device=device)
+    s2o, eo = torch.empty(n, C, device=device), torch.empty(n, D0, device=device)
+    E_out = torch.empty(n, D0, device=device)
+
+    def lib_up(*a):
+        sg = torch.sigmoid(100.0 * z)
+        torch.mul(rbar, sg, out=qbar)
+        torch.mul(rbar * q, 100.0 * sg * (1 - sg), out=s2o)
+
+    def lib_down(*a):
+        torch.addcmul(s2, abar, torch.sigmoid(100.0 * z), out=out)
+        return out.sum(0)
+
+    return [
+        ("act", (z, out), (1,), False, 2 * C, lambda *a: out.copy_(F.softplus(z, beta=100.0))),
+        ("tangent", (q, None, 1.0, z, out), (4,), False, 3 * C,
+         lambda *a: torch.mul(q, torch.sigmoid(100.0 * z), out=out)),
+        ("up", (rbar, q, None, 1.0, z, qbar, s2o), (5, 6), False, 5 * C, lib_up),
+        ("down", (abar, 1.0, z, s2, out), (4,), True, 4 * C, lib_down),
+        ("embed_grad", (q[:, :D0], [tail], c, e, SDFB_L, 1.0, E_out), (6,), False,
+         4 * D0 + 3, None),
+        ("embed_cot", (gbar, e, SDFB_L, 1.0, eo), (4,), False, 2 * D0 + 3, None),
+        ("embed_vjp", (abar[:, :D0], [tail], c, gbar, E, e, SDFB_L, 1.0), (), False,
+         4 * D0 + 6, None),
+    ]
+
+
+def sdf_block_phase(device) -> dict:
+    """The SDF block's Function (``ops/sdf_block.py``) at full width -> {name:
+    record}. Each of its seven elementwise stages through its wrapper on card
+    tensors against its plain formula (``<stage>_plain``) on the same tensors,
+    at a training step's 49,152 rows and a views chunk's 393,216: every
+    output within 1e-5 relative and 1e-6 of its scale (ulps of expf /
+    log1pf), the column sums within 1e-4 of the largest (the kernel sums per
+    CTA of 8 rows). Timed by CUDA events: ``ms`` the wrapper, ``plain_ms``
+    the plain formula, ``library_ms`` torch's own ops for the stage
+    (SDFB_LIBRARY), ``bound_ms`` each tensor of the stage read or written
+    once at the HBM3 rate. Then the whole block (8x256, the skip at 4, 6
+    bands): a step's forward and backward at 49,152 points and a views
+    chunk's forward at 393,216, through the Function and through autograd's
+    route, each output and gradient within 1e-4 of its largest entry, with
+    both routes' ms and peak memory."""
+    import torch
+
+    from vdnerf_tpu_torch.models.fields import SDFConfig, SDFNetwork
+    from vdnerf_tpu_torch.ops import sdf_block as sb
+    from vdnerf_tpu_torch.ops.kernels import build
+
+    gen = torch.Generator().manual_seed(3)
+    errs, shapes = [], []
+    for rows in SDFB_ROWS:
+        for name, args, writes, colsum, words, library in _sdfb_stages(rows, gen, device):
+            kernel, plain = getattr(sb, name), getattr(sb, f"{name}_plain")
+            before = build.LAUNCHES["sdf_block"]
+            got = kernel(*args)
+            got = [args[i].clone() for i in writes] + ([] if got is None else [got])
+            if build.LAUNCHES["sdf_block"] != before + 1:
+                raise SystemExit(f"sdf_block {name}: the wrapper did not launch once")
+            want = plain(*args)
+            want = [args[i] for i in writes] + ([] if want is None else [want])
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                scale = float(w.abs().max())
+                sums = colsum and i == len(got) - 1
+                tol = (0.0, 1e-4 * scale) if sums else (1e-5, 1e-6 * max(1.0, scale))
+                err = float((g - w).abs().max())
+                if not bool(((g - w).abs() <= tol[1] + tol[0] * w.abs()).all()):
+                    raise SystemExit(f"sdf_block {name} (rows={rows}): output {i} off its plain "
+                                     f"formula by {err:.3e}")
+                errs.append(err)
+            b_ms, b_by = bound(rows, 0, words * 4, 0, PEAK_F32_S)
+            shapes.append({
+                "stage": name, "rows": rows, "ms": time_ms(lambda: kernel(*args)),
+                "plain_ms": time_ms(lambda: plain(*args)),
+                "library_ms": time_ms(lambda: (library or plain)(*args)),
+                "bound_ms": b_ms, "bound_by": b_by,
+            })
+    for s in shapes:
+        print(f"[sdf_block] {s['stage']} rows={s['rows']}: ms {s['ms']:.4f}, plain "
+              f"{s['plain_ms']:.4f}, library {s['library_ms']:.4f}, bound {s['bound_ms']:.4f} "
+              f"({s['bound_by']})")
+
+    net = SDFNetwork(SDFConfig(), torch.Generator().manual_seed(0)).to(device)
+    params = list(net.parameters())
+    block = {}
+    for rows, train in ((SDFB_ROWS[0], True), (SDFB_ROWS[1], False)):
+        pts = (0.8 * (2 * torch.rand(rows, 3, generator=gen) - 1)).to(device)
+        w_feat, w_grad = torch.randn(rows, 256, generator=gen).to(device), \
+            torch.randn(rows, 3, generator=gen).to(device)
+
+        def call(fn):
+            if not train:
+                with torch.no_grad():
+                    return [t.clone() for t in fn(pts)]
+            sdf, grad, feat = fn(pts)
+            loss = ((sdf ** 2).sum() + ((grad.norm(dim=-1) - 1) ** 2).sum()
+                    + (feat * w_feat).sum() + (grad * w_grad).sum())
+            return [sdf.detach(), grad.detach(), feat.detach()] + list(
+                torch.autograd.grad(loss, params))
+
+        res, rec = {}, {}
+        for route, fn in (("fused", net.sdf_value_grad_feat),
+                          ("autograd", net._value_grad_feat_autograd)):
+            before = build.LAUNCHES["sdf_block"]
+            res[route] = call(fn)
+            torch.cuda.synchronize()
+            launches = build.LAUNCHES["sdf_block"] - before
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            rec[route] = {"ms": time_ms(lambda: call(fn), 5), "stage_launches": launches,
+                          "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        gaps = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(res["fused"], res["autograd"])]
+        key = "train_step" if train else "views_chunk"
+        block[key] = {"rows": rows, **rec, "max_rel_gap": max(gaps)}
+        print(f"[sdf_block] the block, {key} ({rows} points): Function {rec['fused']['ms']:.3f} "
+              f"ms, peak {rec['fused']['peak_bytes'] / 1e9:.3f} GB, {rec['fused']['stage_launches']}"
+              f" stage launches; autograd's route {rec['autograd']['ms']:.3f} ms, peak "
+              f"{rec['autograd']['peak_bytes'] / 1e9:.3f} GB; worst gap {max(gaps):.3e} (tol 1e-4)")
+        if not max(gaps) <= 1e-4 or rec["autograd"]["stage_launches"] \
+                or rec["fused"]["stage_launches"] != (34 if train else 17):
+            raise SystemExit(f"sdf_block: the block {key} disagrees with autograd's route: {block}")
+    return {"sdf_block": {"max_abs_err": max(errs), "flops_row": 0, "shapes": shapes,
+                          "library": SDFB_LIBRARY, "block": block}}
+
+
 def fused_phase(tmp: str, device, runs: dict) -> dict:
     """JAX's fused path, the opt-in: ``VDNERF_FUSED=1`` under the f32
     policy, so K2-K5 run their bf16 operand mode. ``--mode train`` of
@@ -2883,6 +3052,8 @@ def main() -> int:
     mark("kernel")
     split_kern = split_kernel_phase(device)
     mark("split_kernel")
+    sdfb = sdf_block_phase(device)
+    mark("sdf_block")
     with tempfile.TemporaryDirectory() as tmp:
         res = slice_phase(tmp)
         ref = reference_check(res["conf"], device)
@@ -3005,8 +3176,13 @@ def main() -> int:
                                             for c, r in t.items()}),
              "steps_train_bf16": timed_launches(bf16_steps),
              "flagship": flagship["launches"], "vdn_cycle": vdn_cycle["launches"]}
+    # the bf16 policy keeps the SDF block on autograd's route
+    sdfb_bf16 = {p: paths[p].get("sdf_block", 0)
+                 for p in ("steps_train_bf16", "flagship", "vdn_cycle")}
+    if any(sdfb_bf16.values()):
+        raise SystemExit(f"the bf16 policy launched the SDF block's stages: {sdfb_bf16}")
     kernels = []
-    for name, r in list(kern.items()) + list(split_kern.items()):
+    for name, r in list(kern.items()) + list(split_kern.items()) + list(sdfb.items()):
         main_shape = r["shapes"][0]
         by_path = {p: launches.get(name, 0) for p, launches in paths.items()}
         if not sum(by_path.values()):
@@ -3021,7 +3197,9 @@ def main() -> int:
             "launches_by_path": by_path,
             "rows": main_shape["rows"], "flops_row": r["flops_row"], "shapes": r["shapes"],
         }
-        if base == name:
+        if "block" in r:  # the SDF block's stages: rec's ms and bounds are the first's
+            rec.update(library=r["library"], block=r["block"])
+        elif base == name:
             rec["kernel_ms"] = main_shape.get("kernel_ms")
         else:
             rec.update(bf16_ms=main_shape.get("bf16_ms"), operands="f32 (3xTF32 split)")

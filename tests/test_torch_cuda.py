@@ -32,6 +32,14 @@ the row-split contraction with its column sums, with 1 and with many splits,
 at the split tolerances (products 1e-4 * max(1, max|matmul|), the
 contraction 1e-4 relative L2), two launches bit for bit equal.
 
+The SDF block's Function (``ops/sdf_block.py``): each elementwise stage's
+kernel against its plain formula at a training step's core (49,152 rows) and,
+for the forward's, a views chunk (393,216), within 1e-5 relative and 1e-6 of
+the output's scale (ulps of expf / log1pf); the whole block at full width
+against autograd's route on the card, every output and gradient within 1e-4
+of its largest entry; the Function captured in a CUDA graph, two replays and
+the eager call bit for bit equal.
+
 The monodepth side-car (cuDNN convolutions, no kernel of the port's own) is
 held on the card against the same module on the CPU: DenseNet-161's taps
 within 1e-4 relative L2, one training step's loss within 1e-3 and its
@@ -1384,3 +1392,210 @@ def test_nccl_ranks_on_every_card_stay_equal_and_match_one_process(card):
                                                   "nerf_fwd", "nerf_bwd")), r["launches"]
     for got, step in zip(ranks[0]["metrics"], want["metrics"]):
         assert abs(got["loss"] - step["loss"]) <= 1e-4 * abs(step["loss"]), (got, step)
+
+
+# ---------------------------------------------------------------------------
+# the SDF block's Function (ops/sdf_block.py) and its stages
+# ---------------------------------------------------------------------------
+
+SDF_C, SDF_SKIP_W, SDF_D0 = 256, 217, 39  # a hidden layer, the layer before the skip, the embedding
+
+
+def _stage_close(got, want):
+    """A stage's output on the card against its plain formula on the CPU:
+    the same arithmetic, within a few ulps of expf / log1pf and of a division
+    against a multiply by 0.01f."""
+    want = want.cpu()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                               atol=1e-6 * max(1.0, float(want.abs().max())))
+
+
+def _sum_close(got, want):
+    """Column sums over 49,152 rows, taken per CTA of 8 rows and then over
+    the CTAs on the card, in one pass on the CPU: within 1e-4 of the largest
+    sum (f32 summation order over that many terms)."""
+    want = want.cpu()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def _on_both(stage, *args, **kw):
+    """Run ``stage`` on the card tensors ``args`` and on their CPU copies;
+    every tensor argument is also an output buffer where the stage writes
+    one. -> (card args, CPU args, card result, CPU result)."""
+    def host(a):
+        if isinstance(a, list):
+            return [host(t) for t in a]
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    cpu = [host(a) for a in args]
+    got = stage(*args, **kw)
+    want = stage(*cpu, **{k: host(v) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    return args, cpu, got, want
+
+
+def _stage_tensors(card, n, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rand(*shape, s=1.0):
+        return s * torch.randn(*shape, device=card, generator=g)
+
+    z = rand(n, SDF_C, s=0.05)  # 100 z around +-5: the softplus's bend
+    z[::7] *= 20.0  # and far into both tails
+    return rand, z
+
+
+@pytest.mark.parametrize("n", [49152, 393216])
+def test_sdf_block_forward_stages_match_plain(card, n):
+    """The forward's stages at a training step's core (49,152 rows) and a
+    views chunk (393,216): the activation, plain and into the skip layer's
+    [h | emb] / sqrt(2) buffer from a strided slice; the gradient chain from
+    the broadcast row and from a column slice of the product's output; the
+    embedding's Jacobian with the skip's tail and E kept. Each stage one
+    launch."""
+    from vdnerf_tpu_torch.ops import sdf_block
+
+    rand, z = _stage_tensors(card, n, 11)
+    c = sdf_block._C
+    e = rand(n, SDF_D0)
+    before = build.LAUNCHES["sdf_block"]
+    h = torch.empty(n, SDF_C, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.act, z, h)
+    _stage_close(args[1], cpu[1])
+    zs = z[:, :SDF_SKIP_W]
+    buf = torch.empty(n, SDF_C, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.act, zs, buf, c, e, c)
+    _stage_close(args[1], cpu[1])
+    pvec = rand(SDF_C, s=0.1)
+    r = torch.empty(n, SDF_C, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.tangent, None, pvec, 1.0, z, r)
+    _stage_close(args[4], cpu[4])
+    q = rand(n, SDF_C)
+    rs = torch.empty(n, SDF_SKIP_W, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.tangent, q[:, :SDF_SKIP_W], None, c, zs, rs)
+    _stage_close(args[4], cpu[4])
+    q0 = rand(n, SDF_D0)
+    E = torch.empty(n, SDF_D0, device=card)
+    args, cpu, got, want = _on_both(sdf_block.embed_grad, q0, [q[:, -SDF_D0:]], c, e, 6, 0.7,
+                                    E_out=E)
+    _stage_close(got, want)
+    _stage_close(E, q0.cpu() + c * q[:, -SDF_D0:].cpu())
+    assert build.LAUNCHES["sdf_block"] == before + 5
+
+
+def test_sdf_block_backward_stages_match_plain(card):
+    """The backward's stages at a training step's core: the sweep up from a
+    column slice, with the embedding's tail at the skip, and from the
+    broadcast row, writing only its column sums; the sweep down in place over
+    the second-order term, with its column sums (the bias's gradient); the
+    gradient's cotangent at the embedding; the points' cotangent with two
+    tails. Each stage one launch."""
+    from vdnerf_tpu_torch.ops import sdf_block
+
+    n = 49152
+    rand, z = _stage_tensors(card, n, 12)
+    c = sdf_block._C
+    zs = z[:, :SDF_SKIP_W]
+    rbar, q, Ebar = rand(n, SDF_C), rand(n, SDF_C), rand(n, SDF_D0)
+    before = build.LAUNCHES["sdf_block"]
+    qbar = torch.empty(n, SDF_C, device=card)
+    s2 = torch.empty(n, SDF_SKIP_W, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.up, rbar[:, :SDF_SKIP_W], q[:, :SDF_SKIP_W], None, c,
+                               zs, qbar, s2, Ebar, c)
+    _stage_close(args[5], cpu[5])
+    _stage_close(args[6], cpu[6])
+    s2 = torch.empty(n, SDF_C, device=card)
+    args, cpu, got, want = _on_both(sdf_block.up, rbar, None, rand(SDF_C, s=0.1), 1.0, z, None,
+                                    s2, colsum=True)
+    _stage_close(args[6], cpu[6])
+    _sum_close(got, want)
+    abar, s2 = rand(n, SDF_C), rand(n, SDF_SKIP_W)
+    want = s2.cpu().clone()
+    want_sum = sdf_block.down(abar[:, :SDF_SKIP_W].cpu(), c, zs.cpu(), want, want)
+    got_sum = sdf_block.down(abar[:, :SDF_SKIP_W], c, zs, s2, s2)
+    torch.cuda.synchronize()
+    _stage_close(s2, want)
+    _sum_close(got_sum, want_sum)
+    e, gbar = rand(n, SDF_D0), rand(n, 3)
+    out = torch.empty(n, SDF_D0, device=card)
+    args, cpu, _, _ = _on_both(sdf_block.embed_cot, gbar, e, 6, 0.7, out)
+    _stage_close(args[4], cpu[4])
+    E, a0 = rand(n, SDF_D0), rand(n, SDF_D0)
+    tails = [rand(n, SDF_C)[:, -SDF_D0:], rand(n, SDF_C)[:, -SDF_D0:]]
+    _, _, got, want = _on_both(sdf_block.embed_vjp, a0, tails, c, gbar, E, e, 6, 0.7)
+    _stage_close(got, want)
+    assert build.LAUNCHES["sdf_block"] == before + 5
+
+
+def _sdf_block_case(card, n, seed):
+    from vdnerf_tpu_torch.models.fields import SDFConfig, SDFNetwork
+
+    net = SDFNetwork(SDFConfig(), torch.Generator().manual_seed(0)).to(card)
+    g = torch.Generator(device=card).manual_seed(seed)
+    pts = 0.8 * (2 * torch.rand(n, 3, device=card, generator=g) - 1)
+    w_feat = torch.randn(n, 256, device=card, generator=g)
+    w_grad = torch.randn(n, 3, device=card, generator=g)
+
+    def loss(sdf, grad, feat):
+        return ((sdf ** 2).sum() + ((grad.norm(dim=-1) - 1) ** 2).sum() + (feat * w_feat).sum()
+                + (grad * w_grad).sum())
+
+    return net, pts, loss
+
+
+def test_sdf_block_on_the_card_matches_autograd(card):
+    """The whole block at full width (8x256, the skip at 4, 6 bands) on a
+    training step's 49,152 points that require grad: the Function's sdf,
+    gradient and feature, and its loss's gradients for every parameter and
+    the points, against autograd's route on the card, each within 1e-4 of
+    its largest entry (the same cuBLAS products; the elementwise work
+    rounded in another order). 17 stage launches forward, 18 backward,
+    none on autograd's route."""
+    net, pts, loss = _sdf_block_case(card, 49152, 13)
+    res, launches = {}, {}
+    for route in ("fused", "autograd"):
+        x = pts.clone().requires_grad_(True)
+        net.zero_grad()
+        fn = net.sdf_value_grad_feat if route == "fused" else net._value_grad_feat_autograd
+        before = build.LAUNCHES["sdf_block"]
+        out = fn(x)
+        loss(*out).backward()
+        torch.cuda.synchronize()
+        launches[route] = build.LAUNCHES["sdf_block"] - before
+        res[route] = [t.detach() for t in out] + [x.grad] + [p.grad for p in net.parameters()]
+    assert launches == {"fused": 35, "autograd": 0}
+    gaps = []
+    for a, b in zip(res["fused"], res["autograd"]):
+        gaps.append(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    print(f"\nSDF block on the card, Function vs autograd: sdf {gaps[0]:.2e}, grad {gaps[1]:.2e}, "
+          f"feat {gaps[2]:.2e}, points {gaps[3]:.2e}, worst parameter {max(gaps[4:]):.2e}")
+    assert max(gaps) <= 1e-4, gaps
+
+
+def test_sdf_block_in_a_captured_graph(card):
+    """The Function's forward and backward captured in a CUDA graph at a
+    training step's core: two replays give the same bits as each other and
+    as the eager call (no atomics, every buffer the graph's own)."""
+    net, pts, loss = _sdf_block_case(card, 49152, 14)
+    params = list(net.parameters())
+
+    def step():
+        out = net.sdf_value_grad_feat(pts)
+        return list(out) + list(torch.autograd.grad(loss(*out), params))
+
+    eager = [t.detach().clone() for t in step()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.detach().clone() for t in outs])
+    for a, b, c in zip(eager, *replays):
+        assert torch.equal(b, c) and torch.equal(a, b)

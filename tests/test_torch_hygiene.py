@@ -105,5 +105,6 @@ def test_cpu_render_runs_plain_versions_and_counts_no_launch():
     assert torch.isfinite(out["color_fine"]).all()
     assert set(build.LAUNCHES) == {"sdf_fwd", "render_fwd", "nerf_fwd", "render_bwd", "nerf_bwd",
                                    "dw_contract", "render_fwd_f32", "nerf_fwd_f32",
-                                   "render_bwd_f32", "nerf_bwd_f32", "dw_contract_f32"}
+                                   "render_bwd_f32", "nerf_bwd_f32", "dw_contract_f32",
+                                   "sdf_block"}
     assert not any(build.LAUNCHES.values())

@@ -12,7 +12,9 @@ CPU, where marks go to the list of a ``trace.recording()`` block.
   step's loss, metrics and gradients equal the traced step's bit for bit.
 - The host counters count what ran: ``data.sample`` once a step, the
   dispatch's eager steps per program, two chunks and ten host syncs for a
-  two-chunk frame; ``trace.seconds`` gives a part's host seconds.
+  two-chunk frame, and ``sdf_block.fused`` once for each SDF block (one a
+  step, one a chunk; ``sdf_block.autograd`` never under the f32 policy);
+  ``trace.seconds`` gives a part's host seconds.
 - ``metrics.jsonl``'s ``rays_per_sec`` is the window's rate: its rays over
   the host time since the window before it ended (a stand-in clock).
 - The marks' kernel source lists the spans and points of ``trace.py`` in its
@@ -225,7 +227,8 @@ def test_host_counters_count_what_ran(scene_dir):
     host, counts = trace.host(), trace.counts()
     assert host["data.sample"][0] == 3 and host["data.gather_feats"][0] == 3
     assert host["step"][0] == 3 and host["dispatch.read"][0] == 1
-    assert counts == {"dispatch.eager_steps." + program_name(runner.nets, True, False): 3}
+    assert counts == {"dispatch.eager_steps." + program_name(runner.nets, True, False): 3,
+                      "sdf_block.fused": 3}
     assert program_name(runner.nets, True, False) == "core32.distill"
     assert host["data.sample"][1] >= host["data.gather_feats"][1] > 0
 
@@ -236,7 +239,8 @@ def test_host_counters_count_what_ran(scene_dir):
     with trace.recording() as marks:
         img = renderer.render_between(runner.model, poses, intrin_inv, 0, 1, 0.3, 2, 5)
     assert img.shape == (H // 2, W // 2, 3) and np.isfinite(img).all()
-    assert trace.counts() == {"serve.frames": 1, "serve.chunks": 2, "serve.host_syncs": 10}
+    assert trace.counts() == {"serve.frames": 1, "serve.chunks": 2, "serve.host_syncs": 10,
+                              "sdf_block.fused": 2}
     nested = nesting(marks)
     assert [n for k, n in marks if k == "begin"].count("serve.chunk") == 2
     assert {n for k, n in marks if k == "begin"} == {
@@ -287,10 +291,12 @@ def test_metrics_rays_per_sec_is_the_window_rate(scene_dir, monkeypatch, caplog)
     with caplog.at_level("INFO", logger=runner_mod.__name__):
         runner.train()
     # the end-of-run line: each program's counts (on the CPU eager steps
-    # alone) and the data, dispatch and set-up spans' host seconds
+    # alone), the SDF block's calls by route, and the data, dispatch and
+    # set-up spans' host seconds
     line = next(r.getMessage() for r in caplog.records if "step programs" in r.getMessage())
     assert "{'core32': {'eager_steps': 20}}" in line
     assert "'data.sample'" in line and "'dispatch.eager'" in line
+    assert "SDF block calls {'fused': 20, 'autograd': 0}" in line  # one a step
     with open(os.path.join(runner.base_exp_dir, "logs", "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     assert [r["step"] for r in rows] == [1, 10, 20]

@@ -175,7 +175,7 @@ def _check_files(out_dir: str, name: str, rep: dict, stages) -> None:
         assert set(st["launches"]) == {"sdf_fwd", "render_fwd", "nerf_fwd", "render_bwd",
                                        "nerf_bwd", "dw_contract", "render_fwd_f32",
                                        "nerf_fwd_f32", "render_bwd_f32", "nerf_bwd_f32",
-                                       "dw_contract_f32"}
+                                       "dw_contract_f32", "sdf_block"}
 
 
 CYCLE_STAGES = ("scene_gen", "train_base", "qc_base", "getfeats", "wavelet_finetune",

@@ -10,9 +10,11 @@ port's kernels: :meth:`SDFNetwork.sdf_value` through K1,
 :meth:`RenderingNetwork.forward` through K2 and :meth:`NeRF.forward` through
 K4, and their gradients through K3 and K5. Each wrapper runs the kernel for
 CUDA tensors and its plain version for CPU tensors.
-:meth:`SDFNetwork.sdf_value_grad_feat` is a plain forward with
-``torch.autograd.grad`` (the TPU package had no kernel there either), in f32
-or under the bf16 policy of ``models/precision.py`` (``matmul_dtype``).
+:meth:`SDFNetwork.sdf_value_grad_feat` runs, under the f32 policy, the
+explicit value-gradient-feature Function of ``ops/sdf_block.py`` (f32
+products, hand-written elementwise stages), and under the bf16 policy of
+``models/precision.py`` (``matmul_dtype``) a plain forward with
+``torch.autograd.grad`` (the TPU package had no kernel there).
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ from vdnerf_tpu_torch.models.layers import (
     softplus_beta,
     softplus_beta_jax,
 )
+from vdnerf_tpu_torch.ops import sdf_block
 from vdnerf_tpu_torch.ops.kernels import fused_mlp, sdf_fwd
+from vdnerf_tpu_torch.utils import trace
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 # the skip scale as JAX takes it under bf16: the constant rounded to bf16
@@ -203,19 +207,42 @@ class SDFNetwork(nn.Module):
     def sdf_value_grad_feat(
         self, pts: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(sdf [N,1], grad [N,3], feature [N,256]): one forward, one
+        """(sdf [N,1], grad [N,3], feature [N,256]).
+
+        Under the f32 policy through ``ops/sdf_block.py``'s :class:`SDFBlock`
+        (counted ``sdf_block.fused``): while grad mode is on and the
+        parameters require grad (training) the result is differentiable, the
+        eikonal term and the colour head's dependence on the normals reaching
+        the SDF parameters through the second-order path (and the points
+        where they require grad); otherwise (serving) it is the forward
+        alone, detached, and works under an outer ``torch.no_grad()``.
+        Under the bf16 policy through :meth:`_value_grad_feat_autograd`
+        (counted ``sdf_block.autograd``)."""
+        if self.matmul_dtype is not None:
+            trace.count("sdf_block.autograd")
+            return self._value_grad_feat_autograd(pts)
+        trace.count("sdf_block.fused")
+        plan = sdf_block.BlockPlan(self.cfg.multires, self.cfg.scale, tuple(self.cfg.skip_in))
+        layers = _linears(self, self.n_linear)
+        ws, bs = [m.effective_weight() for m in layers], [m.bias for m in layers]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            return sdf_block.SDFBlock.apply(plan, pts, *ws, *bs)
+        with torch.no_grad():
+            return sdf_block.forward(plan, pts, ws, bs)[:3]
+
+    def _value_grad_feat_autograd(
+        self, pts: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The bf16 policy's block: one :meth:`forward_split`, one
         ``autograd.grad``. sdf and grad are f32 (the gradient comes back at
-        ``pts`` through the casts' backward); the feature is bf16 under the
-        bf16 policy.
+        ``pts`` through the casts' backward); the feature is bf16.
 
         While grad mode is on and the parameters require grad (training), the
         result is differentiable: the gradient is taken with
-        ``create_graph=True`` and nothing is detached, so the eikonal term and
-        the colour head's dependence on the normals reach the SDF parameters
-        through the second-order path (the JAX VJP under the outer grad).
-        Otherwise (serving) it is detached, with grad mode switched on locally
-        for the spatial gradient, so it works under an outer
-        ``torch.no_grad()`` (not under ``inference_mode``)."""
+        ``create_graph=True`` and nothing is detached (the JAX VJP under the
+        outer grad). Otherwise (serving) it is detached, with grad mode
+        switched on locally for the spatial gradient, so it works under an
+        outer ``torch.no_grad()`` (not under ``inference_mode``)."""
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
             x = pts if pts.requires_grad else pts.detach().requires_grad_(True)
             sdf, feat = self.forward_split(x)

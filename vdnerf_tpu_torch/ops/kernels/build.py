@@ -35,6 +35,7 @@ SOURCES = {
     "sdf_fwd": _HERE / "csrc" / "sdf_fwd.cu",
     "fused_mlp": _HERE / "csrc" / "fused_mlp.cu",
     "trace_marks": _HERE / "csrc" / "trace_marks.cu",
+    "sdf_block": _HERE / "csrc" / "sdf_block.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +44,7 @@ NVCC_FLAGS = [
 
 LAUNCHES = {"sdf_fwd": 0, "render_fwd": 0, "nerf_fwd": 0, "render_bwd": 0, "nerf_bwd": 0,
             "dw_contract": 0, "render_fwd_f32": 0, "nerf_fwd_f32": 0, "render_bwd_f32": 0,
-            "nerf_bwd_f32": 0, "dw_contract_f32": 0}
+            "nerf_bwd_f32": 0, "dw_contract_f32": 0, "sdf_block": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # reentrant: a trace mark inside the build's own spans loads the marks' library
@@ -51,6 +52,7 @@ _lock = threading.RLock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "sdf_fwd_launch": [_P, _P, _I, _P, _P, _P, ctypes.c_float, _P],
     "render_fwd_launch": [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _I, _P],
@@ -62,6 +64,14 @@ _SIGNATURES = {
     "split_embed_launch": [_P, ctypes.c_longlong, _I, _I, _I, _P, ctypes.c_longlong, _I, _P],
     "split_embed_vjp_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
     "split_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],
+    "sdfb_act_launch": [_P, _I, _P, _I, _I, _I, _F, _P, _I, _I, _F, _P],
+    "sdfb_tangent_launch": [_P, _I, _P, _F, _P, _I, _P, _I, _I, _I, _P],
+    "sdfb_up_launch": [_P, _I, _P, _I, _P, _F, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _F,
+                       _P],
+    "sdfb_down_launch": [_P, _I, _F, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P],
+    "sdfb_embed_grad_launch": [_P, _I, _P, _F, _P, _I, _P, _P, _I, _I, _F, _P],
+    "sdfb_embed_cot_launch": [_P, _P, _I, _P, _I, _I, _I, _F, _P],
+    "sdfb_embed_vjp_launch": [_P, _I, _P, _F, _P, _P, _P, _I, _P, _I, _I, _F, _P],
     "vdn_mark_launch": [_I, _I, _P],
     "vdn_mark_prepare": [],
 }

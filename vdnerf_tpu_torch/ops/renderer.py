@@ -4,15 +4,17 @@ Counterpart of ``vdnerf_tpu/ops/renderer.py``: the SDF-guided up-sample
 ladder (K1 for its value-only SDF queries), the optional importance-resampled
 core, the background NeRF over the outside block (K4, backward K5; with the
 dpt head it also gives each sample's depth features), and the render core (SDF
-value + gradient + feature by autograd, colour head through K2, backward K3,
+value + gradient + feature through ``ops/sdf_block.py``'s Function under the
+f32 policy, by autograd under bf16; colour head through K2, backward K3,
 logistic-CDF alpha, transmittance composite). With a depth head (wdepth
 confs) the core also runs it through K2/K3 on the same inputs, blends its
 features with the background NeRF's outside the unit sphere and composites
 them with the colour weights into ``render_feats``; ``depth_before_color``
 appends those features to the colour head's feature input.
 
-Serving runs it under ``torch.no_grad()`` (the render core switches grad mode
-on locally for the SDF gradient). Training runs it with grad mode on: the
+Serving runs it under ``torch.no_grad()`` (the SDF block's forward gives the
+gradient analytically; under bf16 the render core switches grad mode on
+locally for it). Training runs it with grad mode on: the
 ladder, the resampled ``z_vals`` and the inside-sphere masks carry no
 gradient, as the ``stop_gradient``s of the JAX renderer say; everything in the
 render core does.

@@ -139,16 +139,20 @@ def mesh_resolution(step: int) -> tuple[int, bool]:
 
 def log_programs() -> None:
     """One log line: each step program's captures, eager steps and replays
-    (``train/dispatch.py``'s counters), and the host seconds of the
-    ``data.*``, ``dispatch.*`` and ``setup.*`` spans, in this process."""
+    (``train/dispatch.py``'s counters), the SDF block's calls by route
+    (``sdf_block.fused``, ``sdf_block.autograd``: ``models/fields.py``), and
+    the host seconds of the ``data.*``, ``dispatch.*`` and ``setup.*`` spans,
+    in this process."""
     programs: dict[str, dict[str, int]] = {}
-    for name, n in trace.counts().items():
+    counts = trace.counts()
+    for name, n in counts.items():
         what, _, program = name.partition(".")[2].partition(".")
         if name.startswith("dispatch."):
             programs.setdefault(program, {})[what] = n
+    sdf = {route: counts.get(f"sdf_block.{route}", 0) for route in ("fused", "autograd")}
     spans = {name: round(s, 3) for name, (_, s) in trace.host().items()
              if name.split(".")[0] in ("data", "dispatch", "setup")}
-    log.info("step programs %s; host seconds %s", programs, spans)
+    log.info("step programs %s; SDF block calls %s; host seconds %s", programs, sdf, spans)
 
 
 def window_size(tcfg: TrainConfig, res_step: int, iter_step: int,

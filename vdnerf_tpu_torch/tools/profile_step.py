@@ -29,7 +29,8 @@ up-sample rounds), the render core's forward-and-backward (SDF block, colour
 head and the composites), the background NeRF at the step's rows, and one
 4,096-ray serving chunk (``valimg``'s render). From them ``step_parts_ms``
 splits the step into the ladder, the background NeRF, the SDF block's
-forward and double backward, the colour head, the composites (the render
+forward and backward (``ops/sdf_block.py``'s Function under the f32 policy,
+autograd's double backward under bf16), the colour head, the composites (the render
 core less those) and the rest (rays, loss, Adam), with their sum beside the
 step's time.
 
