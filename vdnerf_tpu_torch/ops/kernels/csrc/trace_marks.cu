@@ -16,8 +16,9 @@
 
 #define VDN_SPANS(X)                                                          \
   X(step) X(step__loss) X(step__backward) X(step__allreduce) X(step__adam)    \
-  X(render__rays) X(render__ladder) X(render__nerf) X(render__sdf)            \
-  X(render__depth_head) X(render__colour_head) X(render__composite)           \
+  X(render__rays) X(render__cameras) X(render__ladder) X(render__nerf)        \
+  X(render__sdf) X(render__depth_head) X(render__colour_head)                 \
+  X(render__composite)                                                        \
   X(serve__frame) X(serve__rays) X(serve__chunk) X(serve__outputs)            \
   X(serve__to_host)                                                           \
   X(data__sample) X(data__gather_feats)                                       \
@@ -28,7 +29,8 @@
   X(mesh__grid) X(mesh__to_host) X(mesh__marching) X(mesh__ply)
 
 #define VDN_POINTS(X) \
-  X(bwd__colour_head) X(bwd__depth_head) X(bwd__sdf) X(bwd__nerf)
+  X(bwd__colour_head) X(bwd__depth_head) X(bwd__sdf) X(bwd__nerf)             \
+  X(bwd__cameras)
 
 #define VDN_BEGIN(n) extern "C" __global__ void vdn_mark_begin_##n() {}
 #define VDN_END(n) extern "C" __global__ void vdn_mark_end_##n() {}

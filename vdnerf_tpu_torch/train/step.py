@@ -26,10 +26,12 @@ multiplies by a gate and branches by ``lax.cond``.
 
 Spans (``utils/trace.py``): ``step`` around :meth:`Trainer.program`, and in
 it the render's (``ops/renderer.py``; the batch's rays and near/far in a
-``render.rays`` of their own), ``step.loss``, ``step.backward`` (split by
-the render's backward points; its first piece is the loss's and the
-composite's), ``step.allreduce`` (grouped worlds) and ``step.adam``; every
-Adam's construction in ``setup.optimizer``.
+``render.rays`` of their own, the learned cameras' c2w and K^-1 in a
+``render.cameras`` inside it), ``step.loss``, ``step.backward`` (split by
+the render's backward points, and with learned cameras by ``bwd.cameras``
+on the batch's rays, whose piece is the cameras' backward; its first piece
+is the loss's and the composite's), ``step.allreduce`` (grouped worlds) and
+``step.adam``; every Adam's construction in ``setup.optimizer``.
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ def rays_from_batch(cams, batch: dict, device) -> tuple[torch.Tensor, torch.Tens
     b = upload_batch({k: batch[k] for k in ("img_idx", "pixels_x", "pixels_y")}, device)
     idx = b["img_idx"].reshape(1)
     if isinstance(cams, LearnedCameras):
-        pose, intrin_inv = cams.c2w(idx)[0], cams.K_inv()
+        with trace.span("render.cameras"):
+            pose, intrin_inv = cams.c2w(idx)[0], cams.K_inv()
     else:
         pose = cams["pose_all"].index_select(0, idx)[0]
         intrin_inv = cams["intrin_inv_all"].index_select(0, idx)[0]
@@ -118,7 +121,8 @@ def loss_fn(nets: NeuSNetworks, tcfg: TrainConfig, model: NeuSModel, cams,
     gsum = (world or World()).sum
     dev = batch["color"].device
     with trace.span("render.rays"):
-        rays_o, rays_d = rays_from_batch(cams, batch, dev)
+        # the learned cameras' backward, after every layer's, is a piece of its own
+        rays_o, rays_d = trace.point("bwd.cameras", *rays_from_batch(cams, batch, dev))
         near, far = near_far_from_sphere(rays_o, rays_d)
         background_rgb = torch.ones(1, 3, device=dev) if tcfg.use_white_bkgd else None
 

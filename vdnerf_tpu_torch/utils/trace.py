@@ -44,15 +44,15 @@ import torch
 # csrc/trace_marks.cu, in its order
 SPANS = (
     "step", "step.loss", "step.backward", "step.allreduce", "step.adam",
-    "render.rays", "render.ladder", "render.nerf", "render.sdf", "render.depth_head",
-    "render.colour_head", "render.composite",
+    "render.rays", "render.cameras", "render.ladder", "render.nerf", "render.sdf",
+    "render.depth_head", "render.colour_head", "render.composite",
     "serve.frame", "serve.rays", "serve.chunk", "serve.outputs", "serve.to_host",
     "data.sample", "data.gather_feats",
     "dispatch.upload", "dispatch.replay", "dispatch.eager", "dispatch.capture", "dispatch.read",
     "setup.scene", "setup.features", "setup.model", "setup.optimizer", "build.nvcc", "build.load",
     "mesh.grid", "mesh.to_host", "mesh.marching", "mesh.ply",
 )
-POINTS = ("bwd.colour_head", "bwd.depth_head", "bwd.sdf", "bwd.nerf")
+POINTS = ("bwd.colour_head", "bwd.depth_head", "bwd.sdf", "bwd.nerf", "bwd.cameras")
 KINDS = ("begin", "end", "at")
 MARK_PREFIX = "vdn_mark_"
 
