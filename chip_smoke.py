@@ -2479,11 +2479,11 @@ SPLIT_NAMES = ("render_fwd_f32", "render_bwd_f32", "nerf_fwd_f32", "nerf_bwd_f32
                "dw_contract_f32")
 BF16_NAMES = ("render_fwd", "render_bwd", "nerf_fwd", "nerf_bwd", "dw_contract")
 # launches a call of K2, K3, K4 and K5 in the split mode (PERF.md section 6):
-# one split launch a layer plus the embeddings and their VJPs (K2 with the
-# idr head); the dpt head adds one to K5's; the contraction launches twice a
-# backward. In the bf16 mode each wrapper launches once a call, the
-# contraction once a backward.
-SPLIT_PER_CALL = (9, 18, 14, 29)
+# one split launch a layer plus the call's weight images, the embeddings and
+# their VJPs (K2 with the idr head); the dpt head adds one to K5's; the
+# contraction launches twice a backward. In the bf16 mode each wrapper
+# launches once a call, the contraction once a backward.
+SPLIT_PER_CALL = (10, 19, 15, 30)
 
 
 def per_call(mode: str, dpt: bool) -> dict:

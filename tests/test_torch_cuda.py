@@ -25,12 +25,15 @@ The split-operand f32 mode of K2-K5 (3xTF32 products) is held to the plain
 versions with f32 operands: forwards within 1e-4 * max(1, max|plain|), every
 backward output within 1e-4 relative L2, two launches bit for bit equal; and
 under that mode no bf16 kernel and no plain version runs
-(``build.LAUNCHES``). Its one product kernel (``split_gemm_kernel``) is held
-alone against f32 ``torch.matmul`` with TF32 off: every transpose variant,
-ragged M, N and K, a grouped launch of unequal problems, every epilogue and
-the row-split contraction with its column sums, with 1 and with many splits,
-at the split tolerances (products 1e-4 * max(1, max|matmul|), the
-contraction 1e-4 relative L2), two launches bit for bit equal.
+(``build.LAUNCHES``); every forward and dx product takes the weight path
+(its counters). Its one product kernel (``split_gemm_kernel``) is held
+alone against f32 ``torch.matmul`` with TF32 off: the weight path at every
+layer shape of K2-K5 (so every tile width) forward and dx, ragged M, N and
+K, a grouped launch of unequal problems, every epilogue at a narrow and a
+wide tile, its weight images bit for bit the plain version's, and the
+row-split contraction with its column sums, with 1 and with many splits, at
+the split tolerances (products 1e-4 * max(1, max|matmul|), the contraction
+1e-4 relative L2), two launches bit for bit equal (also at full width).
 
 The SDF block's Function (``ops/sdf_block.py``): each elementwise stage's
 kernel against its plain formula at a training step's core (49,152 rows) and,
@@ -449,50 +452,87 @@ def _product_close(got, want):
     assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
 
 
+def _weight_mm(ops, A, B, C, *, tb=False, **kw):
+    """A weight product through the weight path: B's image (B stored [N, K]
+    with tb, as a dx product reads W), then the product."""
+    img, = ops.images([(B, tb)])
+    ops.mm(A, img, C, **kw)
+
+
+def _contract(ops, A, B, C):
+    """C = A^T B through the contraction's path (A stored [K, M], one split)."""
+    K, M = A.shape
+    N = B.shape[1]
+    rec = [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(), C.stride(0), M, N,
+           K, 0, 0, 0, 0, 0, N, 0, 0, 0, 0, -(-K // 32) * 32, 0]
+    build.check(ops.lib.split_mm_launch(build.int64_array(rec), 1, 1, ops.sms, ops.stream),
+                "split_mm")
+
+
+# every output width (and so every tile width) and depth of K2-K5's layers,
+# forward and dx, at a ragged row count
+_LAYER_SHAPES = [(False, tb, 4099, N, K) for N in (16, 96, 128, 256, 304)
+                 for K in (16, 84, 96, 256, 283, 304, 340, 400) for tb in (False, True)]
+
+
 @pytest.mark.parametrize("ta,tb,M,N,K", [
     (False, False, 77, 96, 44), (False, False, 300, 292, 300), (False, False, 1, 4, 4),
     (False, True, 77, 3, 44), (False, True, 130, 96, 300), (False, True, 257, 289, 52),
-    (True, False, 96, 96, 77), (True, False, 300, 16, 5000), (True, False, 4, 292, 1)])
+    (True, False, 96, 96, 77), (True, False, 300, 16, 5000), (True, False, 4, 292, 1),
+    *_LAYER_SHAPES])
 def test_split_gemm_variants_match_matmul(card, ta, tb, M, N, K):
     """Each transpose variant at ragged M, N and K (K not a multiple of the
-    32-deep slab; N of 3, 96 and 289 where B's rows run along K)."""
-    rng = np.random.default_rng(M * 7 + N * 3 + K)
-    A = _t(rng, *((K, M) if ta else (M, K)), device=card)
+    32-deep slab; N of 3, 96 and 289 where B's rows run along K): A B and
+    A W^T on the weight path, A^T B on the contraction's; and the weight
+    path at every layer shape that K2-K5 run (N 16, 96, 128, 256, 304 and K
+    16 to 400), forward (W [K, N]) and dx (W^T, stored [N, K]). A's rows
+    are padded to 16 columns, as the schedules' buffers are (TMA reads rows
+    on 16-byte boundaries)."""
+    rng = np.random.default_rng(M * 7 + N * 3 + K + 5 * tb)
+    A = _t(rng, K, M, device=card) if ta else _t(rng, M, -(-K // 16) * 16, device=card)[:, :K]
     B = _t(rng, *((N, K) if tb else (K, N)), device=card)
     ops = fused_mlp._SplitOps(card, "render_fwd_f32")
     C, again = (torch.full((M, N), float("nan"), device=card) for _ in range(2))
-    ops.mm(A, B, C, ta=ta, tb=tb)
-    ops.mm(A, B, again, ta=ta, tb=tb)
+    for out in (C, again):
+        if ta:
+            _contract(ops, A, B, out)
+        else:
+            _weight_mm(ops, A, B, out, tb=tb)
     assert torch.equal(C, again)
     _product_close(C, _split_ref(A, B, ta=ta, tb=tb))
 
 
+@pytest.mark.parametrize("N", [16, 96, 300])
 @pytest.mark.parametrize("epi", ["none", "bias", "relu", "sigmoid", "mask", "dsigmoid", "drelu",
                                  "column split"])
-def test_split_gemm_epilogues(card, epi):
-    """Every epilogue on a ragged 333 x 300 output (K 276), with the bias;
-    the relu mask and the output's delta read an aux of 200 columns (zero
-    past them); the column split stores 290 columns to C and the next 7 to
-    C2, as the NeRF's [feature | alpha] and [rgb | dpt] layers do."""
-    rng = np.random.default_rng(31)
-    M, N, K = 333, 300, 276
+def test_split_gemm_epilogues(card, epi, N):
+    """Every epilogue on a ragged 333-row output of N columns (tiles of 16,
+    96 and 96: the narrow heads' and a wide layer's), K 276, with the bias;
+    the relu mask and the output's delta read an aux of N - 100 (or 3)
+    columns (zero past them); the column split stores all but the last 7
+    columns to C and those 7 to C2, as the NeRF's [feature | alpha] and [rgb
+    | dpt] layers do."""
+    rng = np.random.default_rng(31 + N)
+    M, K = 333, 276
     A, B = _t(rng, M, K, device=card), _t(rng, K, N, device=card) / np.sqrt(K)
     bias = None if epi == "none" else _t(rng, N, device=card) * 0.1
     code = {"none": 0, "bias": 0, "relu": 1, "sigmoid": 2, "mask": 3, "dsigmoid": 4,
             "drelu": 5, "column split": 0}[epi]
-    aux = _t(rng, M, 200, device=card) if code >= fused_mlp.EPI_MASK else None
-    aux_n = 200 if aux is not None else 0
+    aux_n = max(3, N - 100)
+    aux = _t(rng, M, aux_n, device=card) if code >= fused_mlp.EPI_MASK else None
+    if aux is None:
+        aux_n = 0
     ops = fused_mlp._SplitOps(card, "render_fwd_f32")
     want = _split_ref(A, B, bias=bias, epi=code, aux=aux, aux_n=aux_n)
     runs = []
     for _ in range(2):
         if epi == "column split":
-            C, C2 = torch.zeros(M, 290, device=card), torch.zeros(M, 7, device=card)
-            ops.mm(A, B, C, bias=bias, n_store=290, C2=C2, n_store2=7)
+            C, C2 = torch.zeros(M, N - 7, device=card), torch.zeros(M, 7, device=card)
+            _weight_mm(ops, A, B, C, bias=bias, n_store=N - 7, C2=C2, n_store2=7)
             runs.append(torch.cat([C, C2], 1))
         else:
             C = torch.zeros(M, N, device=card)
-            ops.mm(A, B, C, bias=bias, epi=code, aux=aux, aux_n=aux_n)
+            _weight_mm(ops, A, B, C, bias=bias, epi=code, aux=aux, aux_n=aux_n)
             runs.append(C)
     assert torch.equal(runs[0], runs[1])
     _product_close(runs[0], want[:, :runs[0].shape[1]])
@@ -507,23 +547,98 @@ def test_split_gemm_grouped_launch_of_unequal_problems(card):
     ops = fused_mlp._SplitOps(card, "render_fwd_f32")
     probs = [(_t(rng, M, K, device=card), _t(rng, K, N, device=card) / np.sqrt(K),
               _t(rng, N, device=card) * 0.1, epi) for M, N, K, epi in shapes]
+    bn = 128  # one tile width a launch: the widest problem's
     outs = []
     for _ in range(2):
         Cs = [torch.full((A.shape[0], B.shape[1]), float("nan"), device=card)
               for A, B, _, _ in probs]
+        imgs = [torch.empty(fused_mlp.image_words(*B.shape, bn), device=card)
+                for _, B, _, _ in probs]
         rec = []
-        for (A, B, bias, epi), C in zip(probs, Cs):
+        for (A, B, bias, epi), C, img in zip(probs, Cs, imgs):
+            img.copy_(fused_mlp.split_image_plain(B, False, bn))
             M, K = A.shape
             N = B.shape[1]
-            rec += [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(),
-                    C.stride(0), M, N, K, bias.data_ptr(), epi, 0, 0, 0, N, 0, 0, 0, 0,
-                    -(-K // 32) * 32, 0]
-        build.check(ops.lib.split_mm_launch(build.int64_array(rec), len(probs), 0, 0, 1, ops.sms,
-                                            ops.stream), "split_mm")
+            rec += [A.data_ptr(), A.stride(0), img.data_ptr(), C.data_ptr(), C.stride(0), M, N, K,
+                    bias.data_ptr(), epi, 0, 0, 0, N, 0, 0, 0]
+        build.check(ops.lib.split_wmm_launch(build.int64_array(rec), len(probs), bn, ops.sms,
+                                             ops.stream), "split_mm")
         outs.append(Cs)
     for (A, B, bias, epi), C, again in zip(probs, *outs):
         assert torch.equal(C, again)
         _product_close(C, _split_ref(A, B, bias=bias, epi=epi))
+
+
+@pytest.mark.parametrize("K,N,trans", [(304, 256, False), (256, 16, False), (16, 256, True),
+                                       (256, 272, False), (283, 128, False), (112, 128, True)])
+def test_split_image_kernel_writes_the_plain_image(card, K, N, trans):
+    """The weight images of one launch (split_gemm_kernel(SplitImages)) bit
+    for bit the plain version's (``split_image_plain``), whose layout the
+    CPU tests hold to what wgmma reads."""
+    rng = np.random.default_rng(K + N)
+    ws = [_t(rng, *((N, K) if trans else (K, N)), device=card) * s for s in (1.0, 1e-3)]
+    ops = fused_mlp._SplitOps(card, "render_fwd_f32")
+    for w, img in zip(ws, ops.images([(w, trans) for w in ws])):
+        assert img.bn == fused_mlp.split_tile(N)
+        assert torch.equal(img.t, fused_mlp.split_image_plain(w, trans, img.bn))
+
+
+def test_split_weight_path_repeats_bit_for_bit_at_full_width(card):
+    """A 256 x 256 forward and a dx with the relu mask at 65,536 rows, two
+    launches each: the same bits (no atomics, a fixed order of every sum)."""
+    rng = np.random.default_rng(34)
+    M = 65_536
+    A = _t(rng, M, 256, device=card, relu=True)
+    W = _t(rng, 256, 256, device=card) / 16.0
+    bias = _t(rng, 256, device=card) * 0.1
+    ops = fused_mlp._SplitOps(card, "render_fwd_f32")
+    for tb, kw in ((False, dict(bias=bias, epi=fused_mlp.EPI_RELU)),
+                   (True, dict(epi=fused_mlp.EPI_MASK, aux=A, aux_n=256))):
+        outs = [torch.empty(M, 256, device=card) for _ in range(2)]
+        for out in outs:
+            _weight_mm(ops, A, W, out, tb=tb, **kw)
+        assert torch.equal(outs[0], outs[1])
+        _product_close(outs[0], _split_ref(A, W, tb=tb, **kw))
+
+
+def test_f32_mode_products_take_the_weight_path(card):
+    """Every forward and dx product of K2-K5 in the f32 mode is a launch of
+    the weight path (counters ``split_gemm.weights_bn<width>``, one a
+    product), each a width that fits its output; only the dW contraction
+    (``split_gemm.contraction``, one a backward) takes the other path."""
+    from vdnerf_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(5)
+    made = []
+    mm = fused_mlp._SplitOps.mm
+
+    def counting_mm(ops, A, img, C, **kw):
+        made.append(fused_mlp.split_tile(img.N))
+        return mm(ops, A, img, C, **kw)
+
+    ws, bs = _weights(rng, [(3 + 27 + 3 + 256, 256), (256, 256), (256, 3)], card)
+    x = [torch.tensor(rng.normal(size=(300, c)), dtype=torch.float32, device=card)
+         for c in (3, 3, 3, 256)]
+    leaves = [t.requires_grad_(True) for t in ws + bs]
+    trace.reset()
+    fused_mlp._SplitOps.mm = counting_mm
+    try:
+        out = fused_mlp.render_net(("idr", 4, True), *x, ws, bs, torch.float32)
+        torch.autograd.grad(out.square().sum(), leaves)
+        plan, pts, views, weights = _nerf_inputs(rng, 300, True, card)
+        nleaves = [t.requires_grad_(True) for group in weights for t in group]
+        alpha, rgb, dpt = fused_mlp.nerf(plan, pts, views, *weights, torch.float32)
+        torch.autograd.grad(alpha.sum() + rgb.square().sum() + dpt.sum(), nleaves)
+    finally:
+        fused_mlp._SplitOps.mm = mm
+    counts = trace.counts()
+    by_width = {k: n for k, n in counts.items() if k.startswith("split_gemm.weights_bn")}
+    assert made and sum(by_width.values()) == len(made)
+    assert by_width == {f"split_gemm.weights_bn{bn}": made.count(bn) for bn in set(made)}
+    # K2 a layer (3), K3 the recompute and a dx a layer (6), K4 a layer (7),
+    # K5 the recompute up to the views layer (6) and a dx a layer (7)
+    assert len(made) == 3 + 6 + 7 + 13
+    assert counts["split_gemm.contraction"] == 2  # one a backward
 
 
 @pytest.mark.parametrize("splits", ["one", "many"])

@@ -299,9 +299,14 @@ def test_runner_takes_the_mode_from_the_policy(tmp_path, monkeypatch):
 class TorchLaunches:
     """What each launch of ``fused_mlp._SplitOps`` computes, in torch."""
 
-    def mm(self, A, B, C, *, ta=False, tb=False, bias=None, epi=fused_mlp.EPI_NONE, aux=None,
-           aux_n=0, n_store=None, C2=None, n_store2=0):
-        z = (A.t() if ta else A) @ (B.t() if tb else B)
+    def images(self, pairs):
+        return [fused_mlp.SplitImage(None, 0, w, trans, fused_mlp.split_tile(
+            w.shape[0] if trans else w.shape[1])) for w, trans in pairs]
+
+    def mm(self, A, img, C, *, bias=None, epi=fused_mlp.EPI_NONE, aux=None, aux_n=0,
+           n_store=None, C2=None, n_store2=0):
+        assert A.shape[1] == img.K
+        z = A @ (img.w.t() if img.trans else img.w)
         if bias is not None:
             z = z + bias
         g = torch.zeros_like(z)
@@ -424,15 +429,6 @@ def test_split_dw_plan():
 # ---------------------------------------------------------------------------
 
 
-def _tf32_split(x: torch.Tensor):
-    """The kernel's split_tf32: big = x rounded to tf32 (ties away), small
-    the same of x - big."""
-    def tf32(v):
-        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    big = tf32(x)
-    return big, tf32(x - big)
-
-
 @pytest.mark.parametrize("n", [37, 4133])
 def test_split_contraction_arithmetic_emulated(n):
     """The contraction as the kernel sums it: per row split of
@@ -447,8 +443,8 @@ def test_split_contraction_arithmetic_emulated(n):
     layers = [(48, 32, 48, 32, 0, 0)]
     splits, rows = fused_mlp.split_dw_plan(n, layers, 8)
     assert splits > 1 and (splits - 1) * rows < n <= splits * rows
-    xb, xs = _tf32_split(x)
-    db_, ds = _tf32_split(d)
+    xb, xs = fused_mlp.split_tf32(x)
+    db_, ds = fused_mlp.split_tf32(d)
     dW = torch.zeros(48, 32)
     dB = torch.zeros(32)
     for s in range(splits):
@@ -478,6 +474,46 @@ def test_split_converted_b_layout_is_what_wgmma_reads():
     assert sorted(stored.flatten().tolist()) == list(range(128 * 32))
     read = (k // 8) * 256 + ((k % 8) // 4) * 128 + (n // 8) * 1024 + (n % 8) * 16 + (k % 4) * 4
     assert torch.equal(4 * stored, read)
+
+
+@pytest.mark.parametrize("K,N,trans", [(304, 256, False), (256, 16, False), (16, 256, True),
+                                       (256, 304, True), (340, 256, False), (256, 272, True),
+                                       (283, 128, False), (96, 256, True), (400, 256, False)])
+def test_split_weight_image_is_what_wgmma_reads(K, N, trans):
+    """The weight path's image of B (W [K, N], or W^T for a dx product): in
+    the tile width ``split_tile`` picks, block (column tile j, slab s) holds
+    B's big tf32 tile then its small one, and the bytes each 8-deep step's
+    K-major no-swizzle wgmma descriptor addresses (start 256 bytes a step,
+    K-adjacent core matrices LBO = 128 bytes apart, 8-column groups SBO =
+    1,024 apart) are B's split elements, zero past K and N; the image's
+    length is ``image_words``."""
+    gen = torch.Generator().manual_seed(K * 7 + N)
+    w = torch.randn(*((N, K) if trans else (K, N)), generator=gen) * 3.0
+    bn = fused_mlp.split_tile(N)
+    img = fused_mlp.split_image_plain(w, trans, bn)
+    assert img.numel() == fused_mlp.image_words(K, N, bn)
+    tiles, slabs = -(-N // bn), -(-K // 32)
+    B = torch.zeros(slabs * 32, tiles * bn)
+    B[:K, :N] = w.t() if trans else w
+    big, small = fused_mlp.split_tf32(B)
+    assert bool(((big + small) - B).abs().le(B.abs() * 2.0 ** -20).all())  # two tf32 terms
+    k, n = torch.meshgrid(torch.arange(slabs * 32), torch.arange(tiles * bn), indexing="ij")
+    block = (n // bn) * slabs + k // 32
+    kl, nl = k % 32, n % bn
+    byte = (kl // 8) * 256 + ((kl % 8) // 4) * 128 + (nl // 8) * 1024 + (nl % 8) * 16 + (kl % 4) * 4
+    at = block * 2 * bn * 32 + byte // 4
+    assert torch.equal(img[at], big) and torch.equal(img[at + bn * 32], small)
+    assert sorted(torch.cat([at.flatten(), (at + bn * 32).flatten()]).tolist()) == \
+        list(range(img.numel()))
+
+
+@pytest.mark.parametrize("n,bn", [(1, 16), (3, 16), (16, 16), (17, 32), (96, 96), (99, 128),
+                                  (112, 128), (128, 128), (256, 128), (272, 96), (288, 96),
+                                  (304, 128), (352, 128)])
+def test_split_tile_fits_the_output(n, bn):
+    """The weight path's tile width: the narrowest wgmma width that holds a
+    narrow output; past 128 columns the one of 96 and 128 that pads least."""
+    assert fused_mlp.split_tile(n) == bn
 
 
 def test_profile_split_refuses_to_run_without_a_card(capsys):

@@ -291,12 +291,13 @@ def test_metrics_rays_per_sec_is_the_window_rate(scene_dir, monkeypatch, caplog)
     with caplog.at_level("INFO", logger=runner_mod.__name__):
         runner.train()
     # the end-of-run line: each program's counts (on the CPU eager steps
-    # alone), the SDF block's calls by route, and the data, dispatch and
-    # set-up spans' host seconds
+    # alone), the SDF block's calls by route, the split products by path,
+    # and the data, dispatch and set-up spans' host seconds
     line = next(r.getMessage() for r in caplog.records if "step programs" in r.getMessage())
     assert "{'core32': {'eager_steps': 20}}" in line
     assert "'data.sample'" in line and "'dispatch.eager'" in line
     assert "SDF block calls {'fused': 20, 'autograd': 0}" in line  # one a step
+    assert "split products {}" in line  # the CPU runs K2-K5's plain versions
     with open(os.path.join(runner.base_exp_dir, "logs", "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     assert [r["step"] for r in rows] == [1, 10, 20]

@@ -60,7 +60,9 @@ _SIGNATURES = {
     "render_bwd_launch": [_P] * 9 + [_I] + [_P] * 7,
     "nerf_bwd_launch": [_P] * 7 + [_I] + [_P] * 4 + [_I] + [_P] * 4,
     "dw_finish_launch": [_P, _I] + [_P] * 4 + [_I, _I] + [_P] * 3,
-    "split_mm_launch": [_P, _I, _I, _I, _I, _I, _P],
+    "split_mm_launch": [_P, _I, _I, _I, _P],
+    "split_wmm_launch": [_P, _I, _I, _I, _P],
+    "split_image_launch": [_P, _I, _P],
     "split_embed_launch": [_P, ctypes.c_longlong, _I, _I, _I, _P, ctypes.c_longlong, _I, _P],
     "split_embed_vjp_launch": [_P, _I, _P, _I, _I, _I, _P, _P],
     "split_reduce_launch": [_P, _I, ctypes.c_longlong, _P, _P],

@@ -1709,11 +1709,14 @@ int nerf_plan(Plan* p, const long long* sched) {
 // background NeRF through f32 `linear`s; the kernels above round every
 // operand to bf16. The split mode keeps f32 accuracy on the tensor cores by
 // 3xTF32, as K1 does (sdf_fwd.cu): each operand x is split into big =
-// tf32(x) and small = tf32(x - big), and small*big + big*small + big*big
-// accumulate in f32 (the dropped small*small is below 2^-21 of the product).
-// Each 32-deep slab sums from zero in the tensor cores and its sum adds into
-// the running accumulators in f32, since the tensor cores' accumulation
-// truncates.
+// tf32(x) and small = tf32(x - big) (cut), and small*big + big*small +
+// big*big accumulate in f32 (the dropped small*small is below 2^-21 of the
+// product). Each 32-deep slab sums from zero in the tensor cores and its sum
+// adds into the running accumulators in f32, since the tensor cores'
+// accumulation truncates: summed over the whole K instead, a 256 x 256 layer
+// at 65,536 rows departs from f64 by 1.8e-6 relative L2 against 2.3e-7 with
+// the slab sums (f32 matmul: 2.0e-7), and runs no faster (0.092 against
+// 0.088 ms; H100, PERF.md section 6).
 //
 // Why not the bf16 mode's tiles: hi/lo copies of both operands double K2's
 // 128-row tiles to 286,720 bytes, more than a block's 232,448. So the split
@@ -1723,48 +1726,60 @@ int nerf_plan(Plan* p, const long long* sched) {
 // with the activations and deltas in f32 in global memory between the
 // launches. The wrapper (fused_mlp._SplitOps) lists the launches. A layer's
 // activations are 1 KB a row against 0.5-1.5 MFLOP of split products a row,
-// so the products bound it: 3x a layer's operations at the TF32 peak (495
-// TFLOP/s) against the bytes at 3.35 TB/s.
+// so the products bound a wide layer: 3x its operations at the TF32 peak
+// (495 TFLOP/s) against the bytes at 3.35 TB/s; an output of 16-96 columns
+// moves more bytes than its products take.
 //
-// split_gemm_kernel: C = op(A) op(B) over a group of problems (one launch:
-// every dW of a backward, or one layer's product), A [M, K] row-major (TA:
-// stored [K, M]), B [K, N] (TB: stored [N, K]), in 128 x 128 output tiles
-// and 32-deep slabs. A CTA of three warpgroups is persistent: it walks the
-// work items (tile, K split) blockIdx.x, + gridDim.x, ..., and its slabs
-// stream through two rings without a CTA-wide barrier:
+// Two paths, by what B is:
+//  - the weight path (split_gemm_kernel<BN>, below: every forward and dx
+//    product, whose B is a layer's weights, the same for every row): the
+//    weights are split once a call into an image in the layout wgmma reads
+//    (split_gemm_kernel(SplitImages)), so a stage is two copies and no
+//    conversion; the consumers keep a slab's wgmma in flight while they split
+//    the next slab's A; the tile is as wide as the output allows (16, 32, 64,
+//    96 or 128 columns, fused_mlp.split_tile). Bound: a 256 x 256 layer's
+//    products (its operations, 0.052 ms at 65,536 rows), a narrow head's
+//    bytes (A read once: 0.020 ms at 65,536 x 256 in);
+//  - the contraction (split_gemm_kernel(SplitProbs), this section: dW = acts^T
+//    dels over the rows, in row splits): its B is a delta made by the same
+//    backward, N-major, with K the rows, read once, so an image would cost a
+//    pass over the deltas for one use; the producer warpgroup splits each
+//    landed B slab instead, and sums its columns (db) in the same pass. Bound:
+//    bytes (acts and dels read once, 0.093 ms at K3's 65,536 rows).
+//
+// The contraction's kernel: C = A^T B over a group of problems (one launch:
+// every dW of a backward), A [M, K] stored [K, M], B [K, N], in 128 x 128
+// output tiles and 32-deep slabs. A CTA of three warpgroups is persistent: it
+// walks the work items (tile, K split) blockIdx.x, + gridDim.x, ..., and its
+// slabs stream through two rings without a CTA-wide barrier:
 //  - one producer thread keeps TMA copies (cp.async.bulk.tensor.2d, a tensor
 //    map per operand, boxes of 32-float rows in the 128-byte swizzle, so that
 //    the fragment and column reads below are free of bank conflicts) of the
 //    f32 slabs of A and B in flight, two slabs ahead, into a 3-stage ring of
-//    mbarrier-guarded stages: one box a slab where the operand's rows run
-//    along K, four of 32 x 32 where they run along M or N (a box wholly past
+//    mbarrier-guarded stages: four boxes of 32 x 32 a slab (a box wholly past
 //    the matrix is not copied). TMA zero-fills past the matrix; a split's K
-//    range is masked where it is read. (A bulk copy per row segment, 160-256
-//    a slab, bound the kernel on an H100: about 55 ns each.);
+//    range is masked where it is read;
 //  - the producer warpgroup's 128 threads split each landed B slab once for
 //    the CTA, a column a thread, into big and small tf32 tiles in the K-major
 //    no-swizzle core-matrix layout that wgmma reads (wgmma cannot transpose
-//    tf32 operands, so B stored N-major, the forward's [in, out] weights and
-//    the contraction's deltas, is transposed on the way), into a 2-stage
-//    ring; masked past N and past the split's K; the same pass sums each
-//    column of B over the split's K in row order where the problem asks for
-//    it (Cb: the contraction's db, from the CTAs of the first row tile), so
-//    db takes no second pass over the deltas;
+//    tf32 operands, so the N-major deltas are transposed on the way), into a
+//    2-stage ring; masked past N and past the split's K; the same pass sums
+//    each column of B over the split's K in row order (Cb: db, from the CTAs
+//    of the first row tile), so db takes no second pass over the deltas;
 //  - two consumer warpgroups, 64 rows each, load their A fragments from the
-//    f32 stage in either layout, split them in registers (wgmma's register-A
-//    form) and issue wgmma.m64n128k8.tf32 three times per 8-deep step; they
-//    are not held to each other, so one's wgmma runs while the other loads
-//    or adds its slab sum.
+//    f32 stage, split them in registers (wgmma's register-A form) and issue
+//    wgmma.m64n128k8.tf32 three times per 8-deep step; they are not held to
+//    each other, so one's wgmma runs while the other loads or adds its slab
+//    sum.
 // setmaxnreg gives the consumers 224 registers (the slab's partial sums and
 // the running sums, 64 each, and 32 of A fragments) and the producers 56.
 // The epilogue goes through a staging block a consumer warpgroup (the
-// fragments' scattered columns cost 8 memory sectors a store, which made the
-// epilogue longer than the products): the aux rows in, the registers
-// through the epilogue, the rows out, 16 bytes a thread. The contraction's
+// fragments' scattered columns cost 8 memory sectors a store): the registers
+// through the epilogue into it, then the rows out, 16 bytes a thread. The
 // partials go to C + split * c_split (summed in split order by
 // reduce_dw_kernel). The barriers count warps (each warp's lane 0 arrives
 // after the warp's __syncwarp), not threads. No atomics, and a fixed order
-// of every sum: two launches give the same bits.
+// of every sum, on both paths: two launches give the same bits.
 
 constexpr int kSgM = 128, kSgN = 128, kSgK = 32;
 constexpr int kSgStagesF = 3, kSgStagesC = 2, kSgLead = kSgStagesF - 1;
@@ -1820,16 +1835,9 @@ static_assert(kSgM * kSgK == kSgN * kSgK, "A's and B's slabs are the same size")
 __device__ __forceinline__ int swz(int r, int c) {
   return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
 }
-// A's (m, k) and B's (k, n) in their stage: one box of 128 rows of 32 k, or
+// A's (m, k) and B's (k, n) in their stage (both stored with K the rows):
 // four boxes of 32 rows of k, each 32 of m (n) wide
-template <bool TA>
-__device__ __forceinline__ int sg_at_a(int m, int k) {
-  return TA ? (m >> 5) * 1024 + swz(k, m & 31) : swz(m, k);
-}
-template <bool TB>
-__device__ __forceinline__ int sg_at_b(int k, int n) {
-  return TB ? swz(n, k) : (n >> 5) * 1024 + swz(k, n & 31);
-}
+__device__ __forceinline__ int sg_at(int k, int mn) { return (mn >> 5) * 1024 + swz(k, mn & 31); }
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
@@ -1904,7 +1912,6 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar) {
 
 // the copying thread: slab `sq` into its f32 stage, arriving on the stage's
 // `full` barrier with the bytes of the boxes it copies
-template <bool TA, bool TB>
 __device__ __forceinline__ void sg_copy(const SplitProbs& P, const SgSeq& sq, float* ringF,
                                         uint64_t* full, uint64_t* empty) {
   const int st = sq.g % kSgStagesF;
@@ -1914,49 +1921,107 @@ __device__ __forceinline__ void sg_copy(const SplitProbs& P, const SgSeq& sq, fl
   const int k0 = sq.it.k_begin + sq.s * kSgK;
   float* As = ringF + (size_t)st * kSgStageF;
   float* Bs = As + kSgM * kSgK;
-  const int na = TA ? min(4, (q.M - sq.it.m0 + 31) / 32) : 1;
-  const int nb = TB ? 1 : min(4, (q.N - sq.it.n0 + 31) / 32);
-  mbar_expect_tx(&full[st], 4 * (na * (TA ? 32 * kSgK : kSgM * kSgK) +
-                                 nb * (TB ? kSgN * kSgK : 32 * kSgK)));
-  for (int b = 0; b < na; ++b) {
-    if (TA)
-      tma_load_2d(As + b * 1024, &q.amap, sq.it.m0 + 32 * b, k0, &full[st]);
-    else
-      tma_load_2d(As, &q.amap, k0, sq.it.m0, &full[st]);
-  }
-  for (int b = 0; b < nb; ++b) {
-    if (TB)
-      tma_load_2d(Bs, &q.bmap, k0, sq.it.n0, &full[st]);
-    else
-      tma_load_2d(Bs + b * 1024, &q.bmap, sq.it.n0 + 32 * b, k0, &full[st]);
-  }
+  const int na = min(4, (q.M - sq.it.m0 + 31) / 32);
+  const int nb = min(4, (q.N - sq.it.n0 + 31) / 32);
+  mbar_expect_tx(&full[st], 4 * 32 * kSgK * (na + nb));
+  for (int b = 0; b < na; ++b)
+    tma_load_2d(As + b * 1024, &q.amap, sq.it.m0 + 32 * b, k0, &full[st]);
+  for (int b = 0; b < nb; ++b)
+    tma_load_2d(Bs + b * 1024, &q.bmap, sq.it.n0 + 32 * b, k0, &full[st]);
 }
 
-// d[64 x 128] (+)= A[64 x 8] B[8 x 128]: A from registers (4 tf32 a thread),
-// B a K-major shared-memory descriptor; scale_d 0 starts from zero
-template <int SCALE_D>
-__device__ __forceinline__ void wgmma_tf32_64x128(float* d, const uint32_t* a, uint64_t db) {
+// d[64 x N] (+)= A[64 x 8] B[8 x N]: A from registers (4 tf32 a thread), B a
+// K-major shared-memory descriptor; scale_d 0 starts from zero. Register
+// 4j + 2h + e of a thread (warp w, lane 4g + t) holds row 16w + g + 8h,
+// column 8j + 2t + e.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float* d, const uint32_t* a, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float* d, const uint32_t* a, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t* a, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float* d, const uint32_t* a, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, const uint32_t* a, uint64_t db,
+                                               int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SCALE_D));
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+
 
 // the epilogue `EPI` of z, with `a` its aux value (past aux_n: 1 for the
 // relu mask, which keeps z, and 0 for the output's delta)
@@ -1981,57 +2046,23 @@ __device__ __forceinline__ void wg_bar(int wc) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wc) : "memory");
 }
 
-// A consumer warpgroup's epilogue of its 64 rows of the item's tile: the aux
-// block loaded by rows into the staging block (16-byte loads), each register
-// through bias and EPI into it, then the block stored by rows (16-byte
-// stores where the row's four columns go to C): the fragments' scattered
-// accesses stay in shared memory
-template <int EPI>
+// A consumer warpgroup's epilogue of its 64 rows of the item's tile (a dW
+// partial): the registers into the staging block, then the block stored by
+// rows (16-byte stores where the row's four columns are in C): the
+// fragments' scattered accesses stay in shared memory
 __device__ __forceinline__ void sg_epilogue(const SplitProb& q, const SgItem& it, int wc,
                                             float* staging, const float (&acc)[64]) {
   const int tl = threadIdx.x & 127;
   const int g = (tl & 31) >> 2, tq = tl & 3;
   const int r0 = (tl >> 5) * 16 + g;  // staging rows r0 and r0 + 8
   const int m_base = it.m0 + wc * 64;
-  float bv[32];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = it.n0 + 8 * j + 2 * tq + e;
-      bv[2 * j + e] = q.bias != nullptr && col < q.N ? q.bias[col] : 0.0f;
-    }
   wg_bar(wc);  // the previous item's stores have read the block
-  if (EPI >= kEpiMask) {
-    const float dflt = EPI == kEpiMask ? 1.0f : 0.0f;
-    for (int i = tl; i < 64 * (kSgN / 4); i += 128) {
-      const int r = i / (kSgN / 4), c = (i % (kSgN / 4)) * 4;
-      const int m = m_base + r, col = it.n0 + c;
-      float4 v = make_float4(dflt, dflt, dflt, dflt);
-      if (m < q.M) {
-        const float* src = q.aux + (size_t)m * q.ldaux + col;
-        if (col + 3 < q.aux_n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-          v = *reinterpret_cast<const float4*>(src);
-        } else {
-          float* pv = &v.x;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col + e < q.aux_n) pv[e] = src[e];
-        }
-      }
-      *reinterpret_cast<float4*>(staging + stg(r, c)) = v;
-    }
-    wg_bar(wc);
-  }
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float2* at = reinterpret_cast<float2*>(staging + stg(r0 + 8 * h, 8 * j + 2 * tq));
-      const float2 a = EPI >= kEpiMask ? *at : make_float2(0.0f, 0.0f);
-      *at = make_float2(sg_act<EPI>(acc[4 * j + 2 * h] + bv[2 * j], a.x),
-                        sg_act<EPI>(acc[4 * j + 2 * h + 1] + bv[2 * j + 1], a.y));
-    }
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(staging + stg(r0 + 8 * h, 8 * j + 2 * tq)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   wg_bar(wc);
   float* C = q.C + (size_t)it.split * q.c_split;
   for (int i = tl; i < 64 * (kSgN / 4); i += 128) {
@@ -2040,26 +2071,17 @@ __device__ __forceinline__ void sg_epilogue(const SplitProb& q, const SgItem& it
     if (m >= q.M || col >= q.N) continue;
     const float4 v = *reinterpret_cast<const float4*>(staging + stg(r, c));
     float* dst = C + (size_t)m * q.ldc + col;
-    if (col + 3 < q.n_store && col + 3 < q.N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    if (col + 3 < q.N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
       *reinterpret_cast<float4*>(dst) = v;
       continue;
     }
     const float* pv = &v.x;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cc = col + e;
-      if (cc >= q.N) break;
-      if (cc < q.n_store)
-        C[(size_t)m * q.ldc + cc] = pv[e];
-      else if (cc - q.n_store < q.n_store2)
-        q.C2[(size_t)m * q.ldc2 + cc - q.n_store] = pv[e];
-    }
+    for (int e = 0; e < 4 && col + e < q.N; ++e) dst[e] = pv[e];
   }
 }
 
 // The producer warpgroup: thread 0 copies kSgLead slabs ahead; every thread
 // splits column t of each landed B slab into the converted ring.
-template <bool TA, bool TB>
 __device__ __forceinline__ void sg_producer(const SplitProbs& P, int total, float* ringF,
                                             uint32_t* ringC, uint64_t* fullF, uint64_t* emptyF,
                                             uint64_t* fullC, uint64_t* emptyC) {
@@ -2070,13 +2092,13 @@ __device__ __forceinline__ void sg_producer(const SplitProbs& P, int total, floa
   ahead.start(P, total);
   if (copier)
     for (int i = 0; i < kSgLead && ahead.valid; ++i) {
-      sg_copy<TA, TB>(P, ahead, ringF, fullF, emptyF);
+      sg_copy(P, ahead, ringF, fullF, emptyF);
       ahead.next(P, total);
     }
   float colsum = 0.0f;
   for (; sq.valid; sq.next(P, total)) {
     if (copier && ahead.valid) {
-      sg_copy<TA, TB>(P, ahead, ringF, fullF, emptyF);
+      sg_copy(P, ahead, ringF, fullF, emptyF);
       ahead.next(P, total);
     }
     const SplitProb& q = P.q[sq.it.pi];
@@ -2092,13 +2114,8 @@ __device__ __forceinline__ void sg_producer(const SplitProbs& P, int total, floa
 #pragma unroll
     for (int kq = 0; kq < kSgK / 4; ++kq) {
       float v[4];
-      if (TB) {
-        const float4 x = *reinterpret_cast<const float4*>(Bs + sg_at_b<true>(4 * kq, t));
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = Bs[sg_at_b<false>(4 * kq + j, t)];
-      }
+      for (int j = 0; j < 4; ++j) v[j] = Bs[sg_at(4 * kq + j, t)];
       uint4 hb, hs;
       uint32_t* pb = &hb.x;
       uint32_t* ps = &hs.x;
@@ -2123,7 +2140,6 @@ __device__ __forceinline__ void sg_producer(const SplitProbs& P, int total, floa
 }
 
 // A consumer warpgroup (wc 0 or 1): rows wc*64 .. +63 of each tile
-template <bool TA, bool TB>
 __device__ __forceinline__ void sg_consumer(const SplitProbs& P, int total, int wc,
                                             const float* ringF, const uint32_t* ringC,
                                             float* staging, uint64_t* fullF, uint64_t* emptyF,
@@ -2153,10 +2169,10 @@ __device__ __forceinline__ void sg_consumer(const SplitProbs& P, int total, int 
       for (int ks = 0; ks < 4; ++ks) {
         const int c0 = 8 * ks + tq, c1 = c0 + 4;
         float a[4];
-        a[0] = As[sg_at_a<TA>(rA, c0)];
-        a[1] = As[sg_at_a<TA>(rA + 8, c0)];
-        a[2] = As[sg_at_a<TA>(rA, c1)];
-        a[3] = As[sg_at_a<TA>(rA + 8, c1)];
+        a[0] = As[sg_at(c0, rA)];
+        a[1] = As[sg_at(c0, rA + 8)];
+        a[2] = As[sg_at(c1, rA)];
+        a[3] = As[sg_at(c1, rA + 8)];
         a[0] = row0 && c0 < kr ? a[0] : 0.0f;
         a[1] = row1 && c0 < kr ? a[1] : 0.0f;
         a[2] = row0 && c1 < kr ? a[2] : 0.0f;
@@ -2174,12 +2190,9 @@ __device__ __forceinline__ void sg_consumer(const SplitProbs& P, int total, int 
         // K-adjacent core matrices 128 bytes apart, 8-column groups 1 KB apart
         const uint64_t dbig = wg_desc(big + 64 * ks, 128, 8 * kSgK * 4);
         const uint64_t dsmall = wg_desc(small + 64 * ks, 128, 8 * kSgK * 4);
-        if (ks == 0)
-          wgmma_tf32_64x128<0>(part, as[ks], dbig);
-        else
-          wgmma_tf32_64x128<1>(part, as[ks], dbig);
-        wgmma_tf32_64x128<1>(part, ab[ks], dsmall);
-        wgmma_tf32_64x128<1>(part, ab[ks], dbig);
+        wgmma_tf32<kSgN>(part, as[ks], dbig, ks != 0);
+        wgmma_tf32<kSgN>(part, ab[ks], dsmall, 1);
+        wgmma_tf32<kSgN>(part, ab[ks], dbig, 1);
       }
       wg_commit();
       wg_wait<0>();
@@ -2187,19 +2200,11 @@ __device__ __forceinline__ void sg_consumer(const SplitProbs& P, int total, int 
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
-    // register 4j + 2h + e holds row rA + 8h, column 8j + 2tq + e
-    switch (q.epi) {
-      case kEpiRelu: sg_epilogue<kEpiRelu>(q, it, wc, staging, acc); break;
-      case kEpiSigmoid: sg_epilogue<kEpiSigmoid>(q, it, wc, staging, acc); break;
-      case kEpiMask: sg_epilogue<kEpiMask>(q, it, wc, staging, acc); break;
-      case kEpiDSigmoid: sg_epilogue<kEpiDSigmoid>(q, it, wc, staging, acc); break;
-      case kEpiDRelu: sg_epilogue<kEpiDRelu>(q, it, wc, staging, acc); break;
-      default: sg_epilogue<kEpiNone>(q, it, wc, staging, acc); break;
-    }
+    sg_epilogue(q, it, wc, staging, acc);
   }
 }
 
-template <bool TA, bool TB>
+// the contraction (A stored [K, M], B [K, N]: acts^T dels)
 __global__ void __launch_bounds__(kSgThreads, 1)
     split_gemm_kernel(const __grid_constant__ SplitProbs P) {
   extern __shared__ __align__(128) float smf[];
@@ -2229,11 +2234,416 @@ __global__ void __launch_bounds__(kSgThreads, 1)
   const int wg = threadIdx.x >> 7;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kSgProducerRegs));
-    sg_producer<TA, TB>(P, total, ringF, ringC, fullF, emptyF, fullC, emptyC);
+    sg_producer(P, total, ringF, ringC, fullF, emptyF, fullC, emptyC);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSgConsumerRegs));
-    sg_consumer<TA, TB>(P, total, wg - 1, ringF, ringC, staging + (wg - 1) * kSgStaging, fullF,
-                        emptyF, fullC, emptyC);
+    sg_consumer(P, total, wg - 1, ringF, ringC, staging + (wg - 1) * kSgStaging, fullF, emptyF,
+                fullC, emptyC);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The weight path of split_gemm_kernel: C = epi(A W + bias) or epi(A W^T),
+// where W is a layer's weights (every forward and dx product of K2-K5)
+// ---------------------------------------------------------------------------
+//
+// The weight image (split_gemm_kernel(SplitImages), once a call for each
+// layer and orientation the call runs): B = W [K, N] or W^T, split into big
+// and small tf32 and laid out as the weight path's stages read it. For a tile
+// width BN (chosen from N by fused_mlp.split_tile), block (column tile j,
+// slab s) of 2 * BN * 32 words sits at (j * n_slabs + s) * 2 * BN * 32: the
+// big tile, then the small one, element (k, n) of each at (n / 8) * 256 +
+// (k / 4) * 32 + (n % 8) * 4 + k % 4, the K-major no-swizzle core-matrix
+// order of wgmma's B descriptor (LBO 128 bytes, SBO 1,024); zero past K and N.
+// So one bulk copy of 256 * BN bytes lands a slab where wgmma reads it.
+//
+// The kernel (split_gemm_kernel<BN>): 128-row tiles of BN columns (16, 32,
+// 64, 96 or 128; BN x 32 of image a slab), persistent CTAs of three
+// warpgroups walking the tiles blockIdx.x, + gridDim.x, ... (a row block's
+// column tiles side by side, so A comes from HBM once); one thread of the
+// first warpgroup keeps every stage of a ring of WpShape<BN>::kStages (3 at
+// BN 128, 4 at 96, 6 below) in flight: A's f32 slab by TMA (the 128-byte
+// swizzle) and the image's block by one bulk copy, both on the stage's
+// barrier. Each consumer warpgroup (64 rows) issues the slab's 12 wgmma
+// (small*big, big*small, big*big per 8-deep step, from zero), and while they
+// run loads and splits its A fragments of the next slab; then it waits,
+// releases the stage and adds the slab's sums into its accumulators in f32.
+// Each tile's bias and aux block (the relu mask's source or the output's
+// cotangent) are copied into shared memory by cp.async when the tile starts,
+// so the epilogue waits for no load of its own. setmaxnreg gives the
+// consumers 232 registers (running and slab sums, BN / 2 each, and two sets
+// of A fragments, 32 each) and the copying warpgroup 40.
+// A tile wider than 128 columns would read A once for a 256-wide layer, but
+// its running and slab sums (128 registers each) do not fit beside the
+// fragments; at BN 128 the tile moves 48 KB of L2 a slab, 4.6 TB/s at the
+// 256 x 256 layer's 0.086 ms, where the tensor cores are 60% busy.
+
+constexpr int kWpThreads = 384;
+constexpr int kWpProducerRegs = 40, kWpConsumerRegs = 232;
+constexpr int kWpMaxStages = 6;
+constexpr int kWpMaxImages = 2 * kMaxLayers;
+static_assert(kWpProducerRegs * 128 + kWpConsumerRegs * 256 <= 168 * kWpThreads,
+              "the register split fits the 168 registers a thread of 384 has");
+
+template <int BN>
+struct WpShape {
+  static constexpr int kStageB = 2 * BN * kSgK;          // words: the image's block
+  static constexpr int kStage = kSgM * kSgK + kStageB;   // words: A's f32 slab, then B's
+  static constexpr int kStaging = 64 * BN;               // floats: a consumer warpgroup's block
+  static constexpr size_t kFixed = 1024 + 4 * (size_t)(2 * kStaging + 2 * BN) +
+                                   16 * (size_t)kWpMaxStages;
+  static constexpr int kFit = (int)((232448 - kFixed) / (4 * (size_t)kStage));
+  static constexpr int kStages = kFit < kWpMaxStages ? kFit : kWpMaxStages;
+  // bytes from the 1024-byte boundary to the barriers, then the whole carve
+  static constexpr size_t kBars = 4 * ((size_t)kStages * kStage + 2 * kStaging + 2 * BN);
+  static constexpr size_t kSmem = 1024 + kBars + 16 * (size_t)kStages;
+  static_assert(kStages >= 3 && kSmem <= 232448, "a block's shared memory");
+  static_assert((4 * kStage) % 1024 == 0, "each stage's A slab on a 1024-byte boundary");
+  static_assert(BN % 16 == 0 && BN <= kSgN, "a tile is 16 to 128 columns");
+};
+
+// a tile of the launch: its problem, origin, column tile and slabs
+struct WpItem {
+  int pi, m0, n0, tile_n, n_slabs;
+};
+
+template <int BN>
+__device__ __forceinline__ WpItem wp_item(const SplitProbs& P, int item) {
+  int pi = 0;
+  while (item >= P.tile0[pi + 1]) ++pi;
+  const int t = item - P.tile0[pi];
+  const SplitProb& q = P.q[pi];
+  const int tiles_n = (q.N + BN - 1) / BN;
+  WpItem it;
+  it.pi = pi;
+  it.tile_n = t % tiles_n;  // a row block's column tiles are neighbours: A read once from HBM
+  it.m0 = (t / tiles_n) * kSgM;
+  it.n0 = it.tile_n * BN;
+  it.n_slabs = (q.K + kSgK - 1) / kSgK;
+  return it;
+}
+
+// 4-byte cp.async; with `bytes` = 0 the destination is zero-filled
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// (row r, column c) of a consumer warpgroup's 64 x BN block: the XOR of
+// bits 3-4 keeps the fragment writes at two wavefronts and the row reads
+// free of bank conflicts, inside the row at every BN
+template <int BN>
+__device__ __forceinline__ int wp_stg(int r, int c) {
+  return r * BN + (c ^ (((r & 3) << 3) & (BN - 1)));
+}
+
+// the producer thread: every slab of the CTA's tiles into the ring
+template <int BN>
+__device__ __forceinline__ void wp_producer(const SplitProbs& P, int total, float* ring,
+                                            uint64_t* full, uint64_t* empty) {
+  using S = WpShape<BN>;
+  int g = 0;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    const WpItem it = wp_item<BN>(P, item);
+    const SplitProb& q = P.q[it.pi];
+    const float* img = q.B + (size_t)it.tile_n * it.n_slabs * S::kStageB;
+    for (int s = 0; s < it.n_slabs; ++s, ++g) {
+      const int st = g % S::kStages;
+      mbar_wait(&empty[st], ((g / S::kStages) & 1) ^ 1);
+      float* As = ring + (size_t)st * S::kStage;
+      mbar_expect_tx(&full[st], 4 * kSgM * kSgK);
+      tma_load_2d(As, &q.amap, s * kSgK, it.m0, &full[st]);
+      bulk_load(As + kSgM * kSgK, img + (size_t)s * S::kStageB, 4 * S::kStageB, &full[st]);
+    }
+  }
+}
+
+// a consumer thread's A fragments of stage st (rows rA and rA + 8, columns
+// 8 ks + tq and + 4), split into big and small tf32; rows past M and
+// columns past K are TMA's zeros
+__device__ __forceinline__ void wp_frags(const float* As, int rA, int tq, uint32_t (&ab)[4][4],
+                                         uint32_t (&as)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int c0 = 8 * ks + tq, c1 = c0 + 4;
+    split_tf32(As[swz(rA, c0)], ab[ks][0], as[ks][0]);
+    split_tf32(As[swz(rA + 8, c0)], ab[ks][1], as[ks][1]);
+    split_tf32(As[swz(rA, c1)], ab[ks][2], as[ks][2]);
+    split_tf32(As[swz(rA + 8, c1)], ab[ks][3], as[ks][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// a tile's bias (BN floats) and, for the epilogues that read one, its aux
+// block (64 x BN of the warpgroup's rows) into shared memory, zero past the
+// bias, past aux_n and past M: one cp.async group of the warpgroup
+template <int BN>
+__device__ __forceinline__ void wp_prefetch(const SplitProb& q, const WpItem& it, int wc,
+                                            float* staging, float* biasS) {
+  const int tl = threadIdx.x & 127;
+  for (int c = 4 * tl; c < BN; c += 4 * 128) {
+    const int col = it.n0 + c;
+    const float* src = q.bias != nullptr ? q.bias + col : nullptr;
+    if (src != nullptr && col + 3 < q.N && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16_zfill(biasS + c, src, 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = src != nullptr && col + e < q.N;
+        cp_async4_zfill(biasS + c + e, in ? src + e : q.C, in ? 4 : 0);
+      }
+    }
+  }
+  if (q.epi >= kEpiMask) {
+    const int m_base = it.m0 + wc * 64;
+    for (int i = tl; i < 64 * (BN / 4); i += 128) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int m = m_base + r, col = it.n0 + c;
+      float* dst = staging + wp_stg<BN>(r, c);
+      const float* src = q.aux + (size_t)(m < q.M ? m : 0) * q.ldaux + col;
+      if (m < q.M && col + 3 < q.aux_n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        cp_async16_zfill(dst, src, 16);
+      } else if (m < q.M && col < q.aux_n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = col + e < q.aux_n;
+          cp_async4_zfill(dst + e, in ? src + e : q.aux, in ? 4 : 0);
+        }
+      } else {
+        cp_async16_zfill(dst, q.aux, 0);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// A consumer warpgroup's epilogue of its 64 rows of the tile: each register
+// through bias and EPI into the staging block (the aux value from the same
+// place), then the block stored by rows (16-byte stores where the row's four
+// columns go to C)
+template <int BN, int EPI>
+__device__ __forceinline__ void wp_epilogue(const SplitProb& q, const WpItem& it, int wc,
+                                            float* staging, const float* biasS,
+                                            const float (&acc)[BN / 2]) {
+  const int tl = threadIdx.x & 127;
+  const int g = (tl & 31) >> 2, tq = tl & 3;
+  const int r0 = (tl >> 5) * 16 + g;  // staging rows r0 and r0 + 8
+  cp_async_wait<0>();
+  wg_bar(wc);  // every thread's bias and aux copies have landed
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float b0 = biasS[c], b1 = biasS[c + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* at = reinterpret_cast<float2*>(staging + wp_stg<BN>(r0 + 8 * h, c));
+      float2 a = make_float2(0.0f, 0.0f);
+      if (EPI >= kEpiMask) {
+        a = *at;
+        if (EPI == kEpiMask) {  // past aux_n the mask keeps z
+          if (it.n0 + c >= q.aux_n) a.x = 1.0f;
+          if (it.n0 + c + 1 >= q.aux_n) a.y = 1.0f;
+        }
+      }
+      *at = make_float2(sg_act<EPI>(acc[4 * j + 2 * h] + b0, a.x),
+                        sg_act<EPI>(acc[4 * j + 2 * h + 1] + b1, a.y));
+    }
+  }
+  wg_bar(wc);
+  const int m_base = it.m0 + wc * 64;
+  for (int i = tl; i < 64 * (BN / 4); i += 128) {
+    const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+    const int m = m_base + r, col = it.n0 + c;
+    if (m >= q.M || col >= q.N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(staging + wp_stg<BN>(r, c));
+    float* dst = q.C + (size_t)m * q.ldc + col;
+    if (col + 3 < q.n_store && col + 3 < q.N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      *reinterpret_cast<float4*>(dst) = v;
+      continue;
+    }
+    const float* pv = &v.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cc = col + e;
+      if (cc >= q.N) break;
+      if (cc < q.n_store)
+        q.C[(size_t)m * q.ldc + cc] = pv[e];
+      else if (cc - q.n_store < q.n_store2)
+        q.C2[(size_t)m * q.ldc2 + cc - q.n_store] = pv[e];
+    }
+  }
+  wg_bar(wc);  // the block is read: the next tile may copy into it
+}
+
+// the 12 wgmma of a slab into d, from zero: small*big, big*small, big*big
+// per 8-deep step
+template <int BN>
+__device__ __forceinline__ void wp_issue(float (&d)[BN / 2], const uint32_t (&ab)[4][4],
+                                         const uint32_t (&as)[4][4], const uint32_t* big,
+                                         const uint32_t* small) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    // K-adjacent core matrices 128 bytes apart, 8-column groups 1 KB apart
+    const uint64_t dbig = wg_desc(big + 64 * ks, 128, 8 * kSgK * 4);
+    const uint64_t dsmall = wg_desc(small + 64 * ks, 128, 8 * kSgK * 4);
+    wgmma_tf32<BN>(d, as[ks], dbig, ks != 0);
+    wgmma_tf32<BN>(d, ab[ks], dsmall, 1);
+    wgmma_tf32<BN>(d, ab[ks], dbig, 1);
+  }
+}
+
+// one slab of a consumer warpgroup: issue its wgmma on the A fragments `a*`
+// and the stage's image, load and split the next slab's fragments into `n*`
+// while they run, then wait, release the stage and add the slab's sums
+template <int BN>
+__device__ __forceinline__ void wp_slab(const float* ring, int g, bool has_next, int rA, int tq,
+                                        float (&acc)[BN / 2], float (&part)[BN / 2],
+                                        const uint32_t (&ab)[4][4], const uint32_t (&as)[4][4],
+                                        uint32_t (&nb)[4][4], uint32_t (&ns)[4][4],
+                                        uint64_t* full, uint64_t* empty) {
+  using S = WpShape<BN>;
+  const int st = g % S::kStages;
+  const uint32_t* big =
+      reinterpret_cast<const uint32_t*>(ring + (size_t)st * S::kStage + kSgM * kSgK);
+  const uint32_t* small = big + BN * kSgK;
+  wg_fence();
+  wp_issue<BN>(part, ab, as, big, small);
+  wg_commit();
+  if (has_next) {
+    const int nst = (g + 1) % S::kStages;
+    mbar_wait(&full[nst], ((g + 1) / S::kStages) & 1);
+    wp_frags(ring + (size_t)nst * S::kStage, rA, tq, nb, ns);
+  }
+  wg_wait<0>();
+  warp_arrive(&empty[st]);
+  reg_fence(part);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+}
+
+// A consumer warpgroup (wc 0 or 1): rows wc*64 .. +63 of each tile
+template <int BN>
+__device__ __forceinline__ void wp_consumer(const SplitProbs& P, int total, int wc,
+                                            const float* ring, float* staging, float* biasS,
+                                            uint64_t* full, uint64_t* empty) {
+  using S = WpShape<BN>;
+  const int lane = threadIdx.x & 31;
+  const int q4 = (threadIdx.x >> 5) & 3;
+  const int tq = lane & 3;
+  const int rA = wc * 64 + q4 * 16 + (lane >> 2);  // tile rows rA and rA + 8
+  float acc[BN / 2], part[BN / 2];
+  uint32_t ab0[4][4], as0[4][4], ab1[4][4], as1[4][4];
+  int g = 0;
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    const WpItem it = wp_item<BN>(P, item);
+    const SplitProb& q = P.q[it.pi];
+    wp_prefetch<BN>(q, it, wc, staging, biasS);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    {
+      const int st = g % S::kStages;
+      mbar_wait(&full[st], (g / S::kStages) & 1);
+      wp_frags(ring + (size_t)st * S::kStage, rA, tq, ab0, as0);
+    }
+    // two slabs an iteration, so that each fragment set keeps its registers
+    for (int s = 0; s < it.n_slabs; s += 2) {
+      wp_slab<BN>(ring, g++, s + 1 < it.n_slabs, rA, tq, acc, part, ab0, as0, ab1, as1, full,
+                  empty);
+      if (s + 1 < it.n_slabs)
+        wp_slab<BN>(ring, g++, s + 2 < it.n_slabs, rA, tq, acc, part, ab1, as1, ab0, as0, full,
+                    empty);
+    }
+    switch (q.epi) {
+      case kEpiRelu: wp_epilogue<BN, kEpiRelu>(q, it, wc, staging, biasS, acc); break;
+      case kEpiSigmoid: wp_epilogue<BN, kEpiSigmoid>(q, it, wc, staging, biasS, acc); break;
+      case kEpiMask: wp_epilogue<BN, kEpiMask>(q, it, wc, staging, biasS, acc); break;
+      case kEpiDSigmoid: wp_epilogue<BN, kEpiDSigmoid>(q, it, wc, staging, biasS, acc); break;
+      case kEpiDRelu: wp_epilogue<BN, kEpiDRelu>(q, it, wc, staging, biasS, acc); break;
+      default: wp_epilogue<BN, kEpiNone>(q, it, wc, staging, biasS, acc); break;
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kWpThreads, 1)
+    split_gemm_kernel(const __grid_constant__ SplitProbs P) {
+  using S = WpShape<BN>;
+  extern __shared__ __align__(128) float smf[];
+  // the ring from the first 1024-byte boundary (TMA's swizzle repeats there)
+  char* base = reinterpret_cast<char*>(smf) + ((1024 - (smem_u32(smf) & 1023)) & 1023);
+  float* ring = reinterpret_cast<float*>(base);
+  float* staging = ring + (size_t)S::kStages * S::kStage;
+  float* biasS = staging + 2 * S::kStaging;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* empty = full + S::kStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(&full[i], 2);   // the copying thread, once with each copy's bytes
+      mbar_init(&empty[i], 8);  // the consumer warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int total = P.tile0[P.n];
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWpProducerRegs));
+    if (threadIdx.x == 0) wp_producer<BN>(P, total, ring, full, empty);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWpConsumerRegs));
+    const int wc = wg - 1;
+    wp_consumer<BN>(P, total, wc, ring, staging + wc * S::kStaging, biasS + wc * BN, full,
+                    empty);
+  }
+}
+
+// the weight images of a call: image i from W_i ([rows, ldw] row-major; B =
+// W, or W^T with trans) for a K x N product in tiles of bn columns
+struct SplitImage {
+  const float* W;
+  long long ldw;
+  int K, N, trans, bn;
+  float* dst;
+};
+struct SplitImages {
+  int n;
+  long long begin[kWpMaxImages + 1];  // each image's first (big, small) pair; begin[n]: all
+  SplitImage im[kWpMaxImages];
+};
+
+// words of a K x N image in tiles of bn columns
+__host__ __device__ __forceinline__ long long image_words(int K, int N, int bn) {
+  return (long long)((N + bn - 1) / bn) * ((K + kSgK - 1) / kSgK) * 2 * bn * kSgK;
+}
+
+__global__ void split_gemm_kernel(const __grid_constant__ SplitImages I) {
+  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < I.begin[I.n];
+       p += (long long)gridDim.x * blockDim.x) {
+    int i = 0;
+    while (p >= I.begin[i + 1]) ++i;
+    const SplitImage& im = I.im[i];
+    const long long e = p - I.begin[i];  // (big, small) pair e of the image
+    const int per = im.bn * kSgK;        // words of a tile's big (or small) block
+    const long long blk = e / per;
+    const int w = (int)(e - blk * per);
+    const int n_slabs = (im.K + kSgK - 1) / kSgK;
+    const int tile = (int)(blk / n_slabs), s = (int)(blk - (long long)tile * n_slabs);
+    const int n = tile * im.bn + (w >> 8) * 8 + ((w & 31) >> 2);
+    const int k = s * kSgK + ((w & 255) >> 5) * 4 + (w & 3);
+    float x = 0.0f;
+    if (n < im.N && k < im.K)
+      x = im.trans ? im.W[(size_t)n * im.ldw + k] : im.W[(size_t)k * im.ldw + n];
+    uint32_t big, small;
+    split_tf32(x, big, small);
+    float* out = im.dst + blk * 2 * per + w;
+    out[0] = __uint_as_float(big);
+    out[per] = __uint_as_float(small);
   }
 }
 
@@ -2317,7 +2727,7 @@ int encode_map(CUtensorMap* map, const float* base, int inner, int outer, long l
          CUDA_SUCCESS;
 }
 
-int read_split_probs(const long long* w, int n, int ta, int tb, int splits, SplitProbs* P) {
+int read_split_probs(const long long* w, int n, int splits, SplitProbs* P) {
   if (n < 1 || n > kSmMaxProbs) return 1;
   P->n = n;
   P->splits = splits;
@@ -2347,25 +2757,68 @@ int read_split_probs(const long long* w, int n, int ta, int tb, int splits, Spli
     q.k_per_split = (int)v[19];
     q.Cb = reinterpret_cast<float*>(v[20]);
     // TMA: operand bases and row strides aligned to 16 bytes, a row stride
-    // at least its row; every split holds at least one row of K
+    // at least its row; every split holds at least one row of K; a partial
+    // product, stored whole (no bias, epilogue or second output)
     const bool ok = q.A && q.B && q.C && q.M >= 0 && q.N > 0 && q.K > 0 && q.lda % 4 == 0 &&
-                    q.ldb % 4 == 0 && (v[0] & 15) == 0 && (v[2] & 15) == 0 &&
-                    q.lda >= (ta ? q.M : q.K) && q.ldb >= (tb ? q.K : q.N) &&
-                    q.epi >= 0 && q.epi <= 5 &&
-                    (q.epi < kEpiMask || q.aux) && (q.n_store2 == 0 || q.C2) &&
-                    q.k_per_split > 0 && q.k_per_split % kSgK == 0 &&
+                    q.ldb % 4 == 0 && (v[0] & 15) == 0 && (v[2] & 15) == 0 && q.lda >= q.M &&
+                    q.ldb >= q.N && !q.bias && q.epi == kEpiNone && !q.aux && q.n_store == q.N &&
+                    q.n_store2 == 0 && q.k_per_split > 0 && q.k_per_split % kSgK == 0 &&
                     (long long)splits * q.k_per_split >= q.K &&
                     (long long)(splits - 1) * q.k_per_split < q.K &&
                     (splits == 1 || q.c_split > 0);
     if (!ok) return 1;
-    if (q.M > 0 && (encode_map(&q.amap, q.A, ta ? q.M : q.K, ta ? q.K : q.M, q.lda,
-                               ta ? 32 : kSgM) ||
-                    encode_map(&q.bmap, q.B, tb ? q.K : q.N, tb ? q.N : q.K, q.ldb,
-                               tb ? kSgN : 32)))
+    if (q.M > 0 && (encode_map(&q.amap, q.A, q.M, q.K, q.lda, 32) ||
+                    encode_map(&q.bmap, q.B, q.N, q.K, q.ldb, 32)))
       return 1;
     P->tile0[i + 1] = P->tile0[i] + ((q.M + kSgM - 1) / kSgM) * ((q.N + kSgN - 1) / kSgN);
   }
   return 0;
+}
+
+// the weight products' 17-word records (split_wmm_launch) in tiles of bn
+// columns; 1 if a record is malformed
+int read_weight_probs(const long long* w, int n, int bn, SplitProbs* P) {
+  if (n < 1 || n > kSmMaxProbs || bn < 16 || bn > kSgN || bn % 16) return 1;
+  P->n = n;
+  P->splits = 1;
+  P->tile0[0] = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* v = w + 17 * i;
+    SplitProb q{};
+    q.A = reinterpret_cast<const float*>(v[0]);
+    q.lda = v[1];
+    q.B = reinterpret_cast<const float*>(v[2]);
+    q.C = reinterpret_cast<float*>(v[3]);
+    q.ldc = v[4];
+    q.M = (int)v[5];
+    q.N = (int)v[6];
+    q.K = (int)v[7];
+    q.bias = reinterpret_cast<const float*>(v[8]);
+    q.epi = (int)v[9];
+    q.aux = reinterpret_cast<const float*>(v[10]);
+    q.ldaux = v[11];
+    q.aux_n = (int)v[12];
+    q.n_store = (int)v[13];
+    q.C2 = reinterpret_cast<float*>(v[14]);
+    q.ldc2 = v[15];
+    q.n_store2 = (int)v[16];
+    q.k_per_split = q.K;
+    // TMA: A's base and row stride aligned to 16 bytes, the stride at least
+    // its row; the image's blocks on 16-byte boundaries
+    const bool ok = q.A && q.B && q.C && q.M >= 0 && q.N > 0 && q.K > 0 && q.lda % 4 == 0 &&
+                    (v[0] & 15) == 0 && (v[2] & 15) == 0 && q.lda >= q.K && q.epi >= 0 &&
+                    q.epi <= 5 && (q.epi < kEpiMask || q.aux) && (q.n_store2 == 0 || q.C2);
+    if (!ok) return 1;
+    if (q.M > 0 && encode_map(&q.amap, q.A, q.K, q.M, q.lda, kSgM)) return 1;
+    P->q[i] = q;
+    P->tile0[i + 1] = P->tile0[i] + ((q.M + kSgM - 1) / kSgM) * ((q.N + bn - 1) / bn);
+  }
+  return 0;
+}
+
+int grid_of_images(long long pairs) {
+  const long long b = (pairs + 255) / 256;
+  return (int)(b < 2048 ? (b > 0 ? b : 1) : 2048);
 }
 
 }  // namespace
@@ -2511,25 +2964,18 @@ extern "C" int dw_finish_launch(const long long* meta, int n, const void* acts,
 // the split-operand f32 mode (fused_mlp._SplitOps lists the launches)
 // ---------------------------------------------------------------------------
 
-// probs: n_probs records of 21 int64 (fused_mlp._SplitOps.mm): A, lda, B,
-// ldb, C, ldc, M, N, K, bias, epi, aux, ldaux, aux_n, n_store, C2, ldc2,
-// n_store2, c_split, k_per_split, Cb; ta / tb: A stored [K, M] / B stored
-// [N, K]; ctas: the persistent grid's most CTAs (one an SM)
-extern "C" int split_mm_launch(const long long* probs, int n_probs, int ta, int tb, int splits,
-                               int ctas, void* stream) {
+// The dW contraction: probs, n_probs records of 21 int64 (fused_mlp._SplitOps.dw):
+// A, lda, B, ldb, C, ldc, M, N, K, bias, epi, aux, ldaux, aux_n, n_store, C2,
+// ldc2, n_store2, c_split, k_per_split, Cb (no bias, epilogue or C2); A
+// stored [K, M], B [K, N], C = A^T B in `splits` row splits; ctas: the
+// persistent grid's most CTAs (one an SM)
+extern "C" int split_mm_launch(const long long* probs, int n_probs, int splits, int ctas,
+                               void* stream) {
   SplitProbs P;
-  if (splits < 1 || ctas < 1 || read_split_probs(probs, n_probs, ta, tb, splits, &P))
+  if (splits < 1 || ctas < 1 || read_split_probs(probs, n_probs, splits, &P))
     return (int)cudaErrorInvalidValue;
-  void (*kernel)(SplitProbs) = nullptr;
+  void (*kernel)(SplitProbs) = split_gemm_kernel;
   const size_t smem = kSgSmem;
-  if (!ta && !tb)
-    kernel = split_gemm_kernel<false, false>;
-  else if (!ta && tb)
-    kernel = split_gemm_kernel<false, true>;
-  else if (ta && !tb)
-    kernel = split_gemm_kernel<true, false>;
-  else
-    return (int)cudaErrorInvalidValue;
   int err = prepare(kernel, smem);
   if (err) return err;
   // setmaxnreg moves registers between the CTA's warpgroups: the kernel must
@@ -2542,6 +2988,84 @@ extern "C" int split_mm_launch(const long long* probs, int n_probs, int ta, int 
   const long long total = (long long)P.tile0[P.n] * splits;
   if (total == 0) return 0;
   kernel<<<(int)(total < ctas ? total : ctas), kSgThreads, smem, (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// the kernel's shared memory and register check (as split_mm_launch's), once
+// a device for each variant: the weight path launches a few dozen times a step
+template <int BN>
+int wmm_prepare() {
+  static int ready = -1;  // the device it was prepared on
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || ready == dev) return err;
+  void (*kernel)(SplitProbs) = split_gemm_kernel<BN>;
+  err = prepare(kernel, WpShape<BN>::kSmem);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  if (attr.numRegs * kWpThreads < kWpProducerRegs * 128 + kWpConsumerRegs * 256)
+    return (int)cudaErrorInvalidConfiguration;
+  ready = dev;
+  return 0;
+}
+
+template <int BN>
+int wmm_launch(const SplitProbs& P, int ctas, cudaStream_t stream) {
+  void (*kernel)(SplitProbs) = split_gemm_kernel<BN>;
+  const int err = wmm_prepare<BN>();
+  if (err) return err;
+  const int total = P.tile0[P.n];
+  if (total == 0) return 0;
+  kernel<<<total < ctas ? total : ctas, kWpThreads, WpShape<BN>::kSmem, stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// The weight products: probs, n_probs records of 17 int64
+// (fused_mlp._SplitOps.mm): A, lda, image, C, ldc, M, N, K, bias, epi, aux,
+// ldaux, aux_n, n_store, C2, ldc2, n_store2; A [M, K] row-major, the image of
+// B [K, N] in tiles of bn columns (split_image_launch)
+extern "C" int split_wmm_launch(const long long* probs, int n_probs, int bn, int ctas,
+                                void* stream) {
+  SplitProbs P;
+  if (ctas < 1 || read_weight_probs(probs, n_probs, bn, &P)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bn) {
+    case 16: return wmm_launch<16>(P, ctas, st);
+    case 32: return wmm_launch<32>(P, ctas, st);
+    case 64: return wmm_launch<64>(P, ctas, st);
+    case 96: return wmm_launch<96>(P, ctas, st);
+    case 128: return wmm_launch<128>(P, ctas, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The weight images of a call: recs, n records of 7 int64
+// (fused_mlp._SplitOps.images): W, ldw, K, N, trans, bn, dst; dst holds
+// image_words(K, N, bn) floats
+extern "C" int split_image_launch(const long long* recs, int n, void* stream) {
+  if (n < 1 || n > kWpMaxImages) return (int)cudaErrorInvalidValue;
+  SplitImages I{};
+  I.n = n;
+  I.begin[0] = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* v = recs + 7 * i;
+    SplitImage& im = I.im[i];
+    im.W = reinterpret_cast<const float*>(v[0]);
+    im.ldw = v[1];
+    im.K = (int)v[2];
+    im.N = (int)v[3];
+    im.trans = (int)v[4];
+    im.bn = (int)v[5];
+    im.dst = reinterpret_cast<float*>(v[6]);
+    const bool ok = im.W && im.dst && im.K > 0 && im.N > 0 && (im.trans == 0 || im.trans == 1) &&
+                    im.ldw >= (im.trans ? im.K : im.N) &&
+                    (im.bn == 16 || im.bn == 32 || im.bn == 64 || im.bn == 96 || im.bn == 128);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    I.begin[i + 1] = I.begin[i] + image_words(im.K, im.N, im.bn) / 2;
+  }
+  split_gemm_kernel<<<grid_of_images(I.begin[n]), 256, 0, (cudaStream_t)stream>>>(I);
   return (int)cudaGetLastError();
 }
 

@@ -35,11 +35,13 @@ gradient after each product, where the kernels round the delta before it.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from vdnerf_tpu_torch.models.embedder import embed, freqs
 from vdnerf_tpu_torch.ops.kernels import build
+from vdnerf_tpu_torch.utils import trace
 
 _MODES = {"idr": 0, "no_view_dir": 1, "no_normal": 2}
 
@@ -748,13 +750,88 @@ def _nerf_bwd_launch(plan, pts, views, trunk_w, trunk_b, head_w, head_b,
 # mask or the output's delta), the activations and deltas live in f32 [n,
 # width] buffers between launches, and every layer's dW, with its db summed
 # in the same pass, is one grouped, row-split launch summed in split order by
-# one reduction. The schedules below list the launches on an ``ops`` object:
-# ``_SplitOps`` launches them on the card; a test may pass one that computes
-# them in torch, to hold the schedules to the plain versions on the CPU.
+# one reduction. A weight product (every forward and dx one) reads its B from
+# a split image of the layer's weights, made for every layer and orientation
+# of a call by one launch at its start (``SplitImage``); the contraction's B,
+# a delta, is split as it is read. The schedules below list the launches on
+# an ``ops`` object: ``_SplitOps`` launches them on the card; a test may pass
+# one that computes them in torch, to hold the schedules to the plain
+# versions on the CPU.
 
 EPI_NONE, EPI_RELU, EPI_SIGMOID, EPI_MASK, EPI_DSIGMOID, EPI_DRELU = range(6)
-# the split kernel's tile: 128 output rows x 128 columns, 32-deep slabs
+# the contraction's tile: 128 output rows x 128 columns, 32-deep slabs
 _SPLIT_TILE = (128, 128, 32)
+# the weight path's tile widths (wgmma N), narrowest first
+WEIGHT_TILES = (16, 32, 64, 96, 128)
+
+
+def split_tile(n: int) -> int:
+    """The weight path's tile width for an output of ``n`` columns: the
+    narrowest of ``WEIGHT_TILES`` that holds it; past 128 columns whichever
+    of 96 and 128 pads the output least (128 on a tie)."""
+    for bn in WEIGHT_TILES[:-1]:
+        if n <= bn:
+            return bn
+    return min((128, 96), key=lambda bn: -(-n // bn) * bn)
+
+
+def image_words(K: int, N: int, bn: int) -> int:
+    """Words of a K x N weight image in tiles of ``bn`` columns: a (tile,
+    32-deep slab) block of big then small tf32, 2 * bn * 32 words each."""
+    return -(-N // bn) * -(-K // 32) * 2 * bn * 32
+
+
+class SplitImage(NamedTuple):
+    """B of a weight product as split_gemm_kernel's weight path reads it:
+    ``w`` (a layer's packed [Kp, Np] weights), or its transpose for a dx
+    product (``trans``), split into big and small tf32 in tiles of ``bn``
+    columns (:func:`split_image_plain` writes the same words). On the card
+    the image lies in ``buf`` (the call's images, one allocation) from word
+    ``off``; a stand-in that computes from ``w`` has no ``buf``."""
+
+    buf: torch.Tensor | None
+    off: int
+    w: torch.Tensor
+    trans: bool
+    bn: int
+
+    @property
+    def K(self) -> int:
+        return self.w.shape[1] if self.trans else self.w.shape[0]
+
+    @property
+    def N(self) -> int:
+        return self.w.shape[0] if self.trans else self.w.shape[1]
+
+    @property
+    def t(self) -> torch.Tensor:
+        """The image's words."""
+        return self.buf[self.off:self.off + image_words(self.K, self.N, self.bn)]
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' split_tf32: big = x rounded to tf32 (to nearest, ties
+    away), small = x - big cut to tf32."""
+    big = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return big, ((x - big).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_image_plain(w: torch.Tensor, trans: bool, bn: int) -> torch.Tensor:
+    """The weight image split_gemm_kernel(SplitImages) writes, in torch: for
+    column tile j and slab s, block j * n_slabs + s holds B's big tf32 tile,
+    then its small one, element (k, n) of each at (n / 8) * 256 + (k / 4) *
+    32 + (n % 8) * 4 + k % 4 (wgmma's K-major core matrices); zero past B."""
+    B = w.t() if trans else w
+    K, N = B.shape
+    tiles, slabs = -(-N // bn), -(-K // 32)
+    padded = torch.zeros(slabs * 32, tiles * bn, dtype=torch.float32, device=w.device)
+    padded[:K, :N] = B
+    big, small = split_tf32(padded)
+    # [k, n] -> [tile, slab, n / 8, k / 4, n % 8, k % 4]
+    def order(x):
+        return (x.view(slabs, 8, 4, tiles, bn // 8, 8).permute(3, 0, 4, 1, 5, 2)
+                .reshape(tiles, slabs, bn * 32))
+    return torch.stack([order(big), order(small)], 2).reshape(-1)
 
 
 def split_dw_plan(n: int, layers, sms: int) -> tuple[int, int]:
@@ -783,7 +860,9 @@ class _SplitOps:
     ``name`` (``render_fwd_f32``, ...). Each launch adds one to
     ``build.LAUNCHES[name]`` where it is made, a launch of the dW contraction
     (:meth:`dw`: the products with the bias columns' sums, one reduction) to
-    ``dw_contract_f32``; each launcher runs one grid."""
+    ``dw_contract_f32``; each launcher runs one grid. The program counters
+    ``split_gemm.weights_bn<width>`` (a weight product, by tile width) and
+    ``split_gemm.contraction`` count the product launches by path."""
 
     def __init__(self, device, name):
         self.device = device
@@ -796,18 +875,36 @@ class _SplitOps:
         build.LAUNCHES[counter or self.name] += 1
         build.check(err, what)
 
-    def mm(self, A, B, C, *, ta=False, tb=False, bias=None, epi=EPI_NONE, aux=None, aux_n=0,
-           n_store=None, C2=None, n_store2=0):
-        """C[:, :n_store] (then C2[:, :n_store2]) <- epi(op(A) op(B) + bias):
-        A [M, K] (ta: stored [K, M]), B [K, N] (tb: stored [N, K])."""
-        M, K = (A.shape[1], A.shape[0]) if ta else A.shape
-        N = B.shape[0] if tb else B.shape[1]
-        rec = [A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), C.data_ptr(), C.stride(0),
-               M, N, K, _ptr(bias), epi, _ptr(aux), _ld(aux), aux_n,
-               N if n_store is None else n_store, _ptr(C2), _ld(C2), n_store2, 0,
-               -(-K // 32) * 32, 0]
-        self._launched(self.lib.split_mm_launch(build.int64_array(rec), 1, int(ta), int(tb), 1,
-                                                self.sms, self.stream), "split_mm")
+    def images(self, pairs):
+        """[(w, trans)] -> their ``SplitImage``s, made by one launch."""
+        shapes = [((w.shape[1], w.shape[0]) if trans else tuple(w.shape)) for w, trans in pairs]
+        bns = [split_tile(N) for _, N in shapes]
+        sizes = [image_words(K, N, bn) for (K, N), bn in zip(shapes, bns)]
+        buf = torch.empty(sum(sizes), device=self.device)
+        base = buf.data_ptr()
+        imgs, rec, at = [], [], 0
+        for (w, trans), (K, N), bn, size in zip(pairs, shapes, bns, sizes):
+            imgs.append(SplitImage(buf, at, w, trans, bn))
+            rec += [w.data_ptr(), w.stride(0), K, N, int(trans), bn, base + 4 * at]
+            at += size
+        self._launched(self.lib.split_image_launch(build.int64_array(rec), len(pairs),
+                                                   self.stream), "split_image")
+        return imgs
+
+    def mm(self, A, img, C, *, bias=None, epi=EPI_NONE, aux=None, aux_n=0, n_store=None,
+           C2=None, n_store2=0):
+        """C[:, :n_store] (then C2[:, :n_store2]) <- epi(A B + bias): A [M, K],
+        B [K, N] the weights of ``img`` (a ``SplitImage``)."""
+        M, K = A.shape
+        N = img.N
+        if K != img.K:
+            raise ValueError(f"split_mm: A has {K} columns, the image {img.K} rows")
+        rec = [A.data_ptr(), A.stride(0), img.buf.data_ptr() + 4 * img.off, C.data_ptr(),
+               C.stride(0), M, N, K, _ptr(bias), epi, _ptr(aux), _ld(aux), aux_n,
+               N if n_store is None else n_store, _ptr(C2), _ld(C2), n_store2]
+        trace.count(f"split_gemm.weights_bn{img.bn}")
+        self._launched(self.lib.split_wmm_launch(build.int64_array(rec), 1, img.bn, self.sms,
+                                                 self.stream), "split_mm")
 
     def embed(self, src, freqs, dst):
         """dst [n, width] <- src's embedding (``freqs`` bands; 0 copies), zero
@@ -845,8 +942,9 @@ class _SplitOps:
                      part.data_ptr() + 4 * woff, Np, Kp, Np, n, 0, EPI_NONE, 0, 0, 0, Np, 0, 0,
                      0, total_w + total_b, rows, part.data_ptr() + 4 * (total_w + boff)]
         lib, st, dw = self.lib, self.stream, "dw_contract_f32"
-        self._launched(lib.split_mm_launch(build.int64_array(recs), len(layers), 1, 0, splits,
-                                           self.sms, st), "split_dw", dw)
+        trace.count("split_gemm.contraction")
+        self._launched(lib.split_mm_launch(build.int64_array(recs), len(layers), splits, self.sms,
+                                           st), "split_dw", dw)
         self._launched(lib.split_reduce_launch(part.data_ptr(), splits, total_w + total_b,
                                                out.data_ptr(), st), "split_dw_reduce", dw)
         return out[:total_w], out[total_w:]
@@ -883,34 +981,35 @@ def split_render(ops, plan, pts, normals, dirs, feat, packed, g=None):
     if mode != "no_normal":
         ops.embed(normals, 0, x[:, c_nrm:c_nrm + 3])
     ops.embed(feat, 0, x[:, c_feat:])
+    ws, bs = zip(*(_w_of(W, B, layer) for layer in layers))
+    imgs = ops.images([(w, False) for w in ws] + ([(w, True) for w in ws] if g is not None else []))
     acts = [x]
-    for l, layer in enumerate(layers):
-        w, b = _w_of(W, B, layer)
+    for l, (layer, b) in enumerate(zip(layers, bs)):
         N, Np = layer[1], layer[3]
         if l + 1 < L:
             x = torch.empty(n, Np, device=dev)
-            ops.mm(acts[-1], w, x, bias=b, epi=EPI_RELU)
+            ops.mm(acts[-1], imgs[l], x, bias=b, epi=EPI_RELU)
             acts.append(x)
             if g is None:
                 acts[-2] = None
         elif g is None:
             out = torch.empty(n, N, device=dev)
-            ops.mm(acts[-1], w, out, bias=b, epi=EPI_SIGMOID if squeeze else EPI_RELU, n_store=N)
+            ops.mm(acts[-1], imgs[l], out, bias=b, epi=EPI_SIGMOID if squeeze else EPI_RELU,
+                   n_store=N)
             return out
         else:
             d = torch.empty(n, Np, device=dev)
-            ops.mm(acts[-1], w, d, bias=b, epi=EPI_DSIGMOID if squeeze else EPI_DRELU, aux=g,
-                   aux_n=N)
+            ops.mm(acts[-1], imgs[l], d, bias=b, epi=EPI_DSIGMOID if squeeze else EPI_DRELU,
+                   aux=g, aux_n=N)
     dels = [None] * L
     dels[L - 1] = d
     for l in range(L - 1, -1, -1):
-        w, _ = _w_of(W, B, layers[l])
         dx = torch.empty(n, layers[l][2], device=dev)
         if l > 0:
-            ops.mm(dels[l], w, dx, tb=True, epi=EPI_MASK, aux=acts[l], aux_n=layers[l][2])
+            ops.mm(dels[l], imgs[L + l], dx, epi=EPI_MASK, aux=acts[l], aux_n=layers[l][2])
             dels[l - 1] = dx
         else:
-            ops.mm(dels[0], w, dx, tb=True)
+            ops.mm(dels[0], imgs[L], dx)
     d_pts = torch.empty(n, 3, device=dev)
     ops.embed_vjp([dx[:, :3]], pts, 0, d_pts)
     d_dirs = torch.zeros(n, 3, device=dev)
@@ -947,24 +1046,26 @@ def split_nerf(ops, pts, views, packed, grads_out=None):
         ops.embed(pts, multires, X[i][:, wt:])
     X[T + 1] = torch.empty(n, layers[T + 1][2], device=dev)
     ops.embed(views, multires_view, X[T + 1][:, wf:])
+    ws, bs = zip(*(_w_of(W, B, layer) for layer in layers))
+    # the forward's images (the backward's recompute stops before [rgb | dpt]),
+    # then the backward's dx images, layer by layer
+    fwd = ops.images([(w, False) for w in ws[:T + 2 if bwd else T + 3]]
+                     + ([(w, True) for w in ws] if bwd else []))
+    dxs = fwd[T + 2:] if bwd else None
     for i in range(T):
-        w, b = _w_of(W, B, layers[i])
         if X[i + 1] is None:
             X[i + 1] = torch.empty(n, layers[i][3], device=dev)
-        ops.mm(X[i], w, X[i + 1], bias=b, epi=EPI_RELU, n_store=wt)
+        ops.mm(X[i], fwd[i], X[i + 1], bias=bs[i], epi=EPI_RELU, n_store=wt)
         if not bwd:
             X[i] = None
     alpha = torch.empty(n, 1, device=dev)
-    w, b = _w_of(W, B, layers[T])
-    ops.mm(X[T], w, X[T + 1], bias=b, n_store=wf, C2=alpha, n_store2=1)
+    ops.mm(X[T], fwd[T], X[T + 1], bias=bs[T], n_store=wf, C2=alpha, n_store2=1)
     X[T + 2] = torch.empty(n, layers[T + 1][3], device=dev)
-    w, b = _w_of(W, B, layers[T + 1])
-    ops.mm(X[T + 1], w, X[T + 2], bias=b, epi=EPI_RELU)
+    ops.mm(X[T + 1], fwd[T + 1], X[T + 2], bias=bs[T + 1], epi=EPI_RELU)
     if not bwd:
         rgb = torch.empty(n, d_rgb, device=dev)
         dpt = torch.empty(n, d_dpt, device=dev) if d_dpt else None
-        w, b = _w_of(W, B, layers[T + 2])
-        ops.mm(X[T + 2], w, rgb, bias=b, n_store=d_rgb, C2=dpt, n_store2=d_dpt)
+        ops.mm(X[T + 2], fwd[T + 2], rgb, bias=bs[T + 2], n_store=d_rgb, C2=dpt, n_store2=d_dpt)
         return alpha, rgb, dpt
     g_alpha, g_rgb, g_dpt = grads_out
     D = [None] * (T + 3)  # each layer's delta, [n, Np] views
@@ -976,11 +1077,9 @@ def split_nerf(ops, pts, views, packed, grads_out=None):
         ops.embed(g_rgb, 0, D[T + 2])
     # views0's delta under its relu mask, then its dx: [d_feature | d_emb_view]
     D[T + 1] = torch.empty(n, layers[T + 2][2], device=dev)
-    w, _ = _w_of(W, B, layers[T + 2])
-    ops.mm(D[T + 2], w, D[T + 1], tb=True, epi=EPI_MASK, aux=X[T + 2], aux_n=layers[T + 2][2])
+    ops.mm(D[T + 2], dxs[T + 2], D[T + 1], epi=EPI_MASK, aux=X[T + 2], aux_n=layers[T + 2][2])
     dv = torch.empty(n, layers[T + 1][2], device=dev)
-    w, _ = _w_of(W, B, layers[T + 1])
-    ops.mm(D[T + 1], w, dv, tb=True)
+    ops.mm(D[T + 1], dxs[T + 1], dv)
     D[T] = torch.empty(n, layers[T][3], device=dev)
     ops.embed(dv[:, :wf], 0, D[T][:, :wf])
     ops.embed(g_alpha, 0, D[T][:, wf:])
@@ -988,15 +1087,13 @@ def split_nerf(ops, pts, views, packed, grads_out=None):
     # first wt columns; a skip input's embedding columns unmasked)
     skip_dx = []  # the embedding columns of the skip inputs' dx, deepest first
     for i in range(T, 0, -1):
-        w, _ = _w_of(W, B, layers[i])
         dx = torch.empty(n, layers[i][2], device=dev)
-        ops.mm(D[i], w, dx, tb=True, epi=EPI_MASK, aux=X[i], aux_n=wt)
+        ops.mm(D[i], dxs[i], dx, epi=EPI_MASK, aux=X[i], aux_n=wt)
         D[i - 1] = dx[:, :wt]
         if i in skip_in:
             skip_dx.append(dx[:, wt:])
     dx0 = torch.empty(n, layers[0][2], device=dev)
-    w, _ = _w_of(W, B, layers[0])
-    ops.mm(D[0], w, dx0, tb=True)
+    ops.mm(D[0], dxs[0], dx0)
     e_a = _emb_width(d_a, multires)
     d_pts = torch.empty(n, d_a, device=dev)
     ops.embed_vjp([s[:, :e_a] for s in skip_dx] + [dx0[:, :e_a]], pts, multires, d_pts)

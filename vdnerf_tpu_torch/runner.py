@@ -140,7 +140,9 @@ def mesh_resolution(step: int) -> tuple[int, bool]:
 def log_programs() -> None:
     """One log line: each step program's captures, eager steps and replays
     (``train/dispatch.py``'s counters), the SDF block's calls by route
-    (``sdf_block.fused``, ``sdf_block.autograd``: ``models/fields.py``), and
+    (``sdf_block.fused``, ``sdf_block.autograd``: ``models/fields.py``), the
+    split mode's product launches by path (``split_gemm.*``:
+    ``ops/kernels/fused_mlp.py``; a captured step counts when captured), and
     the host seconds of the ``data.*``, ``dispatch.*`` and ``setup.*`` spans,
     in this process."""
     programs: dict[str, dict[str, int]] = {}
@@ -150,9 +152,12 @@ def log_programs() -> None:
         if name.startswith("dispatch."):
             programs.setdefault(program, {})[what] = n
     sdf = {route: counts.get(f"sdf_block.{route}", 0) for route in ("fused", "autograd")}
+    split = {name.partition(".")[2]: n for name, n in sorted(counts.items())
+             if name.startswith("split_gemm.")}
     spans = {name: round(s, 3) for name, (_, s) in trace.host().items()
              if name.split(".")[0] in ("data", "dispatch", "setup")}
-    log.info("step programs %s; SDF block calls %s; host seconds %s", programs, sdf, spans)
+    log.info("step programs %s; SDF block calls %s; split products %s; host seconds %s",
+             programs, sdf, split, spans)
 
 
 def window_size(tcfg: TrainConfig, res_step: int, iter_step: int,

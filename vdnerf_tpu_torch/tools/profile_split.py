@@ -12,12 +12,13 @@ call it reports:
 - the steady-state ms of one call through its wrapper (CUDA events over
   ``--iters`` calls, after a warm-up);
 - every launch of the call in the order the wrapper makes it, named by what
-  it does (``split_mm MxNxK`` with its transposes and epilogue, the embeds
-  and their VJPs, each launch of the dW contraction), with its device ms
-  under ``torch.profiler``, averaged over ``--iters`` profiled calls;
-- the launches' sum by kind (forward recomputes, dx products, embeds, the
-  contraction), and the call's time outside its launches (the wrapper's
-  packing and the host).
+  it does (the call's weight images, ``split_mm MxNxK`` with ``tb`` for a
+  dx product, its epilogue and tile width, the embeds and their VJPs, each
+  launch of the dW contraction), with its device ms under
+  ``torch.profiler``, averaged over ``--iters`` profiled calls;
+- the launches' sum by kind (weight images, forward recomputes, dx
+  products, embeds, the contraction), and the call's time outside its
+  launches (the wrapper's packing and the host).
 
 Prints one JSON line, with the card's name and power limit; ``--out`` also
 writes it to a file. Needs a CUDA device; with none it exits non-zero.
@@ -67,12 +68,11 @@ class _Labels:
     def __enter__(self):
         labels = self
 
-        def mm(ops, A, B, C, *, ta=False, tb=False, epi=fused_mlp.EPI_NONE, **k):
-            M, K = (A.shape[1], A.shape[0]) if ta else A.shape
-            N = B.shape[0] if tb else B.shape[1]
-            labels._pending.append(f" {M}x{N}x{K}{' ta' if ta else ''}{' tb' if tb else ''}"
-                                   f" {EPI[epi]}")
-            return labels._mm(ops, A, B, C, ta=ta, tb=tb, epi=epi, **k)
+        def mm(ops, A, img, C, *, epi=fused_mlp.EPI_NONE, **k):
+            M, K = A.shape
+            labels._pending.append(f" {M}x{img.N}x{K}{' tb' if img.trans else ''} {EPI[epi]}"
+                                   f" bn{img.bn}")
+            return labels._mm(ops, A, img, C, epi=epi, **k)
 
         def launched(ops, err, what, counter=None):
             extra = labels._pending.pop() if what == "split_mm" and labels._pending else ""
@@ -93,6 +93,8 @@ def _kind(name: str) -> str:
         return "dx products" if " tb" in name else "forward products"
     if name.startswith("split_embed"):
         return "embeds and their VJPs"
+    if name.startswith("split_image"):
+        return "weight images"
     return "dW contraction"
 
 
